@@ -1,0 +1,52 @@
+"""bhr_tpu_torch: the PyTorch and CUDA port of bhr_tpu, the general-
+relativistic black-hole raytracer, for NVIDIA Hopper GPUs.
+
+It renders bhr_tpu's main path -- semi-implicit Euler on the Schwarzschild
+metric, the analytic star field, packed RGBA output -- through one CUDA
+kernel written for sm_90a (csrc/render_mono.cu), in the fast and the exact
+math tier, with a plain PyTorch version of the same frame beside it. It
+imports torch and never jax; bhr_tpu stays the reference it is tested
+against.
+"""
+
+from .animation import OrbitAnimator
+from .core.camera import Camera, generate_rays, orbit_camera
+from .core.math import cross, normalize
+from .core.scene import (
+    CAPTURE_FACTOR,
+    DEBUG_NONE,
+    DEBUG_STEPS,
+    DEFAULT_DT,
+    ESCAPE_RADIUS,
+    SceneParams,
+)
+from .from_numpy import camera_from_numpy, scene_from_numpy
+from .ops.trace import TraceConfig, TraceResult, trace_rays
+from .renderer import BlackHoleRenderer, CudaContext, GpuContext, TpuContext, render_image
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BlackHoleRenderer",
+    "CAPTURE_FACTOR",
+    "Camera",
+    "CudaContext",
+    "DEBUG_NONE",
+    "DEBUG_STEPS",
+    "DEFAULT_DT",
+    "ESCAPE_RADIUS",
+    "GpuContext",
+    "OrbitAnimator",
+    "SceneParams",
+    "TpuContext",
+    "TraceConfig",
+    "TraceResult",
+    "camera_from_numpy",
+    "cross",
+    "generate_rays",
+    "normalize",
+    "orbit_camera",
+    "render_image",
+    "scene_from_numpy",
+    "trace_rays",
+]

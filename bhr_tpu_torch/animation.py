@@ -1,0 +1,49 @@
+"""Animation: orbiting-camera frames rendered back to back on the device
+(PyTorch port of bhr_tpu/animation.py; reference: src/main.rs:851-869,
+angle = t * 0.3 rad/s, radius 15, height 5, looking at the origin).
+
+Where bhr_tpu fuses the frames into one lax.scan, the port launches the
+monolithic kernel once per frame into one preallocated (F, H, W) tensor.
+The cameras and kernel parameters are computed on the host and passed by
+value, so no frame waits for the device. The animation is a pure function
+of the frame index, so `start_frame` resumes a run exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .core.camera import orbit_camera
+from .ops.sampling import unpack_frame
+from .ops.trace_kernel import render_packed
+from .renderer import BlackHoleRenderer
+
+
+class OrbitAnimator:
+    """Orbiting-camera animation driver (the reference app's path)."""
+
+    def __init__(self, renderer: BlackHoleRenderer, rotation_speed: float = 0.3,
+                 radius: float = 15.0, height: float = 5.0):
+        self.renderer = renderer
+        self.rotation_speed = rotation_speed
+        self.radius = radius
+        self.height = height
+
+    def frame_times(self, n_frames: int, fps: float = 60.0, start_frame: int = 0) -> torch.Tensor:
+        """fp32 times of frames start_frame .. start_frame + n_frames - 1."""
+        idx = torch.arange(start_frame, start_frame + n_frames, dtype=torch.float32)
+        return idx / torch.tensor(fps, dtype=torch.float32)
+
+    def render_frames(self, n_frames: int, fps: float = 60.0, start_frame: int = 0,
+                      scene=None, packed: bool = False) -> torch.Tensor:
+        """Frames on the renderer's device: uint8 (F, H, W, 4), or packed
+        int32 (F, H, W) when `packed`. Does not wait for the device."""
+        r = self.renderer
+        scene = r.frame_scene(scene)
+        frames = torch.empty((n_frames, r.height, r.width), dtype=torch.int32, device=r.device)
+        for k, t in enumerate(self.frame_times(n_frames, fps, start_frame)):
+            cam = orbit_camera(t, radius=self.radius, height=self.height,
+                               rotation_speed=self.rotation_speed)
+            render_packed(cam, scene, r.config, seed=r.skybox_seed, fast_math=r.fast_math,
+                          device=r.device, out=frames[k])
+        return frames if packed else unpack_frame(frames)

@@ -1,0 +1,121 @@
+"""Camera data model and ray generation (PyTorch port of
+bhr_tpu/core/camera.py; reference: src/lib.rs:15-59 and the ray-gen block
+of src/ray_tracer_euler.wgsl:183-198)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .math import cross, dot, normalize
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """Pinhole camera basis. All fields are fp32[3] tensors.
+
+    Matches the field semantics of reference src/lib.rs:17-26.
+    """
+
+    position: torch.Tensor
+    forward: torch.Tensor
+    right: torch.Tensor
+    up: torch.Tensor
+
+    @classmethod
+    def new(cls, position, look_at, up, *, device="cpu") -> "Camera":
+        """Look-at constructor (reference: src/lib.rs:35-59).
+
+        forward = normalize(look_at - position)
+        right   = normalize(forward x up)
+        up      = normalize(right x forward)
+        """
+        position = torch.as_tensor(position, dtype=_F32, device=device)
+        look_at = torch.as_tensor(look_at, dtype=_F32, device=device)
+        up = torch.as_tensor(up, dtype=_F32, device=device)
+        forward = normalize(look_at - position)
+        right = normalize(cross(forward, up))
+        up_ortho = normalize(cross(right, forward))
+        return cls(position=position, forward=forward, right=right, up=up_ortho)
+
+    look_at = new
+
+    @classmethod
+    def default(cls, *, device="cpu") -> "Camera":
+        """Default library camera (reference: src/lib.rs:354-358)."""
+        return cls.new([0.0, 5.0, 15.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], device=device)
+
+    def to(self, device) -> "Camera":
+        return Camera(*(getattr(self, f.name).to(device) for f in dataclasses.fields(self)))
+
+
+def generate_rays(
+    camera: Camera,
+    width: int,
+    height: int,
+    fov,
+    *,
+    device=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel primary rays for a (height, width) image on `device`
+    (default: the camera's device).
+
+    Mirrors the shader's ray-gen exactly (reference: wgsl:183-198):
+      u = (x / W - 0.5) *  2 * aspect     (pixel index, NOT pixel center)
+      v = (y / H - 0.5) * -2              (Y flipped)
+      dir = normalize(fwd + right*u*tan(fov/2) + up*v*tan(fov/2))
+
+    Returns (origins, directions), each fp32[height, width, 3].
+    tan(fov/2) and the aspect ratio are computed where `fov` lives (the
+    host, by default), exactly as ops/trace_kernel.build_params computes
+    them for the kernel. Every division has a tensor divisor on `device`:
+    CUDA turns division by a host scalar into a multiply by its reciprocal,
+    which rounds differently.
+    """
+    device = camera.position.device if device is None else torch.device(device)
+    fov = torch.as_tensor(fov, dtype=_F32)
+    wf = torch.tensor(float(width), dtype=_F32)
+    hf = torch.tensor(float(height), dtype=_F32)
+    aspect = (wf / hf).to(device)
+    fov_factor = torch.tan(fov * 0.5).to(device)
+    xs = torch.arange(width, dtype=_F32, device=device)
+    ys = torch.arange(height, dtype=_F32, device=device)
+    u = (xs / wf.to(device) - 0.5) * 2.0
+    v = (ys / hf.to(device) - 0.5) * -2.0
+    u = u * aspect
+    vv, uu = torch.meshgrid(v, u, indexing="ij")  # (H, W)
+    cam = camera.to(device)
+    d = (
+        cam.forward
+        + cam.right * (uu * fov_factor)[..., None]
+        + cam.up * (vv * fov_factor)[..., None]
+    )
+    d = d / torch.sqrt(dot(d, d))[..., None]
+    origins = cam.position.expand(d.shape)
+    return origins, d
+
+
+def orbit_camera(t, radius=15.0, height=5.0, rotation_speed=0.3, *, device="cpu") -> Camera:
+    """Equatorial orbit camera as a pure function of time.
+
+    Mirrors the app's animation loop (reference: src/main.rs:851-869):
+    angle = t * 0.3 rad/s, camera at (r*cos, h, r*sin), always looking at the
+    origin with +Y up.
+    """
+    t = torch.as_tensor(t, dtype=_F32, device=device)
+    angle = t * torch.tensor(rotation_speed, dtype=_F32, device=device)
+    r = torch.tensor(radius, dtype=_F32, device=device)
+    pos = torch.stack(
+        [
+            r * torch.cos(angle),
+            torch.tensor(height, dtype=_F32, device=device).expand(angle.shape),
+            r * torch.sin(angle),
+        ],
+        dim=-1,
+    )
+    return Camera.new(
+        pos, torch.zeros(3, dtype=_F32, device=device), [0.0, 1.0, 0.0], device=device
+    )

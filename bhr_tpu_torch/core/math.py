@@ -1,0 +1,47 @@
+"""Vector math primitives (PyTorch port of bhr_tpu/core/math.py).
+
+Every function works on fp32 tensors whose last axis holds the 3 vector
+components, on whatever device the inputs live. Sums over the 3 components
+are written out left to right, ((x + y) + z), so the result does not depend
+on how a backend orders a reduction: the CUDA kernel
+(csrc/render_mono.cu) uses the same order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last (size-3) axis, summed left to right."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product of 3-vectors (reference: src/lib.rs:129-135)."""
+    return torch.stack(
+        [
+            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+        ],
+        dim=-1,
+    )
+
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    """Normalize with a zero-length guard: a zero vector comes back
+    unchanged (reference: src/lib.rs:119-126)."""
+    length = torch.sqrt(dot(v, v))[..., None]
+    nonzero = length > 0.0
+    return torch.where(nonzero, v / torch.where(nonzero, length, torch.ones_like(length)), v)
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded fp32 1/sqrt(x).
+
+    `torch.rsqrt` is an approximation on CUDA and 1/sqrt (two roundings) on
+    the CPU; the exact-tier kernel uses the correctly rounded `__frsqrt_rn`,
+    so the plain version computes in float64 and rounds once to fp32.
+    """
+    return torch.reciprocal(torch.sqrt(x.double())).to(torch.float32)

@@ -1,0 +1,155 @@
+"""Reference tracer: the plain PyTorch oracle of the geodesic loop
+(PyTorch port of bhr_tpu/ops/trace.py:33-207).
+
+The loop reproduces `trace_ray` (reference: src/ray_tracer_euler.wgsl:
+138-171) for the Euler configuration:
+
+    for i in 0..max_steps:
+        steps = i + 1
+        rel = pos - bh;  dist = |rel|
+        if dist > 100           -> escaped (background sampled with vel)
+        if dist < 1.05 rs       -> captured (black)
+        step;  pos = rel' + bh;  vel = normalize(vel')
+
+Rays that exhaust max_steps sample the background with their current
+velocity (wgsl:170). Every ray is updated under a mask, and the loop ends
+when no ray is still running. This is the plain version the CUDA kernel
+(ops/trace_kernel.py) is held against.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.math import dot
+from ..core.scene import CAPTURE_FACTOR, DEFAULT_DT, ESCAPE_RADIUS
+from .geodesic import STEP_FNS, euler_step_folded, model_acceleration, model_capture_radius
+
+# Ray status codes.
+STATUS_RUNNING = 0  # still integrating / exhausted max_steps -> background
+STATUS_ESCAPED = 1  # |pos - bh| > escape_radius -> background
+STATUS_CAPTURED = 2  # crossed the (padded) horizon -> black
+STATUS_DISK = 3  # hit the accretion disk -> disk emission (not ported yet)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceConfig:
+    """Static trace configuration, with the same fields and defaults as
+    bhr_tpu's TraceConfig (plugin physics aside). The port traces
+    integrator="euler" with model "schwarzschild" or "flat"; anything else
+    raises NotImplementedError when traced."""
+
+    integrator: str = "euler"  # "euler" | "rk4" | "leapfrog"
+    model: str = "schwarzschild"  # "schwarzschild" | "kerr" | "kerr_lt" | "flat"
+    adaptive: bool = False
+    dt: float = DEFAULT_DT
+    escape_radius: float = ESCAPE_RADIUS
+    disk: bool = False
+    disk_r_isco_factor: float = 3.0  # in units of r_s
+    disk_r_outer_factor: float = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceResult:
+    """Per-pixel integration outputs over the pixel grid."""
+
+    final_pos: torch.Tensor  # (..., 3) absolute position at termination
+    final_vel: torch.Tensor  # (..., 3) unit direction at termination
+    status: torch.Tensor  # (...,) int32 STATUS_*
+    steps: torch.Tensor  # (...,) int32 steps taken (wgsl steps_taken)
+
+
+def check_traceable(config: TraceConfig) -> None:
+    """Raise NotImplementedError for a configuration this port cannot
+    trace yet, naming the ROADMAP item that brings it."""
+    if config.integrator not in STEP_FNS:
+        raise NotImplementedError(
+            f"integrator {config.integrator!r} is not ported yet "
+            "(ROADMAP queue A, item 6: rk4/leapfrog; item 11: neural)"
+        )
+    if config.model not in ("schwarzschild", "flat"):
+        raise NotImplementedError(
+            f"model {config.model!r} is not ported yet (ROADMAP queue A, "
+            "item 9: kerr/kerr_lt; item 14: custom plugin physics)"
+        )
+    if config.adaptive:
+        raise NotImplementedError("adaptive stepping is not ported yet (ROADMAP queue A, item 6)")
+    if config.disk:
+        raise NotImplementedError("the accretion disk is not ported yet (ROADMAP queue A, item 8)")
+
+
+def trace_rays(
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    bh_pos,
+    rs,
+    spin,
+    max_steps: int,
+    config: TraceConfig = TraceConfig(),
+    *,
+    fast_math: bool = False,
+) -> TraceResult:
+    """Integrate a batch of rays to termination, on the device of `origins`.
+
+    origins/directions: fp32 (..., 3). bh_pos fp32[3]; rs/spin fp32 scalars.
+    `fast_math=True` runs the fast tier's arithmetic in exact operations:
+    termination tested on r^2 against escape^2 and capture^2, and the
+    folded Euler update (geodesic.euler_step_folded); Schwarzschild only.
+    """
+    check_traceable(config)
+    if fast_math and config.model != "schwarzschild":
+        raise NotImplementedError("the fast tier is defined for model='schwarzschild' only")
+    device = origins.device
+    f32 = torch.float32
+    rs = torch.as_tensor(rs, dtype=f32).to(device)
+    spin = torch.as_tensor(spin, dtype=f32).to(device)
+    bh_pos = torch.as_tensor(bh_pos, dtype=f32).to(device)
+    accel_fn = model_acceleration(config.model)
+    step_fn = STEP_FNS[config.integrator]
+    if config.model == "schwarzschild":
+        r_capture = rs * CAPTURE_FACTOR  # the literal wgsl:62 expression
+    else:
+        r_capture = model_capture_radius(config.model, rs, spin)
+    escape_r = torch.tensor(config.escape_radius, dtype=f32, device=device)
+    esc2 = escape_r * escape_r
+    cap2 = r_capture * r_capture
+
+    pos = origins.to(f32)
+    d = directions.to(f32)
+    vel = d / torch.sqrt(dot(d, d))[..., None]  # wgsl:140
+    batch_shape = pos.shape[:-1]
+    status = torch.zeros(batch_shape, dtype=torch.int32, device=device)
+    steps = torch.zeros(batch_shape, dtype=torch.int32, device=device)
+
+    i = 0
+    while i < max_steps and bool((status == STATUS_RUNNING).any()):
+        active = status == STATUS_RUNNING
+        rel = pos - bh_pos
+        r2 = dot(rel, rel)
+        dist = torch.sqrt(r2)
+        # steps_taken = i + 1 for every ray still in the loop (wgsl:149)
+        steps = torch.where(active, i + 1, steps)
+        if fast_math:
+            escaped = active & (r2 > esc2)
+            captured = active & ~escaped & (r2 < cap2)
+        else:
+            escaped = active & (dist > escape_r)
+            captured = active & ~escaped & (dist < r_capture)
+        stepping = active & ~escaped & ~captured
+
+        if fast_math:
+            new_rel, new_vel_n = euler_step_folded(rel, vel, rs, config.dt)
+        else:
+            new_rel, new_vel = step_fn(accel_fn, rel, vel, dist, rs, spin, config.dt)
+            new_vel_n = new_vel / torch.sqrt(dot(new_vel, new_vel))[..., None]
+        new_pos = new_rel + bh_pos
+
+        m3 = stepping[..., None]
+        pos = torch.where(m3, new_pos, pos)
+        vel = torch.where(m3, new_vel_n, vel)
+        status = torch.where(escaped, STATUS_ESCAPED, status)
+        status = torch.where(captured, STATUS_CAPTURED, status)
+        i += 1
+    return TraceResult(final_pos=pos, final_vel=vel, status=status, steps=steps)

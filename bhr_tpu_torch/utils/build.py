@@ -1,0 +1,113 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+The sources under bhr_tpu_torch/csrc/ have a plain C interface, so a build
+is one nvcc call (seconds, no PyTorch headers). The shared library lands in
+build/bhr_tpu_torch/ at the root of the checkout, named by a hash of the
+sources and flags: it is built at first use and rebuilt whenever a source
+changes. Nothing is built when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bhr_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel
+)
+RENDER_MONO_SOURCES = ("render_mono.cu",)
+
+
+class KernelParams(ctypes.Structure):
+    """bhr::Params of csrc/common.cuh: the 32-float parameter vector,
+    passed to the kernel by value."""
+
+    _fields_ = [("v", ctypes.c_float * 32)]
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # wall time of the nvcc call; 0.0 when already built
+    log: str  # nvcc's output (ptxas resource usage); "" when already built
+
+
+def nvcc_path() -> str:
+    """The nvcc of $CUDA_HOME, else the one on PATH, else the toolkit's
+    conventional location. Raises FileNotFoundError when there is none."""
+    candidates = []
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home:
+        candidates.append(os.path.join(cuda_home, "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise FileNotFoundError(f"nvcc not found (looked at {candidates}); set CUDA_HOME")
+
+
+def _source_hash(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(sources).encode())
+    return h.hexdigest()[:16]
+
+
+def build(name: str, sources=RENDER_MONO_SOURCES) -> BuildInfo:
+    """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so,
+    unless that library already exists. Raises CalledProcessError with
+    nvcc's output when the build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"lib{name}-{_source_hash(sources)}.so"
+    if lib.exists():
+        return BuildInfo(lib, 0.0, "")
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise subprocess.CalledProcessError(
+            proc.returncode, cmd, output=proc.stdout, stderr=proc.stderr
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+
+
+@functools.cache
+def load_render_mono() -> ctypes.CDLL:
+    """Build (at first use) and load the monolithic render kernel's library,
+    with the C signatures of csrc/render_mono.cu declared."""
+    lib = ctypes.CDLL(str(build("render_mono").path))
+    lib.bhr_render_mono.argtypes = [
+        KernelParams,  # params, by value
+        ctypes.c_uint32,  # seed_term
+        ctypes.c_int,  # fast
+        ctypes.c_int,  # height
+        ctypes.c_int,  # width
+        ctypes.c_int,  # max_steps
+        ctypes.c_int,  # device
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # stream
+    ]
+    lib.bhr_render_mono.restype = ctypes.c_int
+    lib.bhr_error_string.argtypes = [ctypes.c_int]
+    lib.bhr_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,12 +1,14 @@
 """bhr_tpu_torch: the PyTorch and CUDA port of bhr_tpu, the general-
 relativistic black-hole raytracer, for NVIDIA Hopper GPUs.
 
-It renders bhr_tpu's main path -- semi-implicit Euler on the Schwarzschild
-metric, the analytic star field, packed RGBA output -- through one CUDA
-kernel written for sm_90a (csrc/render_mono.cu), in the fast and the exact
-math tier, with a plain PyTorch version of the same frame beside it. It
-imports torch and never jax; bhr_tpu stays the reference it is tested
-against.
+It renders bhr_tpu's Schwarzschild and flat-spacetime frames -- the euler,
+rk4 and leapfrog integrators, fixed or adaptive dt, the accretion disk,
+the analytic star field, the tonemaps and the step heatmap, packed RGBA
+output -- through two CUDA kernels written for sm_90a (csrc/render_mono.cu,
+trace + shade; csrc/trace_planes.cu, trace into planes for the PyTorch
+shading epilogue), in the fast and the exact math tier, with a plain
+PyTorch version of each beside it. It imports torch and never jax;
+bhr_tpu stays the reference it is tested against.
 """
 
 from .animation import OrbitAnimator

@@ -2,11 +2,15 @@
 (PyTorch port of bhr_tpu/animation.py; reference: src/main.rs:851-869,
 angle = t * 0.3 rad/s, radius 15, height 5, looking at the origin).
 
-Where bhr_tpu fuses the frames into one lax.scan, the port launches the
-monolithic kernel once per frame into one preallocated (F, H, W) tensor.
-The cameras and kernel parameters are computed on the host and passed by
-value, so no frame waits for the device. The animation is a pure function
-of the frame index, so `start_frame` resumes a run exactly.
+Where bhr_tpu fuses the frames into one lax.scan, the port renders frame
+by frame into one preallocated (F, H, W) tensor: one monolithic kernel
+launch per frame, or, for a staged configuration, one planes-kernel launch
+into trace planes reused across frames and an epilogue that writes its
+packed words into frames[k]. The cameras and kernel parameters are
+computed on the host and passed by value, and the epilogue's per-frame
+scalars reach the device as fill-kernel arguments, so no frame waits for
+the device. The animation is a pure function of the frame index, so
+`start_frame` resumes a run exactly.
 """
 
 from __future__ import annotations
@@ -15,8 +19,8 @@ import torch
 
 from .core.camera import orbit_camera
 from .ops.sampling import unpack_frame
-from .ops.trace_kernel import render_packed
-from .renderer import BlackHoleRenderer
+from .ops.trace_kernel import empty_trace_result, monolithic_eligible
+from .renderer import BlackHoleRenderer, render_image
 
 
 class OrbitAnimator:
@@ -40,10 +44,16 @@ class OrbitAnimator:
         int32 (F, H, W) when `packed`. Does not wait for the device."""
         r = self.renderer
         scene = r.frame_scene(scene)
+        disk_params = r.disk_params(scene)
         frames = torch.empty((n_frames, r.height, r.width), dtype=torch.int32, device=r.device)
+        planes = None
+        if not monolithic_eligible(r.config, scene, fast_math=r.fast_math, skybox=None,
+                                   disk_params=disk_params, tonemap=r.tonemap):
+            planes = empty_trace_result(r.height, r.width, r.device)
         for k, t in enumerate(self.frame_times(n_frames, fps, start_frame)):
             cam = orbit_camera(t, radius=self.radius, height=self.height,
                                rotation_speed=self.rotation_speed)
-            render_packed(cam, scene, r.config, seed=r.skybox_seed, fast_math=r.fast_math,
-                          device=r.device, out=frames[k])
+            render_image(cam, scene, config=r.config, fast_math=r.fast_math, device=r.device,
+                         tonemap=r.tonemap, seed=r.skybox_seed, packed=True,
+                         disk_params=disk_params, lut=r._lut, out=frames[k], planes=planes)
         return frames if packed else unpack_frame(frames)

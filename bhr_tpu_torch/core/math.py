@@ -45,3 +45,19 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
     so the plain version computes in float64 and rounds once to fp32.
     """
     return torch.reciprocal(torch.sqrt(x.double())).to(torch.float32)
+
+
+def on_device(x, device) -> torch.Tensor:
+    """A small fp32 host value (a scalar or a short vector) as a tensor on
+    `device`, built by fill kernels that take each value as a kernel
+    argument. A host-to-device copy would make the host wait for the
+    device's queue to drain; this does not. A tensor already on a device is
+    moved as it is."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    device = torch.device(device)
+    if x.device.type == device.type and device.index in (None, x.device.index):
+        return x
+    if x.device.type != "cpu":
+        return x.to(device)
+    vals = [torch.full((), v, dtype=torch.float32, device=device) for v in x.reshape(-1).tolist()]
+    return torch.stack(vals).reshape(x.shape)

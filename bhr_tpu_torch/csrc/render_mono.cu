@@ -1,52 +1,48 @@
 // Monolithic trace + shade kernel for Hopper (sm_90a).
 //
 // Replaces bhr_tpu/ops/pallas_trace.py:kernel_monolithic (with its
-// _stateless_trace loop) for semi-implicit Euler on the Schwarzschild
-// metric, in both math tiers. One thread renders one pixel: ray-gen from
-// the 32-float parameter struct, the geodesic loop, the analytic star field
-// (bhr_tpu/ops/starfield.py:procedural_background), and the quantized,
-// packed RGBA word -- the only memory the kernel touches is that one 4-byte
-// store per pixel.
+// _stateless_trace loop, and _shade_disk for the accretion disk) for the
+// euler, rk4 and leapfrog integrators, fixed or adaptive dt, on the
+// Schwarzschild or the flat metric, in both math tiers. One thread renders
+// one pixel: ray-gen from the 32-float parameter struct, the geodesic loop
+// (trace_ray.cuh), then the analytic star field
+// (bhr_tpu/ops/starfield.py:procedural_background) or, in the fast tier,
+// the disk's emission, and the quantized, packed RGBA word -- the only
+// memory the kernel writes is that one 4-byte store per pixel.
 //
-// What bounds it: instruction issue. A fast-tier ray-step compiles to 49
-// SASS instructions, 3 of them SFU operations (2 rsqrt, 1 rcp); the exact
-// tier's common path is 158, 10 of them SFU, because each correctly rounded
-// divide and sqrt is a short Newton sequence. Nothing is read from memory;
-// the one 4-byte store per pixel is all the traffic. Measured on an NVIDIA
+// What bounds it: instruction issue. A fast-tier Euler ray-step compiles
+// to 49 SASS instructions, 3 of them SFU operations (2 rsqrt, 1 rcp); the
+// exact tier's common path is 158, 10 of them SFU, because each correctly
+// rounded divide and sqrt is a short Newton sequence; rk4 evaluates the
+// acceleration four times a step and leapfrog three. Nothing is read from
+// memory but the disk's 1.5 KB blackbody table, in constant memory; the
+// one 4-byte store per pixel is all the traffic. Measured on an NVIDIA
 // H100 80GB HBM3 (700 W power limit, SM clock 1980 MHz under load) at
-// 1920x1080x500 from the default camera: 9.6e8 ray-steps in 1.59 ms
+// 1920x1080x500 from the default camera, Euler: 9.6e8 ray-steps in 1.59 ms
 // (fast) and 5.69 ms (exact), about 89% and 80% of the card's issue rate
 // of one warp instruction per scheduler per clock. Warp divergence costs
-// little there: neighbouring pixels leave the loop after different step
-// counts (a ray into the shadow stops after about 137 steps, most run all
-// 500), and a warp runs as long as its slowest ray, but 99.7% of the
-// lane-steps of the 16x16 blocks (warps of 2 rows x 16 pixels) do work.
-// The design keeps the ray's 6 floats in registers (no spills, full
-// occupancy on the fast tier) and the parameters in kernel arguments
-// (constant bank, no loads). Cutting instructions per step, and tuning
-// occupancy, block shape and ray order for views with more divergence,
-// is later work.
+// little there: 99.7% of the lane-steps of the 16x16 blocks do work. The
+// design keeps the ray's state in registers and the parameters in kernel
+// arguments (constant bank, no loads). Cutting instructions per step, and
+// tuning occupancy, block shape and ray order, is later work.
 //
 // The TPU kernel's Mosaic workarounds are gone: a per-thread `break`
-// replaces the dt-freeze termination, the per-tile any(live) check and
-// the loop knobs (their results are the same for every setting), and the
-// grid has no padding.
+// replaces the dt-freeze termination, the disk's y-sentinel teleport, the
+// per-tile any(live) check and the loop knobs, and the blackbody LUT is
+// read by an indexed lerp (the same value as _lut_scalar_lerp's masked sum
+// over all 128 entries).
 //
-// Tiers (template parameter FAST):
-//  * exact: correctly rounded fp32 in the oracle's operation order
-//    (bhr_tpu/ops/trace.py:trace_rays, models/schwarzschild.py:acceleration,
-//    ops/geodesic.py:euler_step), termination on the sqrt'd radius, and
-//    round-half-to-even quantization;
-//  * fast: the folded two-coefficient Euler update with rsqrt and an
-//    approximate reciprocal (pallas_trace.py:physics_substep), termination
-//    in r^2 space, and round-half-up quantization.
-// Both tiers count a ray as captured when its final r^2 < capture^2.
+// Tiers (template parameter FAST), as trace_ray.cuh describes them; the
+// exact tier quantizes round-half-to-even, the fast tier round-half-up.
+// The disk is shaded in the fast tier only: an exact-tier disk frame goes
+// through trace_planes.cu and the plain PyTorch epilogue, as in bhr_tpu.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "trace_ray.cuh"
 
 namespace bhr {
 namespace {
@@ -65,8 +61,15 @@ constexpr float kBandR = static_cast<float>(0.035);
 constexpr float kBandG = static_cast<float>(0.033);
 constexpr float kBandB = static_cast<float>(0.045);
 constexpr float kMinH2 = static_cast<float>(1e-6);
-constexpr float kOneMFloor = static_cast<float>(0.02);
 constexpr float kInv2Pow24 = 1.0f / 16777216.0f;
+
+// The fast kernel's blackbody table (models/disk.py:kernel_lut_np):
+// channel-major, kLutSteps entries per channel over 1000 K .. 30000 K.
+constexpr int kLutSteps = 128;
+constexpr float kLutTMin = 1000.0f;
+constexpr float kLutScale = static_cast<float>((kLutSteps - 1) / (30000.0 - 1000.0));
+constexpr float kInvTIsco = static_cast<float>(1.0 / 10000.0);
+__constant__ float kDiskLut[3 * kLutSteps];
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   x ^= x >> 16;
@@ -80,18 +83,6 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
 // uint32 -> [0, 1) through the top 24 bits, as int32 (exact in fp32).
 __device__ __forceinline__ float unit24(uint32_t h) {
   return static_cast<float>(static_cast<int32_t>(h >> 8)) * kInv2Pow24;
-}
-
-template <bool FAST>
-__device__ __forceinline__ Vec3 vnorm(Vec3 v) {
-  using A = Arith<FAST>;
-  if constexpr (FAST) {
-    const float s = rsqrtf(dot<true>(v, v));
-    return {v.x * s, v.y * s, v.z * s};
-  } else {
-    const float s = A::sqrt(dot<false>(v, v));
-    return {A::div(v.x, s), A::div(v.y, s), A::div(v.z, s)};
-  }
 }
 
 // starfield.py:57-138, operation for operation.
@@ -184,87 +175,78 @@ __device__ __forceinline__ uint32_t quantize_half_even(float c, bool captured) {
   return static_cast<uint32_t>(__float2int_rn(x));
 }
 
-template <bool FAST>
+// The fast kernel's disk emission (pallas_trace.py:_shade_disk, :1216-1278;
+// plain version models/disk.py:shade_disk_planes): Keplerian beta, Doppler x
+// gravitational g against the observer's redshift, T ~ r^-3/4 as
+// rsqrt(x) * rsqrt(sqrt(x)), the blackbody LUT by an indexed lerp, and
+// 1/g^3 beaming. `rel` is the hit point relative to the black hole.
+__device__ __forceinline__ void shade_disk(const Params& p, Vec3 rel, Vec3 vel, float& out_r,
+                                           float& out_g, float& out_b) {
+  const float rs = p.v[P_RS];
+  const float r_isco = p.v[P_RISCO];
+  const float r_outer = p.v[P_ROUTER];
+  const float hx = rel.x, hz = rel.z;
+  const float dr2 = hx * hx + hz * hz;
+  const float inv_dr = rsqrtf(fmaxf(dr2, static_cast<float>(1e-12)));
+  const float dr = dr2 * inv_dr;
+  const float beta2 = fminf(fmaxf((rs * 0.5f) * inv_dr, 0.0f), static_cast<float>(0.81));
+  const float beta = sqrtf(beta2);
+  // unit tangent (z, 0, -x) / dr dotted with the unit ray direction
+  const float cos_t = (hz * vel.x - hx * vel.z) * inv_dr;
+  const float doppler = (1.0f - beta * cos_t) * rsqrtf(1.0f - beta2);
+  const float rs_guard = static_cast<float>(1.001) * rs;
+  const float grav_emit = sqrtf(fminf(
+      fmaxf(1.0f - rs * rcp_approx(fmaxf(dr, rs_guard)), static_cast<float>(1e-4)), 1.0f));
+  const float ox = p.v[P_CAM + 0] - p.v[P_BH + 0];
+  const float oy = p.v[P_CAM + 1] - p.v[P_BH + 1];
+  const float oz = p.v[P_CAM + 2] - p.v[P_BH + 2];
+  const float obs_r = sqrtf(ox * ox + oy * oy + oz * oz);
+  const float grav_obs = sqrtf(
+      fminf(fmaxf(1.0f - rs / fmaxf(obs_r, rs_guard), static_cast<float>(1e-4)), 1.0f));
+  const float gfac = fmaxf(doppler * (grav_emit / grav_obs), static_cast<float>(1e-3));
+  const float inv_g = rcp_approx(gfac);
+  const float x = fmaxf(dr * (1.0f / r_isco), static_cast<float>(1e-6));
+  const float t_emit = p.v[P_TISCO] * (rsqrtf(x) * rsqrtf(sqrtf(x)));
+  const float t_obs = t_emit * inv_g;
+  const float beaming = inv_g * inv_g * inv_g;
+  const float rel_t = t_obs * kInvTIsco;
+  const float edge = fminf(fmaxf((r_outer - dr) * (1.0f / (r_outer - r_isco)), 0.0f), 1.0f);
+  const float intensity = fminf(fmaxf(beaming * rel_t * rel_t * edge, 0.0f), 4.0f);
+  const float t_cl =
+      fminf(fmaxf((t_obs - kLutTMin) * kLutScale, 0.0f), static_cast<float>(kLutSteps - 1));
+  const float i0f = floorf(t_cl);
+  const float frac = t_cl - i0f;
+  const int i0 = static_cast<int>(i0f);
+  const int i1 = min(i0 + 1, kLutSteps - 1);
+  auto lerp = [&](int c) {
+    const float c0 = kDiskLut[c * kLutSteps + i0];
+    const float c1 = kDiskLut[c * kLutSteps + i1];
+    return (c0 + frac * (c1 - c0)) * intensity;
+  };
+  out_r = lerp(0);
+  out_g = lerp(1);
+  out_b = lerp(2);
+}
+
+template <bool FAST, int INTEG>
 __global__ void __launch_bounds__(256)
-    render_mono_kernel(const Params p, const uint32_t seed_term, const int height,
-                       const int width, const int max_steps, uint32_t* __restrict__ out) {
-  using A = Arith<FAST>;
+    render_mono_kernel(const Params p, const uint32_t seed_term, const int flags,
+                       const int height, const int width, const int max_steps,
+                       uint32_t* __restrict__ out) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
 
-  // ---- ray-gen (pallas_trace.py:742-765; core/camera.py:generate_rays)
-  const float rows_f = static_cast<float>(row + static_cast<int>(p.v[P_ROW0]));
-  const float cols_f = static_cast<float>(col + static_cast<int>(p.v[P_COL0]));
-  const float u = A::mul(A::mul(A::sub(A::div(cols_f, p.v[P_WF]), 0.5f), 2.0f), p.v[P_ASPECT]);
-  const float v = A::mul(A::sub(A::div(rows_f, p.v[P_HF]), 0.5f), -2.0f);
-  const float uf = A::mul(u, p.v[P_FOVF]);
-  const float vf = A::mul(v, p.v[P_FOVF]);
-  const Vec3 d = {
-      A::add(A::add(p.v[P_FWD + 0], A::mul(p.v[P_RIGHT + 0], uf)), A::mul(p.v[P_UP + 0], vf)),
-      A::add(A::add(p.v[P_FWD + 1], A::mul(p.v[P_RIGHT + 1], uf)), A::mul(p.v[P_UP + 1], vf)),
-      A::add(A::add(p.v[P_FWD + 2], A::mul(p.v[P_RIGHT + 2], uf)), A::mul(p.v[P_UP + 2], vf)),
-  };
-  // normalised twice: generate_rays normalises, and trace_rays again
-  Vec3 vel = vnorm<FAST>(vnorm<FAST>(d));
-  Vec3 rel = {A::sub(p.v[P_CAM + 0], p.v[P_BH + 0]), A::sub(p.v[P_CAM + 1], p.v[P_BH + 1]),
-              A::sub(p.v[P_CAM + 2], p.v[P_BH + 2])};
-
-  const float rs = p.v[P_RS];
-  const float dt = p.v[P_DT];
-  const float esc = p.v[P_ESC];
-  const float cap = p.v[P_CAP];
-  const float esc2 = A::mul(esc, esc);
-  const float cap2 = A::mul(cap, cap);
-
-  // ---- geodesic loop: test, then step, until the ray leaves [cap, esc]
-  for (int i = 0; i < max_steps; ++i) {
-    if constexpr (FAST) {
-      // pallas_trace.py:1018-1023 and physics_substep (:793-834)
-      const float r2 = dot<true>(rel, rel);
-      if (!(r2 <= esc2 && r2 >= cap2)) break;
-      const float inv_r = rsqrtf(r2);
-      const float c = dot<true>(vel, rel);
-      const float rs_inv_r = rs * inv_r;
-      const float one_m = fmaxf(1.0f - rs_inv_r, kOneMFloor);
-      const float factor_dt = (rs * rcp_approx(2.0f * r2 * one_m)) * dt;
-      const float b1 = 1.0f - factor_dt * one_m;
-      const float b2 = factor_dt * (1.0f + rs_inv_r) * c * (inv_r * inv_r);
-      const Vec3 nv = {vel.x * b1 + rel.x * b2, vel.y * b1 + rel.y * b2,
-                       vel.z * b1 + rel.z * b2};
-      rel = {rel.x + nv.x * dt, rel.y + nv.y * dt, rel.z + nv.z * dt};
-      const float s = rsqrtf(dot<true>(nv, nv));
-      vel = {nv.x * s, nv.y * s, nv.z * s};
-    } else {
-      // trace.py:172-188 with schwarzschild.acceleration and euler_step,
-      // in their literal order (pallas_trace.py:1024-1031, :849-887)
-      const float r = A::sqrt(dot<false>(rel, rel));
-      if (!(r <= esc && r >= cap)) break;
-      const Vec3 r_vec = {A::div(rel.x, r), A::div(rel.y, r), A::div(rel.z, r)};
-      const float rs_over_r = A::div(rs, r);
-      const float one_m = A::sub(1.0f, rs_over_r);
-      const float factor = A::div(rs, A::mul(A::mul(A::mul(2.0f, r), r), one_m));
-      const float v_rad = dot<false>(vel, r_vec);
-      const float one_p = A::add(1.0f, rs_over_r);
-      const float nf = -factor;
-      const Vec3 a = {
-          A::mul(nf, A::sub(A::mul(vel.x, one_m), A::mul(A::mul(r_vec.x, v_rad), one_p))),
-          A::mul(nf, A::sub(A::mul(vel.y, one_m), A::mul(A::mul(r_vec.y, v_rad), one_p))),
-          A::mul(nf, A::sub(A::mul(vel.z, one_m), A::mul(A::mul(r_vec.z, v_rad), one_p))),
-      };
-      const Vec3 nv = {A::add(vel.x, A::mul(a.x, dt)), A::add(vel.y, A::mul(a.y, dt)),
-                       A::add(vel.z, A::mul(a.z, dt))};
-      rel = {A::add(rel.x, A::mul(nv.x, dt)), A::add(rel.y, A::mul(nv.y, dt)),
-             A::add(rel.z, A::mul(nv.z, dt))};
-      const float s = A::sqrt(dot<false>(nv, nv));
-      vel = {A::div(nv.x, s), A::div(nv.y, s), A::div(nv.z, s)};
-    }
-  }
+  const Ray ray = trace_ray<FAST, INTEG>(p, flags, row, col, max_steps);
 
   // ---- shade, quantize, pack (pallas_trace.py:1294-1333)
-  const bool captured = dot<FAST>(rel, rel) < cap2;
+  const bool captured = ray.status == kCaptured;
   float r, g, b;
-  procedural_background<FAST>(vel, seed_term, r, g, b);
+  if (FAST && ray.status == kOnDisk) {
+    shade_disk(p, ray.rel, ray.vel, r, g, b);
+  } else {
+    procedural_background<FAST>(ray.vel, seed_term, r, g, b);
+  }
   uint32_t qr, qg, qb;
   if constexpr (FAST) {
     const float live = captured ? 0.0f : 1.0f;
@@ -279,31 +261,67 @@ __global__ void __launch_bounds__(256)
   out[static_cast<int64_t>(row) * width + col] = qr | (qg << 8) | (qb << 16) | 0xFF000000u;
 }
 
+template <bool FAST>
+void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params& params,
+            uint32_t seed_term, int flags, int height, int width, int max_steps,
+            uint32_t* frame) {
+  switch (integrator) {
+    case kEuler:
+      render_mono_kernel<FAST, kEuler><<<grid, block, 0, s>>>(params, seed_term, flags, height,
+                                                               width, max_steps, frame);
+      break;
+    case kRk4:
+      render_mono_kernel<FAST, kRk4><<<grid, block, 0, s>>>(params, seed_term, flags, height,
+                                                             width, max_steps, frame);
+      break;
+    default:
+      render_mono_kernel<FAST, kLeapfrog><<<grid, block, 0, s>>>(params, seed_term, flags,
+                                                                  height, width, max_steps,
+                                                                  frame);
+  }
+}
+
 }  // namespace
 }  // namespace bhr
 
 // C entry point, bound with ctypes by bhr_tpu_torch/utils/build.py.
 // Launches one frame on `stream` into `out`, a contiguous (height, width)
 // array of 32-bit words on `device`, and returns cudaGetLastError() after
-// the launch (0 on success). Does not synchronise.
-extern "C" int bhr_render_mono(bhr::Params params, uint32_t seed_term, int fast, int height,
-                               int width, int max_steps, int device, void* out,
-                               void* stream) {
+// the launch (0 on success). Does not synchronise. `integrator` is an
+// Integrator and `flags` a TraceFlags mask of trace_ray.cuh; the disk
+// flag needs `fast` and a table set by bhr_set_disk_lut.
+extern "C" int bhr_render_mono(bhr::Params params, uint32_t seed_term, int fast, int integrator,
+                               int flags, int height, int width, int max_steps, int device,
+                               void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (integrator < bhr::kEuler || integrator > bhr::kLeapfrog ||
+      ((flags & bhr::kFlagDisk) && !fast)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (height <= 0 || width <= 0) return 0;
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   auto* frame = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (fast) {
-    bhr::render_mono_kernel<true><<<grid, block, 0, s>>>(params, seed_term, height, width,
-                                                         max_steps, frame);
+    bhr::launch<true>(integrator, grid, block, s, params, seed_term, flags, height, width,
+                      max_steps, frame);
   } else {
-    bhr::render_mono_kernel<false><<<grid, block, 0, s>>>(params, seed_term, height, width,
-                                                          max_steps, frame);
+    bhr::launch<false>(integrator, grid, block, s, params, seed_term, flags, height, width,
+                       max_steps, frame);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Copies the fast kernel's blackbody table (3 * 128 floats, channel-major,
+// on the host) into `device`'s constant memory. Synchronous; called once
+// per device before the first disk frame.
+extern "C" int bhr_set_disk_lut(int device, const float* lut, int n) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n != 3 * bhr::kLutSteps) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpyToSymbol(bhr::kDiskLut, lut, n * sizeof(float)));
 }
 
 extern "C" const char* bhr_error_string(int code) {

@@ -1,0 +1,117 @@
+// Staged trace kernel for Hopper (sm_90a): the trace alone, written out as
+// per-pixel planes for the shading epilogue.
+//
+// Replaces bhr_tpu/ops/pallas_trace.py:kernel_stateless (K4, via
+// _pallas_trace and pallas_trace_image) and its step-counting flavour
+// `kernel` (K5, track_steps=True, body_fast) for the euler, rk4 and
+// leapfrog integrators, fixed or adaptive dt, the Schwarzschild or the flat
+// metric, with or without the accretion disk, in both math tiers. One
+// thread traces one pixel (trace_ray.cuh) and writes its TraceResult:
+// final position and unit direction as fp32 (H, W, 3), status and step
+// count as int32 (H, W). On a TPU tile the step count cost a scratch plane
+// and its own kernel flavour; here status and steps are one register each,
+// so K4 and K5 are this one kernel, which always writes `steps` with the
+// oracle's meaning (i + 1 at termination). Status uses the oracle's codes,
+// STATUS_DISK included; a disk ray's position is its hit point, with the
+// black hole's y.
+//
+// What bounds it: instruction issue in the geodesic loop, as for
+// render_mono.cu; the 32 bytes written per pixel are ~66 MB a 1920x1080
+// frame, a few tens of microseconds of the card's bandwidth against
+// milliseconds of loop. The `mask`, `strided` and `linear` ray-gen of K4
+// (multires and a TPU tiling knob) are not ported; row0/col0 in the
+// parameters keep bands possible.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "trace_ray.cuh"
+
+namespace bhr {
+namespace {
+
+template <bool FAST, int INTEG>
+__global__ void __launch_bounds__(256)
+    trace_planes_kernel(const Params p, const int flags, const int height, const int width,
+                        const int max_steps, float* __restrict__ pos, float* __restrict__ vel,
+                        int32_t* __restrict__ status, int32_t* __restrict__ steps) {
+  using A = Arith<FAST>;
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (row >= height || col >= width) return;
+
+  const Ray ray = trace_ray<FAST, INTEG>(p, flags, row, col, max_steps);
+
+  const int64_t i = static_cast<int64_t>(row) * width + col;
+  pos[3 * i + 0] = A::add(ray.rel.x, p.v[P_BH + 0]);
+  pos[3 * i + 1] = A::add(ray.rel.y, p.v[P_BH + 1]);
+  pos[3 * i + 2] = A::add(ray.rel.z, p.v[P_BH + 2]);
+  vel[3 * i + 0] = ray.vel.x;
+  vel[3 * i + 1] = ray.vel.y;
+  vel[3 * i + 2] = ray.vel.z;
+  status[i] = ray.status;
+  steps[i] = ray.steps;
+}
+
+template <bool FAST>
+void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params& params,
+            int flags, int height, int width, int max_steps, float* pos, float* vel,
+            int32_t* status, int32_t* steps) {
+  switch (integrator) {
+    case kEuler:
+      trace_planes_kernel<FAST, kEuler><<<grid, block, 0, s>>>(params, flags, height, width,
+                                                                max_steps, pos, vel, status,
+                                                                steps);
+      break;
+    case kRk4:
+      trace_planes_kernel<FAST, kRk4><<<grid, block, 0, s>>>(params, flags, height, width,
+                                                              max_steps, pos, vel, status,
+                                                              steps);
+      break;
+    default:
+      trace_planes_kernel<FAST, kLeapfrog><<<grid, block, 0, s>>>(params, flags, height, width,
+                                                                   max_steps, pos, vel, status,
+                                                                   steps);
+  }
+}
+
+}  // namespace
+}  // namespace bhr
+
+// C entry point, bound with ctypes by bhr_tpu_torch/utils/build.py.
+// Traces one frame on `stream` into contiguous arrays on `device`: pos and
+// vel fp32 (height, width, 3), status and steps int32 (height, width).
+// Returns cudaGetLastError() after the launch (0 on success); does not
+// synchronise. `integrator` is an Integrator and `flags` a TraceFlags mask
+// of trace_ray.cuh.
+extern "C" int bhr_trace_planes(bhr::Params params, int fast, int integrator, int flags,
+                                int height, int width, int max_steps, int device, void* pos,
+                                void* vel, void* status, void* steps, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (integrator < bhr::kEuler || integrator > bhr::kLeapfrog) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (height <= 0 || width <= 0) return 0;
+  const dim3 block(16, 16);
+  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* p = static_cast<float*>(pos);
+  auto* v = static_cast<float*>(vel);
+  auto* st = static_cast<int32_t*>(status);
+  auto* n = static_cast<int32_t*>(steps);
+  if (fast) {
+    bhr::launch<true>(integrator, grid, block, s, params, flags, height, width, max_steps, p, v,
+                      st, n);
+  } else {
+    bhr::launch<false>(integrator, grid, block, s, params, flags, height, width, max_steps, p,
+                       v, st, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* bhr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,24 +1,29 @@
 """Shading stage (PyTorch port of bhr_tpu/ops/shading.py:63-113).
 
 Escaped and step-exhausted rays take the background colour of their final
-direction; captured rays are black (reference: wgsl:154-170). The disk
-emission, the debug heatmap and tonemaps are not ported yet.
+direction; captured rays are black (reference: wgsl:154-170); disk hits
+take the relativistic thin-disk emission; debug mode 1 replaces everything
+with the step-count heatmap (wgsl:203-211). On the staged path this
+epilogue runs as plain PyTorch on the device after the trace kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.scene import DEBUG_NONE
+from ..core.math import dot, on_device
+from ..core.scene import DEBUG_STEPS
+from ..models.disk import disk_emission
+from .heatmap import steps_to_color
 from .sampling import pack_rgba8_planes
-from .trace import STATUS_CAPTURED, TraceResult
+from .trace import STATUS_CAPTURED, STATUS_DISK, TraceResult
 
 
 def shade_planes_packed(
     result: TraceResult,
     background,
     max_steps: int,
-    debug_mode: int = DEBUG_NONE,
+    debug_mode: int = 0,
     bh_pos=None,
     rs=None,
     camera_position=None,
@@ -31,17 +36,16 @@ def shade_planes_packed(
     """Planar shading epilogue -> packed RGBA int32 frame.
 
     `background` is a callable (dx, dy, dz) -> (r, g, b) planes, e.g. the
-    analytic star field. `half_up` selects the fast tier's quantizer (see
-    sampling.pack_rgba8_planes). `max_steps`, `bh_pos`, `rs` and
-    `camera_position` serve the debug heatmap and the disk, which raise.
+    analytic star field. With `disk_params` (models/disk.DiskParams, on the
+    planes' device), disk rays take `disk_emission` seen from
+    `camera_position`, with the (512, 3) `blackbody_lut`. `tonemap` is a
+    function of one colour plane, or None. `half_up` selects the fast
+    monolithic kernel's quantizer (see sampling.pack_rgba8_planes); the
+    staged epilogue rounds half to even in both tiers.
     """
-    del max_steps, bh_pos, rs, camera_position
-    if debug_mode != DEBUG_NONE:
-        raise NotImplementedError("the debug step heatmap is not ported yet (ROADMAP queue A, item 7)")
-    if disk_params is not None or blackbody_lut is not None:
-        raise NotImplementedError("disk shading is not ported yet (ROADMAP queue A, item 8)")
-    if tonemap is not None:
-        raise NotImplementedError("tonemaps are not ported yet (ROADMAP queue A, item 6)")
+    if debug_mode == DEBUG_STEPS:
+        rgb = steps_to_color(result.steps, max_steps)
+        return pack_rgba8_planes(rgb[..., 0], rgb[..., 1], rgb[..., 2], half_up=half_up)
     vel = result.final_vel
     r, g, b = background(vel[..., 0], vel[..., 1], vel[..., 2])
     captured = result.status == STATUS_CAPTURED
@@ -49,4 +53,15 @@ def shade_planes_packed(
     r = torch.where(captured, zero, r)
     g = torch.where(captured, zero, g)
     b = torch.where(captured, zero, b)
+    if disk_params is not None:
+        bh = on_device(bh_pos, vel.device)
+        to_cam = on_device(camera_position, vel.device) - bh
+        emission = disk_emission(result.final_pos - bh, vel, torch.sqrt(dot(to_cam, to_cam)),
+                                 on_device(rs, vel.device), disk_params, blackbody_lut)
+        is_disk = result.status == STATUS_DISK
+        r = torch.where(is_disk, emission[..., 0], r)
+        g = torch.where(is_disk, emission[..., 1], g)
+        b = torch.where(is_disk, emission[..., 2], b)
+    if tonemap is not None:
+        r, g, b = tonemap(r), tonemap(g), tonemap(b)
     return pack_rgba8_planes(r, g, b, half_up=half_up)

@@ -2,19 +2,22 @@
 (PyTorch port of bhr_tpu/ops/trace.py:33-207).
 
 The loop reproduces `trace_ray` (reference: src/ray_tracer_euler.wgsl:
-138-171) for the Euler configuration:
+138-171), extended as bhr_tpu extends it:
 
     for i in 0..max_steps:
         steps = i + 1
         rel = pos - bh;  dist = |rel|
         if dist > 100           -> escaped (background sampled with vel)
         if dist < 1.05 rs       -> captured (black)
-        step;  pos = rel' + bh;  vel = normalize(vel')
+        dt = base_dt, or adaptive_dt(dist) when config.adaptive
+        step (euler | rk4 | leapfrog);  pos = rel' + bh;  vel = normalize(vel')
+        if config.disk and the step crossed y = 0 inside the annulus
+                                -> disk hit: pos = the hit point
 
 Rays that exhaust max_steps sample the background with their current
 velocity (wgsl:170). Every ray is updated under a mask, and the loop ends
-when no ray is still running. This is the plain version the CUDA kernel
-(ops/trace_kernel.py) is held against.
+when no ray is still running. This is the plain version the CUDA kernels
+(ops/trace_kernel.py) are held against.
 """
 
 from __future__ import annotations
@@ -23,30 +26,37 @@ import dataclasses
 
 import torch
 
-from ..core.math import dot
+from ..core.math import dot, rsqrt
 from ..core.scene import CAPTURE_FACTOR, DEFAULT_DT, ESCAPE_RADIUS
-from .geodesic import STEP_FNS, euler_step_folded, model_acceleration, model_capture_radius
+from ..models.disk import intersect_equatorial, intersect_equatorial_fast
+from .geodesic import (
+    FAST_STEP_FNS,
+    STEP_FNS,
+    adaptive_dt,
+    model_acceleration,
+    model_capture_radius,
+)
 
 # Ray status codes.
 STATUS_RUNNING = 0  # still integrating / exhausted max_steps -> background
 STATUS_ESCAPED = 1  # |pos - bh| > escape_radius -> background
 STATUS_CAPTURED = 2  # crossed the (padded) horizon -> black
-STATUS_DISK = 3  # hit the accretion disk -> disk emission (not ported yet)
+STATUS_DISK = 3  # hit the accretion disk -> disk emission
 
 
 @dataclasses.dataclass(frozen=True)
 class TraceConfig:
     """Static trace configuration, with the same fields and defaults as
-    bhr_tpu's TraceConfig (plugin physics aside). The port traces
-    integrator="euler" with model "schwarzschild" or "flat"; anything else
-    raises NotImplementedError when traced."""
+    bhr_tpu's TraceConfig (plugin physics aside). The port traces the
+    euler, rk4 and leapfrog integrators with model "schwarzschild" or
+    "flat"; anything else raises NotImplementedError when traced."""
 
     integrator: str = "euler"  # "euler" | "rk4" | "leapfrog"
     model: str = "schwarzschild"  # "schwarzschild" | "kerr" | "kerr_lt" | "flat"
-    adaptive: bool = False
+    adaptive: bool = False  # adaptive step size (docs/ROADMAP.md:195-201)
     dt: float = DEFAULT_DT
     escape_radius: float = ESCAPE_RADIUS
-    disk: bool = False
+    disk: bool = False  # equatorial thin accretion disk
     disk_r_isco_factor: float = 3.0  # in units of r_s
     disk_r_outer_factor: float = 10.0
 
@@ -67,17 +77,13 @@ def check_traceable(config: TraceConfig) -> None:
     if config.integrator not in STEP_FNS:
         raise NotImplementedError(
             f"integrator {config.integrator!r} is not ported yet "
-            "(ROADMAP queue A, item 6: rk4/leapfrog; item 11: neural)"
+            "(ROADMAP queue A, item 11: neural)"
         )
     if config.model not in ("schwarzschild", "flat"):
         raise NotImplementedError(
             f"model {config.model!r} is not ported yet (ROADMAP queue A, "
             "item 9: kerr/kerr_lt; item 14: custom plugin physics)"
         )
-    if config.adaptive:
-        raise NotImplementedError("adaptive stepping is not ported yet (ROADMAP queue A, item 6)")
-    if config.disk:
-        raise NotImplementedError("the accretion disk is not ported yet (ROADMAP queue A, item 8)")
 
 
 def trace_rays(
@@ -95,26 +101,34 @@ def trace_rays(
 
     origins/directions: fp32 (..., 3). bh_pos fp32[3]; rs/spin fp32 scalars.
     `fast_math=True` runs the fast tier's arithmetic in exact operations:
-    termination tested on r^2 against escape^2 and capture^2, and the
-    folded Euler update (geodesic.euler_step_folded); Schwarzschild only.
+    termination tested on r^2 against escape^2 and capture^2, the adaptive
+    radius taken as r^2 * rsqrt(r^2), the folded integrators of
+    ops/geodesic.py, and the disk crossing tested in r^2 space
+    (models/disk.intersect_equatorial_fast).
+
+    A disk hit's final_pos is the hit point with its y set to the black
+    hole's: the exact tier finds the hit as the oracle does
+    (models/disk.intersect_equatorial), whose interpolated y lies within
+    rounding of the plane.
     """
     check_traceable(config)
-    if fast_math and config.model != "schwarzschild":
-        raise NotImplementedError("the fast tier is defined for model='schwarzschild' only")
     device = origins.device
     f32 = torch.float32
     rs = torch.as_tensor(rs, dtype=f32).to(device)
     spin = torch.as_tensor(spin, dtype=f32).to(device)
     bh_pos = torch.as_tensor(bh_pos, dtype=f32).to(device)
+    flat_model = config.model == "flat"
     accel_fn = model_acceleration(config.model)
-    step_fn = STEP_FNS[config.integrator]
     if config.model == "schwarzschild":
         r_capture = rs * CAPTURE_FACTOR  # the literal wgsl:62 expression
     else:
         r_capture = model_capture_radius(config.model, rs, spin)
     escape_r = torch.tensor(config.escape_radius, dtype=f32, device=device)
+    base_dt = torch.tensor(config.dt, dtype=f32, device=device)
     esc2 = escape_r * escape_r
     cap2 = r_capture * r_capture
+    r_isco = config.disk_r_isco_factor * rs
+    r_outer = config.disk_r_outer_factor * rs
 
     pos = origins.to(f32)
     d = directions.to(f32)
@@ -139,12 +153,24 @@ def trace_rays(
             captured = active & ~escaped & (dist < r_capture)
         stepping = active & ~escaped & ~captured
 
+        dt = base_dt
+        if config.adaptive:
+            dt = adaptive_dt(r2 * rsqrt(r2) if fast_math else dist, rs, base_dt)
         if fast_math:
-            new_rel, new_vel_n = euler_step_folded(rel, vel, rs, config.dt)
+            new_rel, new_vel_n = FAST_STEP_FNS[config.integrator](rel, vel, rs, dt, flat_model)
         else:
-            new_rel, new_vel = step_fn(accel_fn, rel, vel, dist, rs, spin, config.dt)
+            new_rel, new_vel = STEP_FNS[config.integrator](accel_fn, rel, vel, dist, rs, spin, dt)
             new_vel_n = new_vel / torch.sqrt(dot(new_vel, new_vel))[..., None]
         new_pos = new_rel + bh_pos
+
+        if config.disk:
+            intersect = intersect_equatorial_fast if fast_math else intersect_equatorial
+            hit, hit_rel = intersect(rel, new_rel, r_isco, r_outer)
+            hit = hit & stepping
+            hit_rel = torch.stack(
+                [hit_rel[..., 0], torch.zeros_like(hit_rel[..., 1]), hit_rel[..., 2]], dim=-1)
+            new_pos = torch.where(hit[..., None], hit_rel + bh_pos, new_pos)
+            status = torch.where(hit, STATUS_DISK, status)
 
         m3 = stepping[..., None]
         pos = torch.where(m3, new_pos, pos)

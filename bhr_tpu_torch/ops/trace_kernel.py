@@ -1,27 +1,46 @@
-"""The monolithic trace + shade kernel and its plain PyTorch version
-(PyTorch port of the monolithic path of bhr_tpu/ops/pallas_trace.py).
+"""The CUDA kernels' wrappers and their plain PyTorch versions (PyTorch
+port of the monolithic and staged paths of bhr_tpu/ops/pallas_trace.py).
 
-`render_packed` is the wrapper of the CUDA kernel csrc/render_mono.cu,
-which replaces bhr_tpu's `kernel_monolithic` for Euler on the
-Schwarzschild metric, in both math tiers. For a CPU device the wrapper
-runs `render_packed_reference`, the plain version; for a CUDA device it
-launches the kernel or raises -- it never falls back.
+* `render_packed` wraps csrc/render_mono.cu, which replaces bhr_tpu's
+  `kernel_monolithic` (trace + shade into one packed word per pixel),
+  beside its plain version `render_packed_reference`;
+* `trace_image` wraps csrc/trace_planes.cu, which replaces
+  `kernel_stateless` and the step-counting `kernel` (trace into a
+  TraceResult of planes), beside its plain version `trace_image_reference`.
+
+Both kernels cover the euler, rk4 and leapfrog integrators, fixed or
+adaptive dt, the Schwarzschild and the flat metric and the accretion disk,
+in the fast and the exact math tier. A wrapper runs its plain version for
+a CPU device; for a CUDA device it launches the kernel or raises -- it
+never falls back.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..core.camera import Camera, generate_rays
 from ..core.scene import CAPTURE_FACTOR, SceneParams
-from .geodesic import model_capture_radius
-from .shading import shade_planes_packed
+from ..models.disk import T_ISCO, kernel_lut_np, shade_disk_planes
+from .geodesic import INTEGRATORS, model_capture_radius
+from .sampling import pack_rgba8_planes
 from .starfield import procedural_background, seed_term
-from .trace import TraceConfig, trace_rays
+from .trace import (
+    STATUS_CAPTURED,
+    STATUS_DISK,
+    TraceConfig,
+    TraceResult,
+    check_traceable,
+    trace_rays,
+)
 
-# Kernel launches so far in this process: incremented by `render_packed`
-# right after each successful launch of the CUDA kernel, and nowhere else.
+# Kernel launches so far in this process: each is incremented by its
+# wrapper right after a successful launch of its CUDA kernel, and nowhere
+# else (`render_packed` -> render_mono.cu, `trace_image` -> trace_planes.cu).
 LAUNCHES = 0
+TRACE_LAUNCHES = 0
 
 # params vector layout (fp32[32]), as bhr_tpu/ops/pallas_trace.py:181-201
 _P_CAM = 0  # 0:3 camera position
@@ -43,25 +62,29 @@ _P_ASPECT = 25
 _P_ROW0 = 26  # first global pixel row of this band (0 for a whole frame)
 _P_COL0 = 27  # first global pixel column of this band
 _P_STRIDE = 28  # pixel stride for subsampled ray-gen
-_P_TISCO = 29  # disk inner-edge temperature (bhr_tpu/models/disk.py T_ISCO)
+_P_TISCO = 29  # disk inner-edge temperature (models/disk.py T_ISCO)
 _P_SIZE = 32
 
-_DISK_T_ISCO = 10000.0  # bhr_tpu/models/disk.py T_ISCO, Kelvin
+# TraceFlags of csrc/trace_ray.cuh
+_FLAG_FLAT = 1
+_FLAG_ADAPTIVE = 2
+_FLAG_DISK = 4
 
 
-def monolithic_eligible(config: TraceConfig, scene: SceneParams, *, skybox, disk_params,
-                        tonemap) -> bool:
-    """True when the monolithic kernel can produce this frame: the port's
-    slice, semi-implicit Euler on the Schwarzschild metric with the
-    analytic star field, passthrough tonemap and no debug view, in either
-    math tier."""
+def monolithic_eligible(config: TraceConfig, scene: SceneParams, *, fast_math: bool, skybox,
+                        disk_params, tonemap) -> bool:
+    """True when the monolithic kernel can produce this frame
+    (bhr_tpu/ops/pallas_trace.py:79-113, restricted to the ported models):
+    the analytic star field, passthrough tonemap and no debug view, for
+    every ported integrator and model, adaptive or not. The disk is shaded
+    in-kernel in the fast tier only; an exact-tier disk frame takes the
+    staged path."""
+    disk_ok = (not config.disk and disk_params is None) or (config.disk and fast_math)
     return (
         skybox is None
-        and disk_params is None
-        and not config.disk
-        and not config.adaptive
-        and config.integrator == "euler"
-        and config.model == "schwarzschild"
+        and disk_ok
+        and config.integrator in INTEGRATORS
+        and config.model in ("schwarzschild", "flat")
         and scene.debug_mode == 0
         and tonemap == "passthrough"
     )
@@ -105,48 +128,126 @@ def build_params(camera: Camera, scene: SceneParams, config: TraceConfig, row0=0
         host(row0),
         host(col0),
         host(stride),
-        host(_DISK_T_ISCO),
+        host(T_ISCO),
     ]
     vals += [host(0.0)] * (_P_SIZE - len(vals))
     return torch.stack([v.reshape(()) for v in vals])
 
 
-def _check_frame_config(config, scene) -> None:
-    if not monolithic_eligible(config, scene, skybox=None, disk_params=None,
-                               tonemap="passthrough"):
-        raise NotImplementedError(
-            f"the monolithic kernel renders Euler/Schwarzschild frames without "
-            f"debug view; got {config} with debug_mode={scene.debug_mode} "
-            "(ROADMAP queue A, items 6-9)"
+def trace_flags(config: TraceConfig) -> int:
+    """The TraceFlags mask of a configuration (csrc/trace_ray.cuh)."""
+    return ((_FLAG_FLAT if config.model == "flat" else 0)
+            | (_FLAG_ADAPTIVE if config.adaptive else 0)
+            | (_FLAG_DISK if config.disk else 0))
+
+
+def _check_mono_config(config: TraceConfig, scene: SceneParams, fast_math: bool) -> None:
+    check_traceable(config)
+    if not monolithic_eligible(config, scene, fast_math=fast_math, skybox=None,
+                               disk_params=None, tonemap="passthrough"):
+        raise ValueError(
+            f"the monolithic kernel renders no debug view and shades the disk in the fast "
+            f"tier only; got {config} with debug_mode={scene.debug_mode}, fast_math="
+            f"{fast_math}: render it through trace_image and the staged epilogue "
+            "(renderer.render_image routes it there)"
         )
+
+
+def _kernel_device(device, name: str) -> torch.device:
+    """The validated device of a wrapper call: cpu, or cuda with an index."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{name}(device={str(device)!r}) needs a CUDA device, and none is "
+                "available; pass device='cpu' for the plain PyTorch version"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"{name} runs on cpu or cuda devices, not {device}")
+    return device
+
+
+def _check_out(t: torch.Tensor, shape, dtype, device, what: str) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{what} must be a contiguous {dtype} {tuple(shape)} tensor on {device}; got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def _raise_on_error(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({lib.bhr_error_string(rc).decode()})")
+
+
+def _kernel_params(camera, scene, config):
+    from ..utils.build import KernelParams
+
+    params = KernelParams()
+    params.v[:] = build_params(camera, scene, config).tolist()
+    return params
+
+
+# ---- the monolithic kernel ----------------------------------------------------
 
 
 def render_packed_reference(camera: Camera, scene: SceneParams,
                             config: TraceConfig = TraceConfig(), *, seed: int = 2020,
                             fast_math: bool = True, device) -> torch.Tensor:
-    """The kernel's plain PyTorch version, on any device: generate_rays,
-    trace_rays, then shade_planes_packed with the analytic star field.
-    Returns the packed int32 (H, W) frame.
+    """The monolithic kernel's plain PyTorch version, on any device:
+    `trace_image_reference`, then `shade_packed_reference`. Returns the
+    packed int32 (H, W) frame.
 
-    With `fast_math=True` it computes the fast tier's arithmetic (r^2-space
-    termination, the folded Euler update with its clamp, round-half-up
-    quantization) in exact operations, so the fast kernel differs from it
-    only by its approximate rsqrt and reciprocal.
+    With `fast_math=True` it computes the fast tier's arithmetic in exact
+    operations (see trace_rays) and quantizes round-half-up, so the fast
+    kernel differs from it only by its approximate rsqrt and reciprocal.
     """
-    _check_frame_config(config, scene)
-    device = torch.device(device)
-    origins, dirs = generate_rays(
-        camera, scene.screen_width, scene.screen_height, scene.fov, device=device
-    )
-    result = trace_rays(
-        origins, dirs, scene.black_hole_position, scene.schwarzschild_radius, scene.spin,
-        scene.max_steps, config, fast_math=fast_math,
-    )
+    _check_mono_config(config, scene, fast_math)
+    result = trace_image_reference(camera, scene, config, fast_math=fast_math, device=device)
+    return shade_packed_reference(result, camera, scene, config, seed=seed, fast_math=fast_math)
 
-    def background(dx, dy, dz):
-        return procedural_background(dx, dy, dz, seed=seed)
 
-    return shade_planes_packed(result, background, scene.max_steps, half_up=fast_math)
+def shade_packed_reference(result: TraceResult, camera: Camera, scene: SceneParams,
+                           config: TraceConfig, *, seed: int = 2020,
+                           fast_math: bool = True) -> torch.Tensor:
+    """The monolithic kernel's shading, plain, on the planes' device: the
+    star field, captured rays black, and in the fast tier the disk's
+    emission (models/disk.shade_disk_planes with the kernel's 128-entry
+    table); round-half-up quantization in the fast tier, half-to-even in
+    the exact."""
+    vel = result.final_vel
+    device = vel.device
+    r, g, b = procedural_background(vel[..., 0], vel[..., 1], vel[..., 2], seed=seed)
+    if config.disk:
+        p = build_params(camera, scene, config).to(device)
+        bh = p[_P_BH:_P_BH + 3]
+        to_cam = p[_P_CAM:_P_CAM + 3] - bh
+        obs_r = torch.sqrt(to_cam[0] * to_cam[0] + to_cam[1] * to_cam[1] + to_cam[2] * to_cam[2])
+        hit = result.final_pos - bh
+        lut = torch.from_numpy(kernel_lut_np()).to(device)
+        disk_rgb = shade_disk_planes(hit[..., 0], hit[..., 2], vel, p[_P_RS], p[_P_RISCO],
+                                     p[_P_ROUTER], p[_P_TISCO], obs_r, lut)
+        is_disk = result.status == STATUS_DISK
+        r, g, b = (torch.where(is_disk, d, c) for d, c in zip(disk_rgb, (r, g, b)))
+    captured = result.status == STATUS_CAPTURED
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    r, g, b = (torch.where(captured, zero, c) for c in (r, g, b))
+    return pack_rgba8_planes(r, g, b, half_up=fast_math)
+
+
+@functools.cache
+def _set_disk_lut(device_index: int) -> None:
+    """Copy the fast kernel's blackbody table into the device's constant
+    memory, once per device."""
+    from ..utils.build import load_render_mono
+
+    lib = load_render_mono()
+    lut = kernel_lut_np()
+    _raise_on_error(lib, lib.bhr_set_disk_lut(device_index, lut.ctypes.data, lut.size),
+                    "bhr_set_disk_lut")
 
 
 def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = TraceConfig(),
@@ -162,48 +263,106 @@ def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = Trac
     preallocated tensor).
     """
     global LAUNCHES
-    _check_frame_config(config, scene)
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"render_packed(device={str(device)!r}) needs a CUDA device, and none "
-                "is available; pass device='cpu' for the plain PyTorch version"
-            )
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    elif device.type != "cpu":
-        raise ValueError(f"render_packed runs on cpu or cuda devices, not {device}")
+    _check_mono_config(config, scene, fast_math)
+    device = _kernel_device(device, "render_packed")
     shape = (scene.screen_height, scene.screen_width)
-    if out is not None and (
-        tuple(out.shape) != shape or out.dtype != torch.int32 or out.device != device
-        or not out.is_contiguous()
-    ):
-        raise ValueError(
-            f"out must be a contiguous int32 {shape} tensor on {device}; got "
-            f"{out.dtype} {tuple(out.shape)} on {out.device}"
-        )
+    if out is not None:
+        _check_out(out, shape, torch.int32, device, "out")
     if device.type == "cpu":
         frame = render_packed_reference(
             camera, scene, config, seed=seed, fast_math=fast_math, device=device
         )
         return frame if out is None else out.copy_(frame)
-    from ..utils.build import KernelParams, load_render_mono
+    from ..utils.build import load_render_mono
 
     lib = load_render_mono()
+    if config.disk:
+        _set_disk_lut(device.index)
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=device)
-    params = KernelParams()
-    params.v[:] = build_params(camera, scene, config).tolist()
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.bhr_render_mono(
-        params, seed_term(seed), int(bool(fast_math)), shape[0], shape[1],
+        _kernel_params(camera, scene, config), seed_term(seed), int(bool(fast_math)),
+        INTEGRATORS.index(config.integrator), trace_flags(config), shape[0], shape[1],
         int(scene.max_steps), device.index, out.data_ptr(), stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"render_mono launch failed: CUDA error {rc} "
-            f"({lib.bhr_error_string(rc).decode()})"
-        )
+    _raise_on_error(lib, rc, "render_mono launch")
     LAUNCHES += 1
+    return out
+
+
+# ---- the planes kernel --------------------------------------------------------
+
+
+def empty_trace_result(height: int, width: int, device) -> TraceResult:
+    """Uninitialised planes of an (height, width) TraceResult on `device`,
+    for `trace_image(out=...)`."""
+    f32, i32 = torch.float32, torch.int32
+    return TraceResult(
+        final_pos=torch.empty((height, width, 3), dtype=f32, device=device),
+        final_vel=torch.empty((height, width, 3), dtype=f32, device=device),
+        status=torch.empty((height, width), dtype=i32, device=device),
+        steps=torch.empty((height, width), dtype=i32, device=device),
+    )
+
+
+def trace_image_reference(camera: Camera, scene: SceneParams,
+                          config: TraceConfig = TraceConfig(), *, fast_math: bool = False,
+                          device) -> TraceResult:
+    """The planes kernel's plain PyTorch version, on any device:
+    generate_rays, then trace_rays in the chosen tier."""
+    check_traceable(config)
+    device = torch.device(device)
+    origins, dirs = generate_rays(
+        camera, scene.screen_width, scene.screen_height, scene.fov, device=device
+    )
+    return trace_rays(
+        origins, dirs, scene.black_hole_position, scene.schwarzschild_radius, scene.spin,
+        scene.max_steps, config, fast_math=fast_math,
+    )
+
+
+def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceConfig(), *,
+                fast_math: bool = False, device,
+                out: TraceResult | None = None) -> TraceResult:
+    """Staged path: trace every pixel -> TraceResult of (H, W) planes
+    (final_pos, final_vel fp32 (H, W, 3); status, steps int32 (H, W)), as
+    bhr_tpu's pallas_trace_image returns, with `steps` always counted.
+
+    On a CPU device this is `trace_image_reference`. On a CUDA device it
+    launches csrc/trace_planes.cu on the current stream, without a host
+    sync, and raises when CUDA is not available or the launch fails.
+    `out`, if given (see `empty_trace_result`), receives the planes.
+    """
+    global TRACE_LAUNCHES
+    check_traceable(config)
+    device = _kernel_device(device, "trace_image")
+    h, w = scene.screen_height, scene.screen_width
+    if out is not None:
+        for name, shape, dtype in (("final_pos", (h, w, 3), torch.float32),
+                                   ("final_vel", (h, w, 3), torch.float32),
+                                   ("status", (h, w), torch.int32),
+                                   ("steps", (h, w), torch.int32)):
+            _check_out(getattr(out, name), shape, dtype, device, f"out.{name}")
+    if device.type == "cpu":
+        result = trace_image_reference(camera, scene, config, fast_math=fast_math, device=device)
+        if out is None:
+            return result
+        for name in ("final_pos", "final_vel", "status", "steps"):
+            getattr(out, name).copy_(getattr(result, name))
+        return out
+    from ..utils.build import load_trace_planes
+
+    lib = load_trace_planes()
+    if out is None:
+        out = empty_trace_result(h, w, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.bhr_trace_planes(
+        _kernel_params(camera, scene, config), int(bool(fast_math)),
+        INTEGRATORS.index(config.integrator), trace_flags(config), h, w, int(scene.max_steps),
+        device.index, out.final_pos.data_ptr(), out.final_vel.data_ptr(),
+        out.status.data_ptr(), out.steps.data_ptr(), stream,
+    )
+    _raise_on_error(lib, rc, "trace_planes launch")
+    TRACE_LAUNCHES += 1
     return out

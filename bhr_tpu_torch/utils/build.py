@@ -27,6 +27,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 RENDER_MONO_SOURCES = ("render_mono.cu",)
+TRACE_PLANES_SOURCES = ("trace_planes.cu",)
 
 
 class KernelParams(ctypes.Structure):
@@ -100,6 +101,8 @@ def load_render_mono() -> ctypes.CDLL:
         KernelParams,  # params, by value
         ctypes.c_uint32,  # seed_term
         ctypes.c_int,  # fast
+        ctypes.c_int,  # integrator
+        ctypes.c_int,  # flags
         ctypes.c_int,  # height
         ctypes.c_int,  # width
         ctypes.c_int,  # max_steps
@@ -108,6 +111,34 @@ def load_render_mono() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.bhr_render_mono.restype = ctypes.c_int
+    lib.bhr_set_disk_lut.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    lib.bhr_set_disk_lut.restype = ctypes.c_int
+    lib.bhr_error_string.argtypes = [ctypes.c_int]
+    lib.bhr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_trace_planes() -> ctypes.CDLL:
+    """Build (at first use) and load the staged trace kernel's library,
+    with the C signatures of csrc/trace_planes.cu declared."""
+    lib = ctypes.CDLL(str(build("trace_planes", TRACE_PLANES_SOURCES).path))
+    lib.bhr_trace_planes.argtypes = [
+        KernelParams,  # params, by value
+        ctypes.c_int,  # fast
+        ctypes.c_int,  # integrator
+        ctypes.c_int,  # flags
+        ctypes.c_int,  # height
+        ctypes.c_int,  # width
+        ctypes.c_int,  # max_steps
+        ctypes.c_int,  # device
+        ctypes.c_void_p,  # pos
+        ctypes.c_void_p,  # vel
+        ctypes.c_void_p,  # status
+        ctypes.c_void_p,  # steps
+        ctypes.c_void_p,  # stream
+    ]
+    lib.bhr_trace_planes.restype = ctypes.c_int
     lib.bhr_error_string.argtypes = [ctypes.c_int]
     lib.bhr_error_string.restype = ctypes.c_char_p
     return lib

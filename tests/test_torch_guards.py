@@ -1,14 +1,16 @@
 """What bhr_tpu_torch refuses to do: import JAX, render on the CPU when a
-CUDA device was asked for, or quietly render a configuration outside its
-slice."""
+CUDA device was asked for, or quietly render a configuration outside what
+it has ported -- and the configurations it renders now that once raised."""
 
 import inspect
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+import bhr_tpu as J
 import bhr_tpu_torch as T
 from bhr_tpu_torch.ops import trace, trace_kernel
 from bhr_tpu_torch.utils import build
@@ -20,6 +22,7 @@ MODULES = [
     "bhr_tpu_torch.ops.sampling", "bhr_tpu_torch.ops.geodesic", "bhr_tpu_torch.models.flat",
     "bhr_tpu_torch.models.schwarzschild", "bhr_tpu_torch.core.camera",
     "bhr_tpu_torch.core.scene", "bhr_tpu_torch.core.math", "bhr_tpu_torch.utils.build",
+    "bhr_tpu_torch.models.disk", "bhr_tpu_torch.ops.display", "bhr_tpu_torch.ops.heatmap",
 ]
 
 
@@ -44,11 +47,13 @@ def _need_no_cuda():
 def test_render_packed_on_cuda_raises_without_cuda():
     _need_no_cuda()
     scene = T.SceneParams(screen_width=8, screen_height=8, max_steps=4)
-    launches = trace_kernel.LAUNCHES
+    launches = trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES
     for device in ("cuda", "cuda:0", torch.device("cuda")):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             trace_kernel.render_packed(T.Camera.default(), scene, device=device)
-    assert trace_kernel.LAUNCHES == launches
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            trace_kernel.trace_image(T.Camera.default(), scene, device=device)
+    assert (trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES) == launches
 
 
 def test_cuda_context_raises_without_cuda():
@@ -64,25 +69,21 @@ def test_render_packed_rejects_other_devices():
     scene = T.SceneParams(screen_width=8, screen_height=8, max_steps=4)
     with pytest.raises(ValueError, match="cpu or cuda"):
         trace_kernel.render_packed(T.Camera.default(), scene, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        trace_kernel.trace_image(T.Camera.default(), scene, device="meta")
 
 
 def test_no_fallback_in_the_cuda_path():
     """The wrapper and the build have no `try`: a failed build or launch
     raises where it happened instead of running something else."""
-    for fn in (trace_kernel.render_packed, build.build, build.load_render_mono):
+    for fn in (trace_kernel.render_packed, trace_kernel.trace_image, trace_kernel._set_disk_lut,
+               build.build, build.load_render_mono, build.load_trace_planes):
         assert "try:" not in inspect.getsource(fn), fn.__name__
 
 
 @pytest.mark.parametrize(
     "args,kw,item",
     [
-        (("rk4",), {}, "item 6"),
-        (("leapfrog",), {}, "item 6"),
-        (("src/ray_tracer_rk4.wgsl",), {}, "item 6"),
-        (("euler",), dict(adaptive=True), "item 6"),
-        (("euler",), dict(model="flat"), "item 6"),
-        (("euler",), dict(tonemap="reinhard"), "item 6"),
-        (("euler",), dict(disk=True), "item 8"),
         (("euler",), dict(model="kerr"), "item 9"),
         (("euler",), dict(model="kerr_lt"), "item 9"),
         (("src/ray_tracer_kerr.wgsl",), {}, "item 9"),
@@ -99,6 +100,35 @@ def test_renderer_outside_slice_raises(args, kw, item):
         T.BlackHoleRenderer(8, 8, *args, device="cpu", **kw)
 
 
+@pytest.mark.parametrize(
+    "args,kw",
+    [
+        (("rk4",), {}),
+        (("leapfrog",), {}),
+        (("src/ray_tracer_rk4.wgsl",), {}),
+        (("euler",), dict(adaptive=True)),
+        (("euler",), dict(model="flat")),
+        (("euler",), dict(tonemap="reinhard")),
+        (("euler",), dict(disk=True)),
+    ],
+    ids=["rk4", "leapfrog", "rk4-wgsl", "adaptive", "flat", "reinhard", "disk"],
+)
+def test_renderer_renders_what_once_raised(args, kw):
+    """Each configuration that raised before this slice renders, and
+    agrees with bhr_tpu's renderer (oracle path, exact tier) at 24x16x120
+    within 1 level on every pixel."""
+    jr = J.BlackHoleRenderer(24, 16, *args, use_pallas=False, **kw)
+    cam = ([0.0, 3.0, 20.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    want = np.asarray(jr.render_frame(
+        J.Camera.new(*cam), J.SceneParams(screen_width=24, screen_height=16, max_steps=120)))
+    tr = T.BlackHoleRenderer(24, 16, *args, device="cpu", **kw)
+    got = tr.render_frame(T.Camera.new(*cam),
+                          T.SceneParams(screen_width=24, screen_height=16, max_steps=120))
+    assert tr.config.integrator == jr.config.integrator and tr.config.model == jr.config.model
+    diff = np.abs(got.numpy().astype(int) - want.astype(int)).max(-1)
+    assert diff.max() <= 1, diff.max()
+
+
 @pytest.mark.parametrize("kw", [dict(tile=(8, 128)), dict(kernel_knobs=(64, 1, 1)),
                                 dict(use_pallas=True), dict(interpret=True)])
 def test_renderer_takes_no_tpu_tuning_arguments(kw):
@@ -107,21 +137,25 @@ def test_renderer_takes_no_tpu_tuning_arguments(kw):
 
 
 def test_debug_heatmap_raises():
+    """The monolithic kernel has no debug view and refuses one; the
+    renderer sends the heatmap down the staged path instead, where it is
+    the step counts' colour ramp (wgsl:204-211)."""
+    scene = T.SceneParams(screen_width=8, screen_height=8, max_steps=40, debug_mode=1)
+    with pytest.raises(ValueError, match="staged epilogue"):
+        trace_kernel.render_packed(T.Camera.default(), scene, device="cpu")
     r = T.BlackHoleRenderer(8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        r.render_frame(scene=T.SceneParams(screen_width=8, screen_height=8, debug_mode=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_kernel.render_packed(
-            T.Camera.default(), T.SceneParams(screen_width=8, screen_height=8, debug_mode=1),
-            device="cpu")
+    frame = r.render_frame(scene=scene)
+    steps = trace_kernel.trace_image(T.Camera.default(), scene, device="cpu").steps
+    want = T.ops.heatmap.steps_to_color(steps, 40)
+    want = T.ops.sampling.unpack_frame(T.ops.sampling.pack_rgba8_planes(*want.unbind(-1)))
+    torch.testing.assert_close(frame, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize(
     "config",
-    [T.TraceConfig(integrator="rk4"), T.TraceConfig(integrator="leapfrog"),
-     T.TraceConfig(model="kerr"), T.TraceConfig(model="kerr_lt"), T.TraceConfig(adaptive=True),
-     T.TraceConfig(disk=True)],
-    ids=["rk4", "leapfrog", "kerr", "kerr_lt", "adaptive", "disk"],
+    [T.TraceConfig(model="kerr"), T.TraceConfig(model="kerr_lt"),
+     T.TraceConfig(integrator="neural")],
+    ids=["kerr", "kerr_lt", "neural"],
 )
 def test_trace_and_render_outside_slice_raise(config):
     scene = T.SceneParams(screen_width=4, screen_height=4, max_steps=2)
@@ -131,24 +165,76 @@ def test_trace_and_render_outside_slice_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trace_kernel.render_packed(T.Camera.default(), scene, config, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trace_kernel.trace_image(T.Camera.default(), scene, config, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.render_image(T.Camera.default(), scene, config=config, fast_math=False,
                        device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(tonemap="srgb"), dict(skybox=object()),
-                                dict(disk_params=object())], ids=["tonemap", "skybox", "disk"])
-def test_render_image_outside_slice_raises(kw):
+@pytest.mark.parametrize(
+    "config",
+    [T.TraceConfig(integrator="rk4"), T.TraceConfig(integrator="leapfrog"),
+     T.TraceConfig(adaptive=True), T.TraceConfig(disk=True)],
+    ids=["rk4", "leapfrog", "adaptive", "disk"],
+)
+def test_trace_and_render_what_once_raised(config):
+    """trace_rays, the monolithic wrapper and render_image take each
+    configuration that raised before this slice; in the fast tier
+    render_image is the monolithic frame, and the exact frame of a
+    configuration without the disk is too."""
+    scene = T.SceneParams(screen_width=12, screen_height=8, max_steps=60)
+    cam = T.Camera.new([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    origins, dirs = T.generate_rays(cam, 12, 8, scene.fov)
+    res = trace.trace_rays(origins, dirs, torch.zeros(3), 2.0, 0.0, 60, config)
+    assert res.status.shape == (8, 12) and int(res.steps.max()) == 60
+    for fast in (False, True):
+        frame = T.render_image(cam, scene, config=config, fast_math=fast, device="cpu",
+                               packed=True)
+        if fast or not config.disk:
+            mono = trace_kernel.render_packed(cam, scene, config, fast_math=fast, device="cpu")
+            torch.testing.assert_close(frame, mono, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "kw,config",
+    [(dict(skybox=object()), T.TraceConfig()),
+     (dict(skybox=object()), T.TraceConfig(disk=True)),
+     ({}, T.TraceConfig(model="kerr"))],
+    ids=["skybox", "skybox-disk", "kerr"])
+def test_render_image_outside_slice_raises(kw, config):
     scene = T.SceneParams(screen_width=4, screen_height=4, max_steps=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.render_image(T.Camera.default(), scene, config=T.TraceConfig(), fast_math=True,
+        T.render_image(T.Camera.default(), scene, config=config, fast_math=True,
                        device="cpu", **kw)
 
 
-def test_fast_tier_trace_is_schwarzschild_only():
+def test_render_image_tonemap_and_disk_params_take_the_staged_path():
+    """A tonemap or the exact tier's disk goes through the planes kernel's
+    wrapper and the epilogue; an unknown tonemap raises."""
+    scene = T.SceneParams(screen_width=12, screen_height=8, max_steps=40)
+    cam = T.Camera.new([0.0, 3.0, 20.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    res = trace_kernel.trace_image(cam, scene, T.TraceConfig(disk=True), device="cpu")
+    p = T.models.disk.DiskParams.for_scene(torch.tensor(2.0))
+    lut = T.models.disk.blackbody_lut()
+    got = T.render_image(cam, scene, config=T.TraceConfig(disk=True), fast_math=False,
+                         device="cpu", tonemap="srgb", disk_params=p, lut=lut)
+    want = T.renderer.shade_image(res, cam, scene, p, lut, tonemap="srgb")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="tonemap"):
+        T.render_image(cam, scene, config=T.TraceConfig(), fast_math=True, device="cpu",
+                       tonemap="filmic")
+
+
+def test_fast_tier_flat_trace_is_a_straight_line():
+    """The fast tier traces flat spacetime too (it raised before this
+    slice): each ray's position advances along its unchanged direction."""
     origins, dirs = T.generate_rays(T.Camera.default(), 4, 4, T.SceneParams().fov)
-    with pytest.raises(NotImplementedError, match="schwarzschild"):
-        trace.trace_rays(origins, dirs, torch.zeros(3), 0.0, 0.0, 2,
-                         T.TraceConfig(model="flat"), fast_math=True)
+    for integ in ("euler", "rk4", "leapfrog"):
+        res = trace.trace_rays(origins, dirs, torch.zeros(3), 0.0, 0.0, 20,
+                               T.TraceConfig(integrator=integ, model="flat"), fast_math=True)
+        unit = T.normalize(dirs)
+        torch.testing.assert_close(res.final_vel, unit, rtol=0, atol=3e-7)
+        torch.testing.assert_close(res.final_pos, origins + unit * 2.0, rtol=0, atol=2e-5)
 
 
 def test_build_is_keyed_by_source_hash():
@@ -156,5 +242,8 @@ def test_build_is_keyed_by_source_hash():
     kernel is rebuilt; nothing is built or loaded when the package imports."""
     h = build._source_hash(build.RENDER_MONO_SOURCES)
     assert len(h) == 16 and h == build._source_hash(build.RENDER_MONO_SOURCES)
-    assert build.load_render_mono.cache_info().currsize == 0 or torch.cuda.is_available()
-    assert {p.name for p in build.CSRC_DIR.glob("*.cu*")} >= {"render_mono.cu", "common.cuh"}
+    assert h != build._source_hash(build.TRACE_PLANES_SOURCES)
+    for loader in (build.load_render_mono, build.load_trace_planes):
+        assert loader.cache_info().currsize == 0 or torch.cuda.is_available()
+    assert {p.name for p in build.CSRC_DIR.glob("*.cu*")} >= {
+        "render_mono.cu", "trace_planes.cu", "trace_ray.cuh", "common.cuh"}

@@ -153,12 +153,38 @@ def test_shade_planes_packed_matches_jax():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(debug_mode=1), dict(disk_params=object()), dict(blackbody_lut=object()),
-     dict(tonemap=lambda c: c)],
+    [dict(debug_mode=1), dict(disk=True), dict(lut=True), dict(tonemap=lambda c: c * 0.5)],
     ids=["debug", "disk", "lut", "tonemap"],
 )
-def test_shade_planes_packed_raises_outside_slice(kw):
-    res = T.TraceResult(torch.zeros(2, 2, 3), torch.ones(2, 2, 3), torch.zeros(2, 2, dtype=torch.int32),
-                        torch.zeros(2, 2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tshade.shade_planes_packed(res, tstar.procedural_background, 10, **kw)
+def test_shade_planes_packed_branches(kw):
+    """The epilogue's branches beyond the star field (they raised before
+    this slice; tests/test_torch_disk.py holds each against bhr_tpu): the
+    debug view is the step heatmap, a disk ray takes the emission of
+    models/disk.disk_emission with the given LUT (the default 512-entry
+    table when `lut` is None), and a tonemap is applied to every plane."""
+    res = T.TraceResult(
+        torch.tensor([[[8.0, 0.0, 0.0], [0.0, 0.0, 9.0]]]),
+        torch.tensor([[[0.0, 0.6, 0.8], [0.6, 0.0, 0.8]]]),
+        torch.tensor([[3, 1]], dtype=torch.int32), torch.tensor([[7, 10]], dtype=torch.int32))
+    bg = functools.partial(tstar.procedural_background, seed=2020)
+    plain = tshade.shade_planes_packed(res, bg, 10)
+    if "debug_mode" in kw:
+        got = tshade.shade_planes_packed(res, bg, 10, **kw)
+        rgb = T.ops.heatmap.steps_to_color(res.steps, 10)
+        torch.testing.assert_close(got, tsamp.pack_rgba8_planes(*rgb.unbind(-1)))
+        return
+    if "tonemap" in kw:
+        got = tshade.shade_planes_packed(res, bg, 10, **kw)
+        r, g, b = bg(*res.final_vel.unbind(-1))
+        torch.testing.assert_close(got, tsamp.pack_rgba8_planes(r * 0.5, g * 0.5, b * 0.5))
+        return
+    params = T.models.disk.DiskParams.for_scene(torch.tensor(2.0))
+    lut = T.models.disk.blackbody_lut() if "lut" in kw else None
+    got = tshade.shade_planes_packed(res, bg, 10, bh_pos=torch.zeros(3), rs=torch.tensor(2.0),
+                                     camera_position=torch.tensor([0.0, 3.0, 20.0]),
+                                     disk_params=params, blackbody_lut=lut)
+    emission = T.models.disk.disk_emission(res.final_pos, res.final_vel,
+                                           torch.tensor(409.0).sqrt(), torch.tensor(2.0),
+                                           params)
+    want = tsamp.pack_rgba8_planes(*emission[0, 0])
+    assert int(got[0, 0]) == int(want) and int(got[0, 1]) == int(plain[0, 1])

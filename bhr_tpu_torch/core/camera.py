@@ -8,7 +8,7 @@ import dataclasses
 
 import torch
 
-from .math import cross, dot, normalize
+from .math import cross, dot, normalize, sqrt_rn
 
 _F32 = torch.float32
 
@@ -93,7 +93,7 @@ def generate_rays(
         + cam.right * (uu * fov_factor)[..., None]
         + cam.up * (vv * fov_factor)[..., None]
     )
-    d = d / torch.sqrt(dot(d, d))[..., None]
+    d = d / sqrt_rn(dot(d, d))[..., None]
     origins = cam.position.expand(d.shape)
     return origins, d
 

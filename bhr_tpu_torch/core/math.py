@@ -32,7 +32,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def normalize(v: torch.Tensor) -> torch.Tensor:
     """Normalize with a zero-length guard: a zero vector comes back
     unchanged (reference: src/lib.rs:119-126)."""
-    length = torch.sqrt(dot(v, v))[..., None]
+    length = sqrt_rn(dot(v, v))[..., None]
     nonzero = length > 0.0
     return torch.where(nonzero, v / torch.where(nonzero, length, torch.ones_like(length)), v)
 
@@ -45,6 +45,16 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
     so the plain version computes in float64 and rounds once to fp32.
     """
     return torch.reciprocal(torch.sqrt(x.double())).to(torch.float32)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded fp32 sqrt on any device. `torch.sqrt` rounds
+    correctly on CUDA, but PyTorch's vectorised CPU kernel is off by an ulp
+    on ~0.6% of inputs; there the root is taken in float64 and rounded once
+    (exact: 53 >= 2 * 24 + 2 bits)."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(torch.float32)
 
 
 def on_device(x, device) -> torch.Tensor:

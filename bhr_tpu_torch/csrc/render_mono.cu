@@ -3,7 +3,8 @@
 // Replaces bhr_tpu/ops/pallas_trace.py:kernel_monolithic (with its
 // _stateless_trace loop, and _shade_disk for the accretion disk) for the
 // euler, rk4 and leapfrog integrators, fixed or adaptive dt, on the
-// Schwarzschild or the flat metric, in both math tiers. One thread renders
+// Schwarzschild, exact Kerr (Kerr-Schild, K6), Lense-Thirring Kerr (K7) or
+// flat metric, in both math tiers. One thread renders
 // one pixel: ray-gen from the 32-float parameter struct, the geodesic loop
 // (trace_ray.cuh), then the analytic star field
 // (bhr_tpu/ops/starfield.py:procedural_background) or, in the fast tier,
@@ -36,6 +37,13 @@
 // exact tier quantizes round-half-to-even, the fast tier round-half-up.
 // The disk is shaded in the fast tier only: an exact-tier disk frame goes
 // through trace_planes.cu and the plain PyTorch epilogue, as in bhr_tpu.
+// The Kerr-Schild loop is a template parameter (KS), so there are 2 tiers
+// x 3 integrators x 2 loops = 12 instantiations; a Kerr-Schild disk ray is
+// shaded with the direction evaluated at its hit point, y = 0.
+//
+// Kerr-Schild costs more a step: ks_all (derivs) is ~150 fp32 operations
+// against ~35 for the Schwarzschild acceleration, with 3 reciprocals and 2
+// square roots; rk4 calls it 4 times a step, leapfrog 5, euler once.
 
 #include <cuda_runtime.h>
 
@@ -228,7 +236,7 @@ __device__ __forceinline__ void shade_disk(const Params& p, Vec3 rel, Vec3 vel, 
   out_b = lerp(2);
 }
 
-template <bool FAST, int INTEG>
+template <bool FAST, int INTEG, bool KS>
 __global__ void __launch_bounds__(256)
     render_mono_kernel(const Params p, const uint32_t seed_term, const int flags,
                        const int height, const int width, const int max_steps,
@@ -237,7 +245,7 @@ __global__ void __launch_bounds__(256)
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
 
-  const Ray ray = trace_ray<FAST, INTEG>(p, flags, row, col, max_steps);
+  const Ray ray = trace_ray<FAST, INTEG, KS>(p, flags, row, col, max_steps);
 
   // ---- shade, quantize, pack (pallas_trace.py:1294-1333)
   const bool captured = ray.status == kCaptured;
@@ -261,23 +269,24 @@ __global__ void __launch_bounds__(256)
   out[static_cast<int64_t>(row) * width + col] = qr | (qg << 8) | (qb << 16) | 0xFF000000u;
 }
 
-template <bool FAST>
+template <bool FAST, bool KS>
 void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params& params,
             uint32_t seed_term, int flags, int height, int width, int max_steps,
             uint32_t* frame) {
   switch (integrator) {
     case kEuler:
-      render_mono_kernel<FAST, kEuler><<<grid, block, 0, s>>>(params, seed_term, flags, height,
-                                                               width, max_steps, frame);
+      render_mono_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(params, seed_term, flags,
+                                                                   height, width, max_steps,
+                                                                   frame);
       break;
     case kRk4:
-      render_mono_kernel<FAST, kRk4><<<grid, block, 0, s>>>(params, seed_term, flags, height,
-                                                             width, max_steps, frame);
+      render_mono_kernel<FAST, kRk4, KS><<<grid, block, 0, s>>>(params, seed_term, flags, height,
+                                                                 width, max_steps, frame);
       break;
     default:
-      render_mono_kernel<FAST, kLeapfrog><<<grid, block, 0, s>>>(params, seed_term, flags,
-                                                                  height, width, max_steps,
-                                                                  frame);
+      render_mono_kernel<FAST, kLeapfrog, KS><<<grid, block, 0, s>>>(params, seed_term, flags,
+                                                                      height, width, max_steps,
+                                                                      frame);
   }
 }
 
@@ -288,15 +297,17 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
 // Launches one frame on `stream` into `out`, a contiguous (height, width)
 // array of 32-bit words on `device`, and returns cudaGetLastError() after
 // the launch (0 on success). Does not synchronise. `integrator` is an
-// Integrator and `flags` a TraceFlags mask of trace_ray.cuh; the disk
-// flag needs `fast` and a table set by bhr_set_disk_lut.
+// Integrator and `flags` a TraceFlags mask of trace_ray.cuh (at most one
+// of flat, kerr_lt and Kerr-Schild); the disk flag needs `fast` and a
+// table set by bhr_set_disk_lut.
 extern "C" int bhr_render_mono(bhr::Params params, uint32_t seed_term, int fast, int integrator,
                                int flags, int height, int width, int max_steps, int device,
                                void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int models = flags & (bhr::kFlagFlat | bhr::kFlagLT | bhr::kFlagKS);
   if (integrator < bhr::kEuler || integrator > bhr::kLeapfrog ||
-      ((flags & bhr::kFlagDisk) && !fast)) {
+      ((flags & bhr::kFlagDisk) && !fast) || (models & (models - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (height <= 0 || width <= 0) return 0;
@@ -304,12 +315,19 @@ extern "C" int bhr_render_mono(bhr::Params params, uint32_t seed_term, int fast,
   const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   auto* frame = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (fast) {
-    bhr::launch<true>(integrator, grid, block, s, params, seed_term, flags, height, width,
-                      max_steps, frame);
+  const bool ks = flags & bhr::kFlagKS;
+  if (fast && ks) {
+    bhr::launch<true, true>(integrator, grid, block, s, params, seed_term, flags, height, width,
+                            max_steps, frame);
+  } else if (fast) {
+    bhr::launch<true, false>(integrator, grid, block, s, params, seed_term, flags, height, width,
+                             max_steps, frame);
+  } else if (ks) {
+    bhr::launch<false, true>(integrator, grid, block, s, params, seed_term, flags, height, width,
+                             max_steps, frame);
   } else {
-    bhr::launch<false>(integrator, grid, block, s, params, seed_term, flags, height, width,
-                       max_steps, frame);
+    bhr::launch<false, false>(integrator, grid, block, s, params, seed_term, flags, height,
+                              width, max_steps, frame);
   }
   return static_cast<int>(cudaGetLastError());
 }

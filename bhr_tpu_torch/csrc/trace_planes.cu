@@ -4,8 +4,10 @@
 // Replaces bhr_tpu/ops/pallas_trace.py:kernel_stateless (K4, via
 // _pallas_trace and pallas_trace_image) and its step-counting flavour
 // `kernel` (K5, track_steps=True, body_fast) for the euler, rk4 and
-// leapfrog integrators, fixed or adaptive dt, the Schwarzschild or the flat
-// metric, with or without the accretion disk, in both math tiers. One
+// leapfrog integrators, fixed or adaptive dt, the Schwarzschild, exact
+// Kerr (Kerr-Schild, K6), Lense-Thirring Kerr (K7) or flat metric, with or
+// without the accretion disk, in both math tiers (the Kerr-Schild loop a
+// template parameter: 12 instantiations). One
 // thread traces one pixel (trace_ray.cuh) and writes its TraceResult:
 // final position and unit direction as fp32 (H, W, 3), status and step
 // count as int32 (H, W). On a TPU tile the step count cost a scratch plane
@@ -13,7 +15,8 @@
 // so K4 and K5 are this one kernel, which always writes `steps` with the
 // oracle's meaning (i + 1 at termination). Status uses the oracle's codes,
 // STATUS_DISK included; a disk ray's position is its hit point, with the
-// black hole's y.
+// black hole's y. For Kerr-Schild rays `vel` is the unit coordinate
+// direction dq/dl, not the momentum the loop carries.
 //
 // What bounds it: instruction issue in the geodesic loop, as for
 // render_mono.cu; the 32 bytes written per pixel are ~66 MB a 1920x1080
@@ -32,7 +35,7 @@
 namespace bhr {
 namespace {
 
-template <bool FAST, int INTEG>
+template <bool FAST, int INTEG, bool KS>
 __global__ void __launch_bounds__(256)
     trace_planes_kernel(const Params p, const int flags, const int height, const int width,
                         const int max_steps, float* __restrict__ pos, float* __restrict__ vel,
@@ -42,7 +45,7 @@ __global__ void __launch_bounds__(256)
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
 
-  const Ray ray = trace_ray<FAST, INTEG>(p, flags, row, col, max_steps);
+  const Ray ray = trace_ray<FAST, INTEG, KS>(p, flags, row, col, max_steps);
 
   const int64_t i = static_cast<int64_t>(row) * width + col;
   pos[3 * i + 0] = A::add(ray.rel.x, p.v[P_BH + 0]);
@@ -55,25 +58,22 @@ __global__ void __launch_bounds__(256)
   steps[i] = ray.steps;
 }
 
-template <bool FAST>
+template <bool FAST, bool KS>
 void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params& params,
             int flags, int height, int width, int max_steps, float* pos, float* vel,
             int32_t* status, int32_t* steps) {
   switch (integrator) {
     case kEuler:
-      trace_planes_kernel<FAST, kEuler><<<grid, block, 0, s>>>(params, flags, height, width,
-                                                                max_steps, pos, vel, status,
-                                                                steps);
+      trace_planes_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(
+          params, flags, height, width, max_steps, pos, vel, status, steps);
       break;
     case kRk4:
-      trace_planes_kernel<FAST, kRk4><<<grid, block, 0, s>>>(params, flags, height, width,
-                                                              max_steps, pos, vel, status,
-                                                              steps);
+      trace_planes_kernel<FAST, kRk4, KS><<<grid, block, 0, s>>>(
+          params, flags, height, width, max_steps, pos, vel, status, steps);
       break;
     default:
-      trace_planes_kernel<FAST, kLeapfrog><<<grid, block, 0, s>>>(params, flags, height, width,
-                                                                   max_steps, pos, vel, status,
-                                                                   steps);
+      trace_planes_kernel<FAST, kLeapfrog, KS><<<grid, block, 0, s>>>(
+          params, flags, height, width, max_steps, pos, vel, status, steps);
   }
 }
 
@@ -85,13 +85,14 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
 // vel fp32 (height, width, 3), status and steps int32 (height, width).
 // Returns cudaGetLastError() after the launch (0 on success); does not
 // synchronise. `integrator` is an Integrator and `flags` a TraceFlags mask
-// of trace_ray.cuh.
+// of trace_ray.cuh (at most one of flat, kerr_lt and Kerr-Schild).
 extern "C" int bhr_trace_planes(bhr::Params params, int fast, int integrator, int flags,
                                 int height, int width, int max_steps, int device, void* pos,
                                 void* vel, void* status, void* steps, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (integrator < bhr::kEuler || integrator > bhr::kLeapfrog) {
+  const int models = flags & (bhr::kFlagFlat | bhr::kFlagLT | bhr::kFlagKS);
+  if (integrator < bhr::kEuler || integrator > bhr::kLeapfrog || (models & (models - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (height <= 0 || width <= 0) return 0;
@@ -102,12 +103,19 @@ extern "C" int bhr_trace_planes(bhr::Params params, int fast, int integrator, in
   auto* v = static_cast<float*>(vel);
   auto* st = static_cast<int32_t*>(status);
   auto* n = static_cast<int32_t*>(steps);
-  if (fast) {
-    bhr::launch<true>(integrator, grid, block, s, params, flags, height, width, max_steps, p, v,
-                      st, n);
+  const bool ks = flags & bhr::kFlagKS;
+  if (fast && ks) {
+    bhr::launch<true, true>(integrator, grid, block, s, params, flags, height, width, max_steps,
+                            p, v, st, n);
+  } else if (fast) {
+    bhr::launch<true, false>(integrator, grid, block, s, params, flags, height, width,
+                             max_steps, p, v, st, n);
+  } else if (ks) {
+    bhr::launch<false, true>(integrator, grid, block, s, params, flags, height, width,
+                             max_steps, p, v, st, n);
   } else {
-    bhr::launch<false>(integrator, grid, block, s, params, flags, height, width, max_steps, p,
-                       v, st, n);
+    bhr::launch<false, false>(integrator, grid, block, s, params, flags, height, width,
+                              max_steps, p, v, st, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

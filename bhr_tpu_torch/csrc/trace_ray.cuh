@@ -20,6 +20,18 @@
 //    termination and the disk annulus in r^2 space.
 // The integrator is a template parameter; the flat model, adaptive dt and
 // the disk are uniform runtime flags.
+//
+// Two Kerr models (ROADMAP item 9; replacing the K6 and K7 parts of the TPU
+// kernels):
+//  * kerr_lt (runtime flag kFlagLT): the Schwarzschild acceleration plus
+//    the Lense-Thirring drag v x B_g (models/kerr.py:acceleration; fast:
+//    pallas_trace.py physics_substep :821-831 and sl_deriv :486-496), on
+//    the same (position, velocity) loop;
+//  * kerr (template parameter KS): Hamiltonian null geodesics on (q, p) in
+//    Cartesian Kerr-Schild form (pallas_trace.py:548-700, loop :1005-1047,
+//    direction :1134-1146; oracle models/kerr_schild.py and
+//    ops/trace.py:_trace_rays_kerr_schild), with its own state, step and
+//    after-loop direction, so it is a loop of its own: trace_ray_ks.
 
 #pragma once
 
@@ -30,7 +42,34 @@ namespace bhr {
 enum Integrator : int { kEuler = 0, kRk4 = 1, kLeapfrog = 2 };
 
 // Runtime switches of a launch (TraceFlags in ops/trace_kernel.py).
-enum TraceFlags : int { kFlagFlat = 1, kFlagAdaptive = 2, kFlagDisk = 4 };
+// kFlagKS selects the Kerr-Schild instantiation at launch.
+enum TraceFlags : int {
+  kFlagFlat = 1,
+  kFlagAdaptive = 2,
+  kFlagDisk = 4,
+  kFlagLT = 8,
+  kFlagKS = 16,
+};
+
+// The acceleration models' constants of a launch.
+struct Phys {
+  float rs;
+  float spin;
+  bool flat;  // zero acceleration
+  bool lt;    // kerr_lt: add the Lense-Thirring drag
+};
+
+// jnp.maximum / torch.clamp_min with a finite bound: NaN stays NaN
+// (fmaxf would return the bound).
+__device__ __forceinline__ float maximum(float x, float lo) { return x < lo ? lo : x; }
+
+// a x b (core/math.py cross), in one tier's arithmetic.
+template <bool FAST>
+__device__ __forceinline__ Vec3 cross(Vec3 a, Vec3 b) {
+  using A = Arith<FAST>;
+  return {A::sub(A::mul(a.y, b.z), A::mul(a.z, b.y)), A::sub(A::mul(a.z, b.x), A::mul(a.x, b.z)),
+          A::sub(A::mul(a.x, b.y), A::mul(a.y, b.x))};
+}
 
 // ops/trace.py STATUS_*.
 enum RayStatus : int { kRunning = 0, kEscaped = 1, kCaptured = 2, kOnDisk = 3 };
@@ -65,10 +104,13 @@ __device__ __forceinline__ Vec3 axpy(Vec3 a, Vec3 b, float s) {
 // ---- exact tier -------------------------------------------------------------
 
 // models/schwarzschild.py:acceleration in its literal order; zero for flat.
-__device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, float rs,
-                                            bool flat) {
+// For kerr_lt, plus models/kerr.py's drag in its literal order:
+// B_g = (j / (r r r)) (3 jdotr r_hat - J_hat), j = (a* M) M, jdotr =
+// r_hat.y (the oracle's sum adds two zeros to it), a = a_schw + v x B_g.
+__device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, const Phys& ph) {
   using A = Arith<false>;
-  if (flat) return {0.0f, 0.0f, 0.0f};
+  if (ph.flat) return {0.0f, 0.0f, 0.0f};
+  const float rs = ph.rs;
   const Vec3 r_vec = {A::div(rel.x, r), A::div(rel.y, r), A::div(rel.z, r)};
   const float v_rad = dot<false>(vel, r_vec);
   const float rs_over_r = A::div(rs, r);
@@ -76,11 +118,22 @@ __device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, float r
   const float factor = A::div(rs, A::mul(A::mul(A::mul(2.0f, r), r), one_m));
   const float one_p = A::add(1.0f, rs_over_r);
   const float nf = -factor;
-  return {
+  Vec3 acc = {
       A::mul(nf, A::sub(A::mul(vel.x, one_m), A::mul(A::mul(r_vec.x, v_rad), one_p))),
       A::mul(nf, A::sub(A::mul(vel.y, one_m), A::mul(A::mul(r_vec.y, v_rad), one_p))),
       A::mul(nf, A::sub(A::mul(vel.z, one_m), A::mul(A::mul(r_vec.z, v_rad), one_p))),
   };
+  if (ph.lt) {
+    const float m = A::mul(rs, 0.5f);
+    const float j = A::mul(A::mul(ph.spin, m), m);
+    const float c = A::div(j, A::mul(A::mul(r, r), r));
+    const float t = A::mul(3.0f, r_vec.y);
+    const Vec3 bg = {A::mul(c, A::mul(t, r_vec.x)), A::mul(c, A::sub(A::mul(t, r_vec.y), 1.0f)),
+                     A::mul(c, A::mul(t, r_vec.z))};
+    const Vec3 drag = cross<false>(vel, bg);
+    acc = {A::add(acc.x, drag.x), A::add(acc.y, drag.y), A::add(acc.z, drag.z)};
+  }
+  return acc;
 }
 
 // geodesic.py _radius_guard: 1.0001 * max(rs, 1e-6)
@@ -104,47 +157,61 @@ __device__ __forceinline__ Vec3 rk4_sum(Vec3 k1, Vec3 k2, Vec3 k3, Vec3 k4) {
 
 // One step of the oracle: new position and (not yet unit) velocity.
 template <int INTEG>
-__device__ __forceinline__ void step_exact(Vec3 rel, Vec3 vel, float r, float rs, float dt,
-                                           bool flat, Vec3& new_rel, Vec3& new_vel) {
+__device__ __forceinline__ void step_exact(Vec3 rel, Vec3 vel, float r, const Phys& ph, float dt,
+                                           Vec3& new_rel, Vec3& new_vel) {
   using A = Arith<false>;
+  const float rs = ph.rs;
   if constexpr (INTEG == kEuler) {
-    const Vec3 a = accel_exact(rel, vel, r, rs, flat);
+    const Vec3 a = accel_exact(rel, vel, r, ph);
     new_vel = axpy<false>(vel, a, dt);
     new_rel = axpy<false>(rel, new_vel, dt);
   } else if constexpr (INTEG == kRk4) {
     const float guard = radius_guard(rs);
     const float half = A::mul(0.5f, dt);
     const Vec3 k1p = vel;
-    const Vec3 k1v = accel_exact(rel, vel, guarded_radius(rel, guard), rs, flat);
+    const Vec3 k1v = accel_exact(rel, vel, guarded_radius(rel, guard), ph);
     const Vec3 p2 = axpy<false>(rel, k1p, half);
     const Vec3 k2p = axpy<false>(vel, k1v, half);
-    const Vec3 k2v = accel_exact(p2, k2p, guarded_radius(p2, guard), rs, flat);
+    const Vec3 k2v = accel_exact(p2, k2p, guarded_radius(p2, guard), ph);
     const Vec3 p3 = axpy<false>(rel, k2p, half);
     const Vec3 k3p = axpy<false>(vel, k2v, half);
-    const Vec3 k3v = accel_exact(p3, k3p, guarded_radius(p3, guard), rs, flat);
+    const Vec3 k3v = accel_exact(p3, k3p, guarded_radius(p3, guard), ph);
     const Vec3 p4 = axpy<false>(rel, k3p, dt);
     const Vec3 k4p = axpy<false>(vel, k3v, dt);
-    const Vec3 k4v = accel_exact(p4, k4p, guarded_radius(p4, guard), rs, flat);
+    const Vec3 k4v = accel_exact(p4, k4p, guarded_radius(p4, guard), ph);
     const float sixth = A::mul(dt, static_cast<float>(1.0 / 6.0));
     new_rel = axpy<false>(rel, rk4_sum(k1p, k2p, k3p, k4p), sixth);
     new_vel = axpy<false>(vel, rk4_sum(k1v, k2v, k3v, k4v), sixth);
   } else {
     const float half = A::mul(0.5f, dt);
-    const Vec3 a1 = accel_exact(rel, vel, r, rs, flat);
+    const Vec3 a1 = accel_exact(rel, vel, r, ph);
     const Vec3 v_half = axpy<false>(vel, a1, half);
     new_rel = axpy<false>(rel, v_half, dt);
     const float rr = guarded_radius(new_rel, radius_guard(rs));
-    const Vec3 a2a = accel_exact(new_rel, v_half, rr, rs, flat);
+    const Vec3 a2a = accel_exact(new_rel, v_half, rr, ph);
     const Vec3 v_pred = axpy<false>(v_half, a2a, half);
-    const Vec3 a2 = accel_exact(new_rel, v_pred, rr, rs, flat);
+    const Vec3 a2 = accel_exact(new_rel, v_pred, rr, ph);
     new_vel = axpy<false>(v_half, a2, half);
   }
 }
 
 // ---- fast tier --------------------------------------------------------------
 
-// pallas_trace.py sl_deriv: a = p * a2 - v * a1, one_m clamped at 0.02
-__device__ __forceinline__ Vec3 sl_deriv(Vec3 p, Vec3 v, float rs) {
+// The fast tier's Lense-Thirring field at p (pallas_trace.py:486-496,
+// :821-831): j inv_r^3 (3 jr p_i inv_r - J_hat_i), jr = p.y inv_r.
+__device__ __forceinline__ Vec3 lt_field(Vec3 p, float inv_r, const Phys& ph) {
+  const float mm = ph.rs * 0.5f;
+  const float j = ph.spin * mm * mm;
+  const float c = j * (inv_r * inv_r * inv_r);
+  const float jr = p.y * inv_r;
+  return {c * (3.0f * jr * p.x * inv_r), c * (3.0f * jr * p.y * inv_r - 1.0f),
+          c * (3.0f * jr * p.z * inv_r)};
+}
+
+// pallas_trace.py sl_deriv: a = p * a2 - v * a1, one_m clamped at 0.02 for
+// every model; kerr_lt adds v x B_g.
+__device__ __forceinline__ Vec3 sl_deriv(Vec3 p, Vec3 v, const Phys& ph) {
+  const float rs = ph.rs;
   const float rr2 = dot<true>(p, p);
   const float inv_rr = rsqrtf(rr2);
   const float rs_inv = rs * inv_rr;
@@ -153,44 +220,55 @@ __device__ __forceinline__ Vec3 sl_deriv(Vec3 p, Vec3 v, float rs) {
   const float c = dot<true>(v, p);
   const float a1 = factor * one_m;
   const float a2 = factor * (1.0f + rs_inv) * c * (inv_rr * inv_rr);
-  return {p.x * a2 - v.x * a1, p.y * a2 - v.y * a1, p.z * a2 - v.z * a1};
+  Vec3 a = {p.x * a2 - v.x * a1, p.y * a2 - v.y * a1, p.z * a2 - v.z * a1};
+  if (ph.lt) {
+    const Vec3 drag = cross<true>(v, lt_field(p, inv_rr, ph));
+    a = {a.x + drag.x, a.y + drag.y, a.z + drag.z};
+  }
+  return a;
 }
 
 // One step of the fast tier: new position and unit velocity.
 template <int INTEG>
-__device__ __forceinline__ void step_fast(Vec3 rel, Vec3 vel, float r2, float rs, float dt,
-                                          bool flat, Vec3& new_rel, Vec3& new_vel) {
+__device__ __forceinline__ void step_fast(Vec3 rel, Vec3 vel, float r2, const Phys& ph, float dt,
+                                          Vec3& new_rel, Vec3& new_vel) {
+  const float rs = ph.rs;
   if constexpr (INTEG == kEuler) {
-    // physics_substep: v' = v b1 + rel b2 (v' = v in flat spacetime)
+    // physics_substep: v' = v b1 + rel b2 (v' = v in flat spacetime). one_m
+    // is clamped at 0.02 except for kerr_lt, whose capture radius lies
+    // inside r_s (live rays reach one_m < 0); kerr_lt then adds the drag
+    // of the pre-step velocity, scaled by dt.
     Vec3 nv = vel;
-    if (!flat) {
+    if (!ph.flat) {
       const float inv_r = rsqrtf(r2);
       const float c = dot<true>(vel, rel);
       const float rs_inv_r = rs * inv_r;
-      const float one_m = fmaxf(1.0f - rs_inv_r, static_cast<float>(0.02));
+      float one_m = 1.0f - rs_inv_r;
+      if (!ph.lt) one_m = fmaxf(one_m, static_cast<float>(0.02));
       const float factor_dt = (rs * rcp_approx(2.0f * r2 * one_m)) * dt;
       const float b1 = 1.0f - factor_dt * one_m;
       const float b2 = factor_dt * (1.0f + rs_inv_r) * c * (inv_r * inv_r);
       nv = {vel.x * b1 + rel.x * b2, vel.y * b1 + rel.y * b2, vel.z * b1 + rel.z * b2};
+      if (ph.lt) nv = axpy<true>(nv, cross<true>(vel, lt_field(rel, inv_r, ph)), dt);
     }
     new_rel = axpy<true>(rel, nv, dt);
     new_vel = vnorm<true>(nv);
-  } else if (flat) {
+  } else if (ph.flat) {
     // sl_rk4 / sl_leapfrog: a straight line, velocity untouched
     new_rel = axpy<true>(rel, vel, dt);
     new_vel = vel;
   } else if constexpr (INTEG == kRk4) {
     const float half = 0.5f * dt;
-    const Vec3 k1v = sl_deriv(rel, vel, rs);
+    const Vec3 k1v = sl_deriv(rel, vel, ph);
     const Vec3 p2 = axpy<true>(rel, vel, half);
     const Vec3 v2 = axpy<true>(vel, k1v, half);
-    const Vec3 k2v = sl_deriv(p2, v2, rs);
+    const Vec3 k2v = sl_deriv(p2, v2, ph);
     const Vec3 p3 = axpy<true>(rel, v2, half);
     const Vec3 v3 = axpy<true>(vel, k2v, half);
-    const Vec3 k3v = sl_deriv(p3, v3, rs);
+    const Vec3 k3v = sl_deriv(p3, v3, ph);
     const Vec3 p4 = axpy<true>(rel, v3, dt);
     const Vec3 v4 = axpy<true>(vel, k3v, dt);
-    const Vec3 k4v = sl_deriv(p4, v4, rs);
+    const Vec3 k4v = sl_deriv(p4, v4, ph);
     const float sixth = dt * static_cast<float>(1.0 / 6.0);
     const Vec3 kp = {vel.x + 2.0f * (v2.x + v3.x) + v4.x, vel.y + 2.0f * (v2.y + v3.y) + v4.y,
                      vel.z + 2.0f * (v2.z + v3.z) + v4.z};
@@ -201,12 +279,12 @@ __device__ __forceinline__ void step_fast(Vec3 rel, Vec3 vel, float r2, float rs
     new_vel = vnorm<true>(axpy<true>(vel, kv, sixth));
   } else {
     const float half = 0.5f * dt;
-    const Vec3 a1 = sl_deriv(rel, vel, rs);
+    const Vec3 a1 = sl_deriv(rel, vel, ph);
     const Vec3 vh = axpy<true>(vel, a1, half);
     new_rel = axpy<true>(rel, vh, dt);
-    const Vec3 a2a = sl_deriv(new_rel, vh, rs);
+    const Vec3 a2a = sl_deriv(new_rel, vh, ph);
     const Vec3 vp = axpy<true>(vh, a2a, half);
-    const Vec3 a2 = sl_deriv(new_rel, vp, rs);
+    const Vec3 a2 = sl_deriv(new_rel, vp, ph);
     new_vel = vnorm<true>(axpy<true>(vh, a2, half));
   }
 }
@@ -214,10 +292,11 @@ __device__ __forceinline__ void step_fast(Vec3 rel, Vec3 vel, float r2, float rs
 // ---- the accretion disk's crossing test ---------------------------------------
 
 // Did the segment old -> nw cross y = 0 inside the annulus? On a hit, `hit`
-// is the crossing point with y = 0. Exact: models/disk.py
-// intersect_equatorial (t = -oy / (ny - oy), the annulus on the sqrt'd
-// radius of the interpolated point). Fast: pallas_trace.py:1068-1075
-// (t by an approximate reciprocal, the annulus in r^2 of x and z).
+// is the crossing point. Exact: models/disk.py intersect_equatorial (t =
+// -oy / (ny - oy), the annulus on the sqrt'd radius of the interpolated
+// point, whose y -- within rounding of 0 -- is kept for the Kerr-Schild
+// direction). Fast: pallas_trace.py:1068-1075 (t by an approximate
+// reciprocal, the annulus in r^2 of x and z, y = 0).
 template <bool FAST>
 __device__ __forceinline__ bool disk_crossing(Vec3 old, Vec3 nw, float r_isco, float r_outer,
                                               Vec3& hit) {
@@ -239,7 +318,7 @@ __device__ __forceinline__ bool disk_crossing(Vec3 old, Vec3 nw, float r_isco, f
                     A::add(old.y, A::mul(t, A::sub(nw.y, old.y))),
                     A::add(old.z, A::mul(t, A::sub(nw.z, old.z)))};
     const float hr = A::sqrt(dot<false>(h, h));
-    hit = {h.x, 0.0f, h.z};
+    hit = h;
     return hr >= r_isco && hr <= r_outer;
   }
 }
@@ -273,14 +352,14 @@ __device__ __forceinline__ void generate_ray(const Params& p, int row, int col, 
 // step, until the ray escapes, is captured, hits the disk or runs out of
 // steps. `flags` is a TraceFlags mask.
 template <bool FAST, int INTEG>
-__device__ __forceinline__ Ray trace_ray(const Params& p, int flags, int row, int col,
-                                         int max_steps) {
+__device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int row, int col,
+                                               int max_steps) {
   using A = Arith<FAST>;
   Ray ray;
   generate_ray<FAST>(p, row, col, ray.rel, ray.vel);
   ray.status = kRunning;
   ray.steps = 0;
-  const bool flat = flags & kFlagFlat;
+  const Phys ph = {p.v[P_RS], p.v[P_SPIN], (flags & kFlagFlat) != 0, (flags & kFlagLT) != 0};
   const bool adaptive = flags & kFlagAdaptive;
   const bool disk = flags & kFlagDisk;
   const float rs = p.v[P_RS];
@@ -312,14 +391,14 @@ __device__ __forceinline__ Ray trace_ray(const Params& p, int flags, int row, in
     }
     Vec3 new_rel, new_vel;
     if constexpr (FAST) {
-      step_fast<INTEG>(ray.rel, ray.vel, r2, rs, dt, flat, new_rel, new_vel);
+      step_fast<INTEG>(ray.rel, ray.vel, r2, ph, dt, new_rel, new_vel);
     } else {
-      step_exact<INTEG>(ray.rel, ray.vel, r, rs, dt, flat, new_rel, new_vel);
+      step_exact<INTEG>(ray.rel, ray.vel, r, ph, dt, new_rel, new_vel);
       new_vel = vnorm<false>(new_vel);
     }
     Vec3 hit;
     if (disk && disk_crossing<FAST>(ray.rel, new_rel, r_isco, r_outer, hit)) {
-      ray.rel = hit;
+      ray.rel = {hit.x, 0.0f, hit.z};
       ray.vel = new_vel;
       ray.status = kOnDisk;
       break;
@@ -328,6 +407,283 @@ __device__ __forceinline__ Ray trace_ray(const Params& p, int flags, int row, in
     ray.vel = new_vel;
   }
   return ray;
+}
+
+// ---- exact Kerr: Hamiltonian geodesics in Kerr-Schild form ---------------------
+//
+// State: q, the position relative to the black hole, and p, the covariant
+// momentum with p_t = -1 (E = 1). M = rs / 2, a = a* M. Every expression
+// tree is the oracle's (models/kerr_schild.py), operation for operation:
+// the flow is chaotic near the shadow's edge, so even a regrouping that is
+// algebraically equal shows as per-pixel noise. The exact tier rounds each
+// operation correctly, uncontracted; the fast tier takes the reciprocals
+// 1/w, 1/bb, 1/r and 1/E by the SFU's approximate rcp, as JAX's `_recip`
+// does, and lets nvcc contract.
+
+struct KsConst {
+  float rs;   // 2M
+  float m;    // M
+  float a;    // a* M
+  float a2;   // a^2
+};
+
+// models/kerr_schild.py ks_radius squared and clamped (pallas_trace.py
+// ks_r2): the Kerr-Schild r^2, and rho2 = |q|^2.
+template <bool FAST>
+__device__ __forceinline__ float ks_r2(Vec3 q, float a2, float& rho2) {
+  using A = Arith<FAST>;
+  rho2 = dot<FAST>(q, q);
+  const float b = A::sub(rho2, a2);
+  const float disc = A::sqrt(A::add(A::mul(b, b), A::mul(A::mul(4.0f, a2), A::mul(q.y, q.y))));
+  return maximum(A::mul(0.5f, A::add(b, disc)), static_cast<float>(1e-12));
+}
+
+template <bool FAST>
+__device__ __forceinline__ float recip(float x) {
+  if constexpr (FAST) {
+    return rcp_approx(x);
+  } else {
+    return __fdiv_rn(1.0f, x);
+  }
+}
+
+struct KsTerms {
+  Vec3 dq, dp;  // dq/dl, dp/dl
+  float f;      // the metric function f at q
+  Vec3 l;       // the null vector l at q
+};
+
+// models/kerr_schild.py derivs / pallas_trace.py ks_all (:563-614).
+template <bool FAST>
+__device__ __forceinline__ KsTerms ks_all(Vec3 q, Vec3 p, const KsConst& k) {
+  using A = Arith<FAST>;
+  const float x = q.x, y = q.y, z = q.z;
+  const float a = k.a, a2 = k.a2;
+  float rho2;
+  const float r2 = ks_r2<FAST>(q, a2, rho2);
+  const float r = A::sqrt(r2);
+  const float y2 = A::mul(y, y);
+  const float w = A::add(A::mul(r2, r2), A::mul(a2, y2));
+  const float inv_w = recip<FAST>(w);
+  const float r3 = A::mul(r2, r);
+  const float two_m = A::mul(2.0f, k.m);
+  const float f = A::mul(A::mul(two_m, r3), inv_w);
+  const float bb = A::add(r2, a2);
+  const float inv_bb = recip<FAST>(bb);
+  const float lx = A::mul(A::add(A::mul(r, x), A::mul(a, z)), inv_bb);
+  const float inv_r = recip<FAST>(r);
+  const float ly = A::mul(y, inv_r);
+  const float lz = A::mul(A::sub(A::mul(r, z), A::mul(a, x)), inv_bb);
+  // dr/dq_i = r (r^2 q_i + a^2 y d_iy) / W
+  const float r_w = A::mul(r, inv_w);
+  const float drx = A::mul(A::mul(r_w, r2), x);
+  const float dry = A::mul(A::mul(r_w, bb), y);
+  const float drz = A::mul(A::mul(r_w, r2), z);
+  // df/dq_i = 2M [(3 r^2 W - 4 r^6) dr_i - 2 a^2 y r^3 d_iy] / W^2
+  const float inv_w2 = A::mul(inv_w, inv_w);
+  const float g1 = A::mul(
+      A::mul(two_m, A::sub(A::mul(A::mul(3.0f, r2), w), A::mul(A::mul(4.0f, r3), r3))), inv_w2);
+  const float g2 = A::mul(A::mul(A::mul(A::mul(4.0f, k.m), a2), r3), inv_w2);
+  const float dfx = A::mul(g1, drx);
+  const float dfy = A::sub(A::mul(g1, dry), A::mul(g2, y));
+  const float dfz = A::mul(g1, drz);
+  // dl_j/dq_i
+  const float two_r_invbb = A::mul(A::mul(2.0f, r), inv_bb);
+  const float inv_r2 = A::mul(inv_r, inv_r);
+  const float dlx_x = A::sub(A::mul(A::add(A::mul(x, drx), r), inv_bb),
+                             A::mul(lx, A::mul(two_r_invbb, drx)));
+  const float dlx_y = A::sub(A::mul(A::mul(x, dry), inv_bb), A::mul(lx, A::mul(two_r_invbb, dry)));
+  const float dlx_z = A::sub(A::mul(A::add(A::mul(x, drz), a), inv_bb),
+                             A::mul(lx, A::mul(two_r_invbb, drz)));
+  const float ny_r2 = A::mul(-y, inv_r2);
+  const float dly_x = A::mul(ny_r2, drx);
+  const float dly_y = A::sub(inv_r, A::mul(A::mul(y, inv_r2), dry));
+  const float dly_z = A::mul(ny_r2, drz);
+  const float dlz_x = A::sub(A::mul(A::sub(A::mul(z, drx), a), inv_bb),
+                             A::mul(lz, A::mul(two_r_invbb, drx)));
+  const float dlz_y = A::sub(A::mul(A::mul(z, dry), inv_bb), A::mul(lz, A::mul(two_r_invbb, dry)));
+  const float dlz_z = A::sub(A::mul(A::add(A::mul(z, drz), r), inv_bb),
+                             A::mul(lz, A::mul(two_r_invbb, drz)));
+  const float s = A::add(A::add(A::add(1.0f, A::mul(lx, p.x)), A::mul(ly, p.y)), A::mul(lz, p.z));
+  const float fs = A::mul(f, s);
+  const float hs2 = A::mul(A::mul(0.5f, s), s);
+  KsTerms t;
+  t.dq = {A::sub(p.x, A::mul(fs, lx)), A::sub(p.y, A::mul(fs, ly)), A::sub(p.z, A::mul(fs, lz))};
+  t.dp = {A::add(A::mul(hs2, dfx), A::mul(fs, dot<FAST>({dlx_x, dly_x, dlz_x}, p))),
+          A::add(A::mul(hs2, dfy), A::mul(fs, dot<FAST>({dlx_y, dly_y, dlz_y}, p))),
+          A::add(A::mul(hs2, dfz), A::mul(fs, dot<FAST>({dlx_z, dly_z, dlz_z}, p)))};
+  t.f = f;
+  t.l = {lx, ly, lz};
+  return t;
+}
+
+// One Kerr-Schild step (ops/trace.py:_trace_rays_kerr_schild step_*).
+template <bool FAST, int INTEG>
+__device__ __forceinline__ void ks_step(Vec3 q, Vec3 p, float dt, const KsConst& k, Vec3& nq,
+                                        Vec3& np) {
+  using A = Arith<FAST>;
+  if constexpr (INTEG == kEuler) {
+    // semi-implicit (pallas_trace.py ks_substep :616-626): p' from dp(q, p),
+    // then q' from dq(q, p'), reusing f and l at q -- the oracle's second
+    // derivs call at the same q computes them bit for bit alike.
+    const KsTerms t = ks_all<FAST>(q, p, k);
+    np = axpy<FAST>(p, t.dp, dt);
+    const float s2 = A::add(A::add(A::add(1.0f, A::mul(t.l.x, np.x)), A::mul(t.l.y, np.y)),
+                            A::mul(t.l.z, np.z));
+    const float fs2 = A::mul(t.f, s2);
+    const Vec3 dq2 = {A::sub(np.x, A::mul(fs2, t.l.x)), A::sub(np.y, A::mul(fs2, t.l.y)),
+                      A::sub(np.z, A::mul(fs2, t.l.z))};
+    nq = axpy<FAST>(q, dq2, dt);
+  } else if constexpr (INTEG == kRk4) {
+    // classic RK4 on (q, p) (ks_rk4 :628-650), summed k1 + 2k2 + 2k3 + k4
+    const float half = A::mul(0.5f, dt);
+    const KsTerms k1 = ks_all<FAST>(q, p, k);
+    const KsTerms k2 = ks_all<FAST>(axpy<FAST>(q, k1.dq, half), axpy<FAST>(p, k1.dp, half), k);
+    const KsTerms k3 = ks_all<FAST>(axpy<FAST>(q, k2.dq, half), axpy<FAST>(p, k2.dp, half), k);
+    const KsTerms k4 = ks_all<FAST>(axpy<FAST>(q, k3.dq, dt), axpy<FAST>(p, k3.dp, dt), k);
+    const float sixth = A::mul(dt, static_cast<float>(1.0 / 6.0));
+    auto sum = [&](Vec3 a1, Vec3 a2, Vec3 a3, Vec3 a4) -> Vec3 {
+      return {A::add(A::add(A::add(a1.x, A::mul(2.0f, a2.x)), A::mul(2.0f, a3.x)), a4.x),
+              A::add(A::add(A::add(a1.y, A::mul(2.0f, a2.y)), A::mul(2.0f, a3.y)), a4.y),
+              A::add(A::add(A::add(a1.z, A::mul(2.0f, a2.z)), A::mul(2.0f, a3.z)), a4.z)};
+    };
+    nq = axpy<FAST>(q, sum(k1.dq, k2.dq, k3.dq, k4.dq), sixth);
+    np = axpy<FAST>(p, sum(k1.dp, k2.dp, k3.dp, k4.dp), sixth);
+  } else {
+    // kick-drift-kick with a midpoint-corrected drift and a corrector on the
+    // final kick (ks_leapfrog :652-666)
+    const float half = A::mul(0.5f, dt);
+    const Vec3 ph = axpy<FAST>(p, ks_all<FAST>(q, p, k).dp, half);
+    const Vec3 q_mid = axpy<FAST>(q, ks_all<FAST>(q, ph, k).dq, half);
+    nq = axpy<FAST>(q, ks_all<FAST>(q_mid, ph, k).dq, dt);
+    const Vec3 p_pred = axpy<FAST>(ph, ks_all<FAST>(nq, ph, k).dp, half);
+    np = axpy<FAST>(ph, ks_all<FAST>(nq, p_pred, k).dp, half);
+  }
+}
+
+// Null momentum with E = 1 for a photon at q with unit coordinate
+// direction d (models/kerr_schild.py init_momentum; ks_init_p :668-693).
+template <bool FAST>
+__device__ __forceinline__ Vec3 ks_init_p(Vec3 q, Vec3 d, const KsConst& k) {
+  using A = Arith<FAST>;
+  const float x = q.x, y = q.y, z = q.z;
+  const float a = k.a, a2 = k.a2;
+  const float rho2 = dot<FAST>(q, q);
+  const float b = A::sub(rho2, a2);
+  const float r2 = maximum(
+      A::mul(0.5f, A::add(b, A::sqrt(A::add(A::mul(b, b), A::mul(A::mul(A::mul(4.0f, a2), y), y))))),
+      static_cast<float>(1e-12));
+  const float r = A::sqrt(r2);
+  const float w = A::add(A::mul(r2, r2), A::mul(A::mul(a2, y), y));
+  const float f = A::div(A::mul(A::mul(k.rs, r2), r), w);
+  const float bb = A::add(r2, a2);
+  const float lx = A::div(A::add(A::mul(r, x), A::mul(a, z)), bb);
+  const float ly = A::div(y, r);
+  const float lz = A::div(A::sub(A::mul(r, z), A::mul(a, x)), bb);
+  const float c = dot<FAST>({lx, ly, lz}, d);
+  const float disc =
+      A::sqrt(maximum(A::sub(1.0f, A::mul(f, A::sub(1.0f, A::mul(c, c)))), static_cast<float>(1e-12)));
+  const float ut = A::div(A::add(A::mul(f, c), disc),
+                          maximum(A::sub(1.0f, f), static_cast<float>(1e-6)));
+  const float fl = A::mul(f, A::add(ut, c));
+  const float e_inv = recip<FAST>(maximum(A::sub(ut, fl), static_cast<float>(1e-12)));
+  return {A::mul(A::add(d.x, A::mul(fl, lx)), e_inv), A::mul(A::add(d.y, A::mul(fl, ly)), e_inv),
+          A::mul(A::add(d.z, A::mul(fl, lz)), e_inv)};
+}
+
+// The shading direction dq/dl, normalised (models/kerr_schild.py
+// final_direction: dq / sqrt(max(|dq|^2, 1e-12)); fast, ks_direction
+// :695-700: dq * rsqrt(|dq|^2)).
+template <bool FAST>
+__device__ __forceinline__ Vec3 ks_direction(Vec3 q, Vec3 p, const KsConst& k) {
+  using A = Arith<FAST>;
+  const Vec3 dq = ks_all<FAST>(q, p, k).dq;
+  if constexpr (FAST) {
+    return vnorm<true>(dq);
+  } else {
+    const float n = A::sqrt(maximum(dot<false>(dq, dq), static_cast<float>(1e-12)));
+    return {A::div(dq.x, n), A::div(dq.y, n), A::div(dq.z, n)};
+  }
+}
+
+// The oracle's Kerr-Schild loop (ops/trace.py:_trace_rays_kerr_schild) for
+// one ray: escape on |q| (exact) or |q|^2 (fast) against the escape
+// radius, capture on the Kerr-Schild r (r^2) against P_CAP = 1.05 r_+,
+// adaptive dt on the Kerr-Schild r (fast: r^2 rsqrt(r^2)), the disk as for
+// the acceleration models. After the loop the momentum becomes the unit
+// coordinate direction, evaluated at the disk hit point for a disk ray
+// (exact: the oracle's interpolated point; fast: y = 0, pallas_trace.py
+// :1134-1146); the returned rel of a disk ray has y = 0.
+template <bool FAST, int INTEG>
+__device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row, int col,
+                                            int max_steps) {
+  using A = Arith<FAST>;
+  Ray ray;
+  Vec3 d;
+  generate_ray<FAST>(p, row, col, ray.rel, d);
+  ray.status = kRunning;
+  ray.steps = 0;
+  KsConst k;
+  k.rs = p.v[P_RS];
+  k.m = A::mul(k.rs, 0.5f);
+  k.a = A::mul(p.v[P_SPIN], k.m);
+  k.a2 = A::mul(k.a, k.a);
+  const bool adaptive = flags & kFlagAdaptive;
+  const bool disk = flags & kFlagDisk;
+  const float base_dt = p.v[P_DT];
+  const float esc = p.v[P_ESC];
+  const float cap = p.v[P_CAP];
+  const float esc2 = A::mul(esc, esc);
+  const float cap2 = A::mul(cap, cap);
+  const float r_isco = p.v[P_RISCO];
+  const float r_outer = p.v[P_ROUTER];
+  Vec3 mom = ks_init_p<FAST>(ray.rel, d, k);
+  Vec3 dir_at = ray.rel;  // where the shading direction is evaluated
+  for (int i = 0; i < max_steps; ++i) {
+    ray.steps = i + 1;
+    float rho2;
+    const float r2c = ks_r2<FAST>(ray.rel, k.a2, rho2);
+    float rc;
+    if constexpr (FAST) {
+      if (rho2 > esc2) { ray.status = kEscaped; break; }
+      if (r2c < cap2) { ray.status = kCaptured; break; }
+      rc = r2c * rsqrtf(r2c);
+    } else {
+      if (A::sqrt(rho2) > esc) { ray.status = kEscaped; break; }
+      rc = A::sqrt(r2c);
+      if (rc < cap) { ray.status = kCaptured; break; }
+    }
+    float dt = base_dt;
+    if (adaptive) {
+      dt = A::mul(base_dt, fminf(fmaxf(A::mul(A::sub(rc, k.rs), static_cast<float>(0.1)),
+                                       static_cast<float>(0.01)), 1.0f));
+    }
+    Vec3 nq, np;
+    ks_step<FAST, INTEG>(ray.rel, mom, dt, k, nq, np);
+    Vec3 hit;
+    if (disk && disk_crossing<FAST>(ray.rel, nq, r_isco, r_outer, hit)) {
+      dir_at = hit;
+      ray.rel = {hit.x, 0.0f, hit.z};
+      mom = np;
+      ray.status = kOnDisk;
+      break;
+    }
+    ray.rel = nq;
+    mom = np;
+  }
+  ray.vel = ks_direction<FAST>(ray.status == kOnDisk ? dir_at : ray.rel, mom, k);
+  return ray;
+}
+
+// One ray of either loop: the Kerr-Schild one (KS) or the acceleration one.
+template <bool FAST, int INTEG, bool KS>
+__device__ __forceinline__ Ray trace_ray(const Params& p, int flags, int row, int col,
+                                         int max_steps) {
+  if constexpr (KS) {
+    return trace_ray_ks<FAST, INTEG>(p, flags, row, col, max_steps);
+  } else {
+    return trace_ray_accel<FAST, INTEG>(p, flags, row, col, max_steps);
+  }
 }
 
 }  // namespace bhr

@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from ..core.math import dot, on_device, rsqrt
+from ..core.math import dot, on_device, rsqrt, sqrt_rn
 
 # Default geometry in units of r_s (docs/ROADMAP.md:330-333).
 R_ISCO_FACTOR = 3.0
@@ -66,7 +66,7 @@ def intersect_equatorial(old_pos, new_pos, r_isco, r_outer):
     denom = ny - oy
     t = -oy / torch.where(crosses, denom, torch.ones_like(denom))
     hit_pos = old_pos + t[..., None] * (new_pos - old_pos)
-    r = torch.sqrt(dot(hit_pos, hit_pos))
+    r = sqrt_rn(dot(hit_pos, hit_pos))
     hit = crosses & (r >= r_isco) & (r <= r_outer)
     return hit, hit_pos
 
@@ -92,28 +92,28 @@ def keplerian_velocity(hit_pos, rs):
     """Keplerian orbital velocity at a disk point (ROADMAP.md:360-370):
     speed beta = sqrt(M / r) (M = rs / 2, clipped below 0.9), tangent
     (z, 0, -x) / |(z, 0, -x)|."""
-    r = torch.sqrt(dot(hit_pos, hit_pos))[..., None]
+    r = sqrt_rn(dot(hit_pos, hit_pos))[..., None]
     m = torch.as_tensor(rs, dtype=_F32) * 0.5
-    beta = torch.sqrt(torch.clamp(m / r, 0.0, 0.81))
+    beta = sqrt_rn(torch.clamp(m / r, 0.0, 0.81))
     x = hit_pos[..., 0:1]
     z = hit_pos[..., 2:3]
     tangent = torch.cat([z, torch.zeros_like(x), -x], dim=-1)
-    norm = torch.sqrt(dot(tangent, tangent))[..., None]
+    norm = sqrt_rn(dot(tangent, tangent))[..., None]
     tangent = tangent / torch.clamp_min(norm, 1e-20)
     return beta * tangent
 
 
 def redshift_factor(hit_pos, ray_direction, observer_r, rs):
     """Combined Doppler x gravitational g-factor (ROADMAP.md:374-397)."""
-    r_disk = torch.sqrt(dot(hit_pos, hit_pos))
+    r_disk = sqrt_rn(dot(hit_pos, hit_pos))
     v = keplerian_velocity(hit_pos, rs)
-    beta = torch.sqrt(dot(v, v))
+    beta = sqrt_rn(dot(v, v))
     v_hat = v / torch.clamp_min(beta[..., None], 1e-20)
-    d = ray_direction / torch.sqrt(dot(ray_direction, ray_direction))[..., None]
+    d = ray_direction / sqrt_rn(dot(ray_direction, ray_direction))[..., None]
     cos_theta = dot(v_hat, d)
-    doppler = (1.0 - beta * cos_theta) / torch.sqrt(1.0 - beta * beta)
-    grav_emit = torch.sqrt(torch.clamp(1.0 - rs / torch.maximum(r_disk, 1.001 * rs), 1e-4, 1.0))
-    grav_obs = torch.sqrt(torch.clamp(1.0 - rs / torch.maximum(observer_r, 1.001 * rs), 1e-4,
+    doppler = (1.0 - beta * cos_theta) / sqrt_rn(1.0 - beta * beta)
+    grav_emit = sqrt_rn(torch.clamp(1.0 - rs / torch.maximum(r_disk, 1.001 * rs), 1e-4, 1.0))
+    grav_obs = sqrt_rn(torch.clamp(1.0 - rs / torch.maximum(observer_r, 1.001 * rs), 1e-4,
                                       1.0))
     return doppler * (grav_emit / grav_obs)
 
@@ -200,7 +200,7 @@ def disk_emission(hit_pos, ray_direction, observer_r, rs, params: DiskParams, lu
     """Observed disk colour at a hit point (ROADMAP.md:451-459):
     T_obs = T_emit / g, I_obs = I_emit / g^3, with a radial falloff so the
     outer edge fades. (..., 3) fp32 linear colour."""
-    r = torch.sqrt(dot(hit_pos, hit_pos))
+    r = sqrt_rn(dot(hit_pos, hit_pos))
     g = redshift_factor(hit_pos, ray_direction, observer_r, rs)
     g = torch.clamp_min(g, 1e-3)
     t_emit = disk_temperature(r, params.r_isco, params.t_isco)
@@ -230,17 +230,17 @@ def shade_disk_planes(hx, hz, vel, rs, r_isco, r_outer, t_isco, observer_r, lut)
     dr = dr2 * inv_dr
     m = rs * 0.5
     beta2 = torch.clamp(m * inv_dr, 0.0, 0.81)
-    beta = torch.sqrt(beta2)
+    beta = sqrt_rn(beta2)
     cos_t = (hz * vel[..., 0] - hx * vel[..., 2]) * inv_dr
     doppler = (1.0 - beta * cos_t) * rsqrt(1.0 - beta2)
-    grav_emit = torch.sqrt(torch.clamp(
+    grav_emit = sqrt_rn(torch.clamp(
         1.0 - rs * torch.reciprocal(torch.maximum(dr, 1.001 * rs)), 1e-4, 1.0))
-    grav_obs = torch.sqrt(torch.clamp(1.0 - rs / torch.maximum(observer_r, 1.001 * rs), 1e-4,
+    grav_obs = sqrt_rn(torch.clamp(1.0 - rs / torch.maximum(observer_r, 1.001 * rs), 1e-4,
                                       1.0))
     gfac = torch.clamp_min(doppler * (grav_emit / grav_obs), 1e-3)
     inv_g = torch.reciprocal(gfac)
     x = torch.clamp_min(dr * (1.0 / r_isco), 1e-6)
-    t_emit = t_isco * (rsqrt(x) * rsqrt(torch.sqrt(x)))
+    t_emit = t_isco * (rsqrt(x) * rsqrt(sqrt_rn(x)))
     t_obs = t_emit * inv_g
     beaming = inv_g * inv_g * inv_g
     rel_t = t_obs * (1.0 / T_ISCO)

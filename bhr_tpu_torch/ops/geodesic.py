@@ -10,17 +10,25 @@ Each integrator comes in two forms, one per math tier of the CUDA kernels:
   `sl_rk4`, `sl_leapfrog`), computed here with correctly rounded operations
   where the kernel uses approximate ones. Each returns a unit velocity.
 
-In flat spacetime every fast form is a straight line.
+In flat spacetime every fast form is a straight line. Given `spin`, the
+fast forms add the Lense-Thirring drag of model "kerr_lt". The exact Kerr
+model ("kerr") has no acceleration form: ops/trace.py integrates it in
+Hamiltonian form (models/kerr_schild.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.math import dot, rsqrt
-from ..models import flat, schwarzschild
+from ..core.math import cross, dot, rsqrt, sqrt_rn
+from ..models import flat, kerr, kerr_schild, schwarzschild
 
-MODELS = {"schwarzschild": schwarzschild, "flat": flat}
+MODELS = {
+    "schwarzschild": schwarzschild,
+    "kerr": kerr_schild,  # exact Kerr-Schild Hamiltonian geodesics
+    "kerr_lt": kerr,  # the Lense-Thirring approximation
+    "flat": flat,
+}
 INTEGRATORS = ("euler", "rk4", "leapfrog")
 
 
@@ -28,17 +36,25 @@ def model_acceleration(model: str):
     """Unified accel(rel, vel, r, rs, spin) for a named spacetime model."""
     if model == "schwarzschild":
         return lambda rel, vel, r, rs, spin: schwarzschild.acceleration(rel, vel, r, rs)
+    if model == "kerr_lt":
+        return kerr.acceleration
     if model == "flat":
         return flat.acceleration
-    raise NotImplementedError(
-        f"spacetime model {model!r} is not ported yet (ROADMAP queue A, "
-        "item 9 for kerr/kerr_lt); have schwarzschild, flat"
-    )
+    if model == "kerr":
+        raise ValueError(
+            "model 'kerr' is Hamiltonian (Kerr-Schild); it has no acceleration form -- "
+            "ops/trace.py integrates it on its own path"
+        )
+    if model == "custom":
+        raise NotImplementedError(
+            "plugin physics (model='custom') is not ported yet (ROADMAP queue A, item 14)"
+        )
+    raise ValueError(f"unknown spacetime model {model!r}; have {sorted(MODELS)}")
 
 
 def model_capture_radius(model: str, rs, spin):
     if model not in MODELS:
-        model_acceleration(model)  # raises NotImplementedError, naming the ROADMAP item
+        model_acceleration(model)  # raises, naming the ROADMAP item for 'custom'
     return MODELS[model].capture_radius(rs, spin)
 
 
@@ -78,7 +94,7 @@ def rk4_step(accel_fn, rel, vel, r, rs, spin, dt):
     guard = _radius_guard(rs)
 
     def deriv(p, v):
-        rr = torch.maximum(torch.sqrt(dot(p, p)), guard)
+        rr = torch.maximum(sqrt_rn(dot(p, p)), guard)
         return v, accel_fn(p, v, rr, rs, spin)
 
     k1p, k1v = deriv(rel, vel)
@@ -103,7 +119,7 @@ def leapfrog_step(accel_fn, rel, vel, r, rs, spin, dt):
     a1 = accel_fn(rel, vel, r, rs, spin)
     v_half = vel + a1 * half
     new_rel = rel + v_half * dt
-    rr = torch.maximum(torch.sqrt(dot(new_rel, new_rel)), _radius_guard(rs))
+    rr = torch.maximum(sqrt_rn(dot(new_rel, new_rel)), _radius_guard(rs))
     a2a = accel_fn(new_rel, v_half, rr, rs, spin)
     v_pred = v_half + a2a * half
     a2 = accel_fn(new_rel, v_pred, rr, rs, spin)
@@ -123,14 +139,32 @@ def adaptive_dt(r, rs, base_dt, k=0.1, lo=0.01, hi=1.0):
 # ---- the fast tier's folded forms -------------------------------------------
 
 
-def euler_step_folded(rel, vel, rs, dt, flat_model=False):
+def _lt_field(p, inv_r, rs, spin):
+    """The fast tier's Lense-Thirring field B_g at p, folded as
+    pallas_trace.py writes it (:486-496, :821-831): j inv_r^3 (3 jr p_i
+    inv_r - J_hat_i) with jr = p_y inv_r, j = a* M^2."""
+    mm = rs * 0.5
+    j = spin * mm * mm
+    inv_r3 = inv_r * inv_r * inv_r
+    jr = p[..., 1] * inv_r
+    c = j * inv_r3
+    return torch.stack([c * (3.0 * jr * p[..., 0] * inv_r),
+                        c * (3.0 * jr * p[..., 1] * inv_r - 1.0),
+                        c * (3.0 * jr * p[..., 2] * inv_r)], dim=-1)
+
+
+def euler_step_folded(rel, vel, rs, dt, flat_model=False, *, spin=None):
     """The fast tier's Euler step, folded into two coefficients:
     v' = v*b1 + rel*b2, p' = rel + v' dt, then v' made unit.
 
-    Mirrors pallas_trace.py `physics_substep` (including the one_m >= 0.02
-    clamp, which only ever touches rays about to be captured) with exact
-    1/sqrt and reciprocal in place of the kernel's approximate ones. In
-    flat spacetime v' = v. Returns (new_rel, unit new_vel).
+    Mirrors pallas_trace.py `physics_substep` with exact 1/sqrt and
+    reciprocal in place of the kernel's approximate ones. In flat spacetime
+    v' = v. Without `spin` (Schwarzschild) one_m is clamped at 0.02, which
+    only ever touches rays about to be captured; with `spin` (kerr_lt) it
+    is not -- the Kerr capture radius lies inside r_s, so live rays reach
+    one_m < 0 -- and the Lense-Thirring drag of the pre-step velocity,
+    scaled by dt, is added to v' (:821-831). Returns (new_rel, unit
+    new_vel).
     """
     dt = torch.as_tensor(dt, dtype=torch.float32, device=rel.device)
     if flat_model:
@@ -140,19 +174,24 @@ def euler_step_folded(rel, vel, rs, dt, flat_model=False):
         inv_r = rsqrt(r2)
         c = dot(vel, rel)
         rs_inv_r = rs * inv_r
-        one_m = torch.clamp_min(1.0 - rs_inv_r, 0.02)
+        one_m = 1.0 - rs_inv_r
+        if spin is None:
+            one_m = torch.clamp_min(one_m, 0.02)
         factor_dt = (rs * torch.reciprocal(2.0 * r2 * one_m)) * dt  # dt: () or per ray
         b1 = 1.0 - factor_dt * one_m
         b2 = factor_dt * (1.0 + rs_inv_r) * c * (inv_r * inv_r)
         nv = vel * b1[..., None] + rel * b2[..., None]
+        if spin is not None:
+            nv = nv + cross(vel, _lt_field(rel, inv_r, rs, spin)) * _bcast_dt(dt, rel)
     new_rel = rel + nv * _bcast_dt(dt, rel)
     return new_rel, nv * rsqrt(dot(nv, nv))[..., None]
 
 
-def sl_deriv(p, v, rs):
+def sl_deriv(p, v, rs, spin=None):
     """The fast tier's folded acceleration a = p*a2 - v*a1, with one_m
     clamped at 0.02 (substeps may probe just inside the horizon for rays
-    about to be captured) (pallas_trace.py:469-497)."""
+    about to be captured) (pallas_trace.py:469-497); with `spin`, plus the
+    Lense-Thirring drag v x B_g of kerr_lt, clamped all the same."""
     rr2 = dot(p, p)
     inv_rr = rsqrt(rr2)
     rs_inv = rs * inv_rr
@@ -161,26 +200,30 @@ def sl_deriv(p, v, rs):
     c = dot(v, p)
     a1 = factor * one_m
     a2 = factor * (1.0 + rs_inv) * c * (inv_rr * inv_rr)
-    return p * a2[..., None] - v * a1[..., None]
+    a = p * a2[..., None] - v * a1[..., None]
+    if spin is not None:
+        a = a + cross(v, _lt_field(p, inv_rr, rs, spin))
+    return a
 
 
-def sl_rk4(rel, vel, rs, dt, flat_model=False):
+def sl_rk4(rel, vel, rs, dt, flat_model=False, *, spin=None):
     """The fast tier's RK4 on (rel, vel) (pallas_trace.py:499-530), ending
-    in an rsqrt renormalisation; a straight line in flat spacetime."""
+    in an rsqrt renormalisation; a straight line in flat spacetime. `spin`
+    adds kerr_lt's drag (sl_deriv)."""
     dt = _bcast_dt(dt, rel)
     if flat_model:
         return rel + vel * dt, vel
     half = 0.5 * dt
-    k1v = sl_deriv(rel, vel, rs)
+    k1v = sl_deriv(rel, vel, rs, spin)
     p2 = rel + vel * half
     v2 = vel + k1v * half
-    k2v = sl_deriv(p2, v2, rs)
+    k2v = sl_deriv(p2, v2, rs, spin)
     p3 = rel + v2 * half
     v3 = vel + k2v * half
-    k3v = sl_deriv(p3, v3, rs)
+    k3v = sl_deriv(p3, v3, rs, spin)
     p4 = rel + v3 * dt
     v4 = vel + k3v * dt
-    k4v = sl_deriv(p4, v4, rs)
+    k4v = sl_deriv(p4, v4, rs, spin)
     sixth = dt * (1.0 / 6.0)
     kp = vel + 2.0 * (v2 + v3) + v4
     kv = k1v + 2.0 * (k2v + k3v) + k4v
@@ -189,19 +232,20 @@ def sl_rk4(rel, vel, rs, dt, flat_model=False):
     return new_rel, nv * rsqrt(dot(nv, nv))[..., None]
 
 
-def sl_leapfrog(rel, vel, rs, dt, flat_model=False):
+def sl_leapfrog(rel, vel, rs, dt, flat_model=False, *, spin=None):
     """The fast tier's corrected kick-drift-kick (pallas_trace.py:532-546),
-    ending in an rsqrt renormalisation; a straight line in flat spacetime."""
+    ending in an rsqrt renormalisation; a straight line in flat spacetime.
+    `spin` adds kerr_lt's drag (sl_deriv)."""
     dt = _bcast_dt(dt, rel)
     if flat_model:
         return rel + vel * dt, vel
     half = 0.5 * dt
-    a1 = sl_deriv(rel, vel, rs)
+    a1 = sl_deriv(rel, vel, rs, spin)
     vh = vel + a1 * half
     new_rel = rel + vh * dt
-    a2a = sl_deriv(new_rel, vh, rs)
+    a2a = sl_deriv(new_rel, vh, rs, spin)
     vp = vh + a2a * half
-    a2 = sl_deriv(new_rel, vp, rs)
+    a2 = sl_deriv(new_rel, vp, rs, spin)
     nv = vh + a2 * half
     return new_rel, nv * rsqrt(dot(nv, nv))[..., None]
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.math import dot, on_device
+from ..core.math import dot, on_device, sqrt_rn
 from ..core.scene import DEBUG_STEPS
 from ..models.disk import disk_emission
 from .heatmap import steps_to_color
@@ -56,7 +56,7 @@ def shade_planes_packed(
     if disk_params is not None:
         bh = on_device(bh_pos, vel.device)
         to_cam = on_device(camera_position, vel.device) - bh
-        emission = disk_emission(result.final_pos - bh, vel, torch.sqrt(dot(to_cam, to_cam)),
+        emission = disk_emission(result.final_pos - bh, vel, sqrt_rn(dot(to_cam, to_cam)),
                                  on_device(rs, vel.device), disk_params, blackbody_lut)
         is_disk = result.status == STATUS_DISK
         r = torch.where(is_disk, emission[..., 0], r)

@@ -18,6 +18,11 @@ Rays that exhaust max_steps sample the background with their current
 velocity (wgsl:170). Every ray is updated under a mask, and the loop ends
 when no ray is still running. This is the plain version the CUDA kernels
 (ops/trace_kernel.py) are held against.
+
+The exact Kerr model ("kerr") integrates the Hamiltonian state (q, p) of
+models/kerr_schild.py on its own loop, `_trace_rays_kerr_schild`
+(bhr_tpu/ops/trace.py:210-320); "kerr_lt" runs the loop above with the
+Lense-Thirring acceleration of models/kerr.py.
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ import dataclasses
 
 import torch
 
-from ..core.math import dot, rsqrt
+from ..core.math import dot, rsqrt, sqrt_rn
 from ..core.scene import CAPTURE_FACTOR, DEFAULT_DT, ESCAPE_RADIUS
+from ..models import kerr_schild as ks
 from ..models.disk import intersect_equatorial, intersect_equatorial_fast
 from .geodesic import (
     FAST_STEP_FNS,
+    MODELS,
     STEP_FNS,
     adaptive_dt,
     model_acceleration,
@@ -48,8 +55,9 @@ STATUS_DISK = 3  # hit the accretion disk -> disk emission
 class TraceConfig:
     """Static trace configuration, with the same fields and defaults as
     bhr_tpu's TraceConfig (plugin physics aside). The port traces the
-    euler, rk4 and leapfrog integrators with model "schwarzschild" or
-    "flat"; anything else raises NotImplementedError when traced."""
+    euler, rk4 and leapfrog integrators with model "schwarzschild",
+    "kerr", "kerr_lt" or "flat"; plugin physics ("custom") raises
+    NotImplementedError when traced."""
 
     integrator: str = "euler"  # "euler" | "rk4" | "leapfrog"
     model: str = "schwarzschild"  # "schwarzschild" | "kerr" | "kerr_lt" | "flat"
@@ -79,11 +87,12 @@ def check_traceable(config: TraceConfig) -> None:
             f"integrator {config.integrator!r} is not ported yet "
             "(ROADMAP queue A, item 11: neural)"
         )
-    if config.model not in ("schwarzschild", "flat"):
+    if config.model == "custom":
         raise NotImplementedError(
-            f"model {config.model!r} is not ported yet (ROADMAP queue A, "
-            "item 9: kerr/kerr_lt; item 14: custom plugin physics)"
+            "plugin physics (model='custom') is not ported yet (ROADMAP queue A, item 14)"
         )
+    if config.model not in MODELS:
+        raise ValueError(f"unknown spacetime model {config.model!r}; have {sorted(MODELS)}")
 
 
 def trace_rays(
@@ -117,7 +126,11 @@ def trace_rays(
     rs = torch.as_tensor(rs, dtype=f32).to(device)
     spin = torch.as_tensor(spin, dtype=f32).to(device)
     bh_pos = torch.as_tensor(bh_pos, dtype=f32).to(device)
+    if config.model == "kerr":
+        return _trace_rays_kerr_schild(origins, directions, bh_pos, rs, spin, max_steps, config,
+                                       fast_math)
     flat_model = config.model == "flat"
+    lt_spin = spin if config.model == "kerr_lt" else None
     accel_fn = model_acceleration(config.model)
     if config.model == "schwarzschild":
         r_capture = rs * CAPTURE_FACTOR  # the literal wgsl:62 expression
@@ -132,7 +145,7 @@ def trace_rays(
 
     pos = origins.to(f32)
     d = directions.to(f32)
-    vel = d / torch.sqrt(dot(d, d))[..., None]  # wgsl:140
+    vel = d / sqrt_rn(dot(d, d))[..., None]  # wgsl:140
     batch_shape = pos.shape[:-1]
     status = torch.zeros(batch_shape, dtype=torch.int32, device=device)
     steps = torch.zeros(batch_shape, dtype=torch.int32, device=device)
@@ -142,7 +155,7 @@ def trace_rays(
         active = status == STATUS_RUNNING
         rel = pos - bh_pos
         r2 = dot(rel, rel)
-        dist = torch.sqrt(r2)
+        dist = sqrt_rn(r2)
         # steps_taken = i + 1 for every ray still in the loop (wgsl:149)
         steps = torch.where(active, i + 1, steps)
         if fast_math:
@@ -157,9 +170,14 @@ def trace_rays(
         if config.adaptive:
             dt = adaptive_dt(r2 * rsqrt(r2) if fast_math else dist, rs, base_dt)
         if fast_math:
-            new_rel, new_vel_n = FAST_STEP_FNS[config.integrator](rel, vel, rs, dt, flat_model)
+            new_rel, new_vel_n = FAST_STEP_FNS[config.integrator](rel, vel, rs, dt, flat_model,
+                                                                  spin=lt_spin)
         else:
             new_rel, new_vel = STEP_FNS[config.integrator](accel_fn, rel, vel, dist, rs, spin, dt)
+            # torch.sqrt, the one root not taken by sqrt_rn (the same on
+            # CUDA): on the CPU it is an ulp off on some inputs, and sqrt_rn
+            # here moves one more pixel of test_torch_render's 48x32 exact
+            # parity frame off bhr_tpu's, below its bar (ROADMAP queue C)
             new_vel_n = new_vel / torch.sqrt(dot(new_vel, new_vel))[..., None]
         new_pos = new_rel + bh_pos
 
@@ -179,3 +197,117 @@ def trace_rays(
         status = torch.where(captured, STATUS_CAPTURED, status)
         i += 1
     return TraceResult(final_pos=pos, final_vel=vel, status=status, steps=steps)
+
+
+def _trace_rays_kerr_schild(origins, directions, bh_pos, rs, spin, max_steps: int,
+                            config: TraceConfig, fast_math: bool) -> TraceResult:
+    """Exact Kerr null geodesics in Cartesian Kerr-Schild coordinates
+    (bhr_tpu/ops/trace.py:210-320): the loop above on the Hamiltonian
+    state (q, p) with E = -p_t = 1, escape tested on |q|, capture on the
+    Kerr-Schild radius (the horizon lies at r_+ in KS r), adaptive dt on
+    the KS radius, and the shading direction dq/dl taken from (q, p) after
+    the loop.
+
+    A disk hit stops at the oracle's interpolated hit point, whose y lies
+    within rounding of the plane: the exact tier's direction is evaluated
+    there, as the oracle's is, and final_pos takes the black hole's y. The
+    fast tier (`fast_math=True`; pallas_trace.py:1005-1047, :1134-1146)
+    tests escape on |q|^2 against esc^2 and capture on KS r^2 against
+    cap^2, takes the adaptive radius as r^2 rsqrt(r^2), finds the hit with
+    y = 0 (models/disk.intersect_equatorial_fast) and normalises the
+    direction by rsqrt.
+    """
+    device = origins.device
+    f32 = torch.float32
+    r_capture = ks.capture_radius(rs, spin)
+    escape_r = torch.tensor(config.escape_radius, dtype=f32, device=device)
+    base_dt = torch.tensor(config.dt, dtype=f32, device=device)
+    esc2 = escape_r * escape_r
+    cap2 = r_capture * r_capture
+    r_isco = config.disk_r_isco_factor * rs
+    r_outer = config.disk_r_outer_factor * rs
+
+    def derivs(q, p):
+        return ks.derivs(q, p, rs, spin)
+
+    def step_euler(q, p, dt):
+        # semi-implicit: p first, then q with the updated p (wgsl:80-85)
+        _, dp = derivs(q, p)
+        p2 = p + dp * dt
+        dq2, _ = derivs(q, p2)
+        return q + dq2 * dt, p2
+
+    def step_rk4(q, p, dt):
+        k1q, k1p = derivs(q, p)
+        k2q, k2p = derivs(q + 0.5 * dt * k1q, p + 0.5 * dt * k1p)
+        k3q, k3p = derivs(q + 0.5 * dt * k2q, p + 0.5 * dt * k2p)
+        k4q, k4p = derivs(q + dt * k3q, p + dt * k3p)
+        sixth = dt * (1.0 / 6.0)
+        return (q + sixth * (k1q + 2.0 * k2q + 2.0 * k3q + k4q),
+                p + sixth * (k1p + 2.0 * k2p + 2.0 * k3p + k4p))
+
+    def step_leapfrog(q, p, dt):
+        # kick-drift-kick with a midpoint-corrected drift and a corrector on
+        # the final kick: the KS Hamiltonian is not separable
+        half = 0.5 * dt
+        _, dp1 = derivs(q, p)
+        ph = p + dp1 * half
+        dq_a, _ = derivs(q, ph)
+        q_mid = q + dq_a * half
+        dq_b, _ = derivs(q_mid, ph)
+        q2 = q + dq_b * dt
+        _, dp2a = derivs(q2, ph)
+        p_pred = ph + dp2a * half
+        _, dp2 = derivs(q2, p_pred)
+        return q2, ph + dp2 * half
+
+    step = {"euler": step_euler, "rk4": step_rk4, "leapfrog": step_leapfrog}[config.integrator]
+
+    q = origins.to(f32) - bh_pos
+    d = directions.to(f32)
+    d = d / sqrt_rn(dot(d, d))[..., None]
+    p = ks.init_momentum(q, d, rs, spin)
+    batch_shape = q.shape[:-1]
+    status = torch.zeros(batch_shape, dtype=torch.int32, device=device)
+    steps = torch.zeros(batch_shape, dtype=torch.int32, device=device)
+
+    i = 0
+    while i < max_steps and bool((status == STATUS_RUNNING).any()):
+        active = status == STATUS_RUNNING
+        r2_ks, rho2 = ks.ks_r2(q, rs, spin)
+        steps = torch.where(active, i + 1, steps)
+        if fast_math:
+            escaped = active & (rho2 > esc2)
+            captured = active & ~escaped & (r2_ks < cap2)
+            r_dt = r2_ks * rsqrt(r2_ks)
+        else:
+            r_dt = sqrt_rn(r2_ks)  # ks_radius
+            escaped = active & (sqrt_rn(rho2) > escape_r)
+            captured = active & ~escaped & (r_dt < r_capture)
+        stepping = active & ~escaped & ~captured
+
+        dt = base_dt
+        if config.adaptive:
+            dt = adaptive_dt(r_dt, rs, base_dt)[..., None]
+        new_q, new_p = step(q, p, dt)
+
+        if config.disk:
+            intersect = intersect_equatorial_fast if fast_math else intersect_equatorial
+            hit, hit_rel = intersect(q, new_q, r_isco, r_outer)
+            hit = hit & stepping
+            new_q = torch.where(hit[..., None], hit_rel, new_q)
+            status = torch.where(hit, STATUS_DISK, status)
+
+        m3 = stepping[..., None]
+        q = torch.where(m3, new_q, q)
+        p = torch.where(m3, new_p, p)
+        status = torch.where(escaped, STATUS_ESCAPED, status)
+        status = torch.where(captured, STATUS_CAPTURED, status)
+        i += 1
+
+    direction = ks.final_direction_fast if fast_math else ks.final_direction
+    vel = direction(q, p, rs, spin)
+    if config.disk:
+        on_plane = torch.stack([q[..., 0], torch.zeros_like(q[..., 1]), q[..., 2]], dim=-1)
+        q = torch.where((status == STATUS_DISK)[..., None], on_plane, q)
+    return TraceResult(final_pos=q + bh_pos, final_vel=vel, status=status, steps=steps)

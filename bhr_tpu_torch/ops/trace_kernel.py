@@ -9,8 +9,9 @@ port of the monolithic and staged paths of bhr_tpu/ops/pallas_trace.py).
   TraceResult of planes), beside its plain version `trace_image_reference`.
 
 Both kernels cover the euler, rk4 and leapfrog integrators, fixed or
-adaptive dt, the Schwarzschild and the flat metric and the accretion disk,
-in the fast and the exact math tier. A wrapper runs its plain version for
+adaptive dt, the Schwarzschild, exact Kerr (Kerr-Schild), Lense-Thirring
+Kerr and flat metrics and the accretion disk, in the fast and the exact
+math tier. A wrapper runs its plain version for
 a CPU device; for a CUDA device it launches the kernel or raises -- it
 never falls back.
 """
@@ -22,9 +23,10 @@ import functools
 import torch
 
 from ..core.camera import Camera, generate_rays
+from ..core.math import sqrt_rn
 from ..core.scene import CAPTURE_FACTOR, SceneParams
 from ..models.disk import T_ISCO, kernel_lut_np, shade_disk_planes
-from .geodesic import INTEGRATORS, model_capture_radius
+from .geodesic import INTEGRATORS, MODELS, model_capture_radius
 from .sampling import pack_rgba8_planes
 from .starfield import procedural_background, seed_term
 from .trace import (
@@ -69,22 +71,26 @@ _P_SIZE = 32
 _FLAG_FLAT = 1
 _FLAG_ADAPTIVE = 2
 _FLAG_DISK = 4
+_FLAG_LT = 8  # kerr_lt: the Lense-Thirring drag
+_FLAG_KS = 16  # kerr: the Kerr-Schild Hamiltonian loop
 
 
 def monolithic_eligible(config: TraceConfig, scene: SceneParams, *, fast_math: bool, skybox,
                         disk_params, tonemap) -> bool:
     """True when the monolithic kernel can produce this frame
-    (bhr_tpu/ops/pallas_trace.py:79-113, restricted to the ported models):
-    the analytic star field, passthrough tonemap and no debug view, for
-    every ported integrator and model, adaptive or not. The disk is shaded
-    in-kernel in the fast tier only; an exact-tier disk frame takes the
-    staged path."""
+    (bhr_tpu/ops/pallas_trace.py:79-113): the analytic star field,
+    passthrough tonemap and no debug view, for every integrator, adaptive
+    or not. The disk is shaded in-kernel in the fast tier only; an
+    exact-tier disk frame takes the staged path, and so does every exact
+    kerr_lt frame (bhr_tpu sends it to its scratch kernel K5); plugin
+    physics never goes monolithic."""
     disk_ok = (not config.disk and disk_params is None) or (config.disk and fast_math)
     return (
         skybox is None
         and disk_ok
         and config.integrator in INTEGRATORS
-        and config.model in ("schwarzschild", "flat")
+        and config.model in MODELS
+        and (fast_math or config.model != "kerr_lt")
         and scene.debug_mode == 0
         and tonemap == "passthrough"
     )
@@ -138,7 +144,9 @@ def trace_flags(config: TraceConfig) -> int:
     """The TraceFlags mask of a configuration (csrc/trace_ray.cuh)."""
     return ((_FLAG_FLAT if config.model == "flat" else 0)
             | (_FLAG_ADAPTIVE if config.adaptive else 0)
-            | (_FLAG_DISK if config.disk else 0))
+            | (_FLAG_DISK if config.disk else 0)
+            | (_FLAG_LT if config.model == "kerr_lt" else 0)
+            | (_FLAG_KS if config.model == "kerr" else 0))
 
 
 def _check_mono_config(config: TraceConfig, scene: SceneParams, fast_math: bool) -> None:
@@ -146,8 +154,8 @@ def _check_mono_config(config: TraceConfig, scene: SceneParams, fast_math: bool)
     if not monolithic_eligible(config, scene, fast_math=fast_math, skybox=None,
                                disk_params=None, tonemap="passthrough"):
         raise ValueError(
-            f"the monolithic kernel renders no debug view and shades the disk in the fast "
-            f"tier only; got {config} with debug_mode={scene.debug_mode}, fast_math="
+            f"the monolithic kernel renders no debug view, and shades the disk and traces "
+            f"kerr_lt in the fast tier only; got {config} with debug_mode={scene.debug_mode}, fast_math="
             f"{fast_math}: render it through trace_image and the staged epilogue "
             "(renderer.render_image routes it there)"
         )
@@ -225,7 +233,7 @@ def shade_packed_reference(result: TraceResult, camera: Camera, scene: ScenePara
         p = build_params(camera, scene, config).to(device)
         bh = p[_P_BH:_P_BH + 3]
         to_cam = p[_P_CAM:_P_CAM + 3] - bh
-        obs_r = torch.sqrt(to_cam[0] * to_cam[0] + to_cam[1] * to_cam[1] + to_cam[2] * to_cam[2])
+        obs_r = sqrt_rn(to_cam[0] * to_cam[0] + to_cam[1] * to_cam[1] + to_cam[2] * to_cam[2])
         hit = result.final_pos - bh
         lut = torch.from_numpy(kernel_lut_np()).to(device)
         disk_rgb = shade_disk_planes(hit[..., 0], hit[..., 2], vel, p[_P_RS], p[_P_RISCO],

@@ -8,16 +8,17 @@ bhr_tpu/renderer.py; reference: src/lib.rs:144-201, 317-703).
     renderer.save_image("black_hole_render.png")
 
 The port renders the euler, rk4 and leapfrog integrators, fixed or adaptive
-dt, on the Schwarzschild or the flat metric, with or without the accretion
-disk, the analytic star field, the passthrough, reinhard or srgb tonemap
-and the step-count heatmap, in the fast or the exact math tier. A frame
-that the monolithic kernel can produce goes to it (csrc/render_mono.cu);
-every other one is traced by the planes kernel (csrc/trace_planes.cu) and
-shaded by the plain PyTorch epilogue `shade_image` on the device, as
-bhr_tpu/renderer.py:render_image routes them. On the CPU each kernel's
-plain PyTorch version stands in. Kerr, kerr_lt, plugin physics, texture
-skyboxes, the neural surrogate and multires raise NotImplementedError
-naming the ROADMAP item (queue A) that brings them. The TPU tuning
+dt, on the Schwarzschild, exact Kerr ("kerr", Kerr-Schild Hamiltonian
+geodesics), Lense-Thirring Kerr ("kerr_lt") or flat metric, with or
+without the accretion disk, the analytic star field, the passthrough,
+reinhard or srgb tonemap and the step-count heatmap, in the fast or the
+exact math tier. A frame that the monolithic kernel can produce goes to it
+(csrc/render_mono.cu); every other one is traced by the planes kernel
+(csrc/trace_planes.cu) and shaded by the plain PyTorch epilogue
+`shade_image` on the device, as bhr_tpu/renderer.py:render_image routes
+them. On the CPU each kernel's plain PyTorch version stands in. Plugin
+physics, texture skyboxes, the neural surrogate and multires raise
+NotImplementedError naming the ROADMAP item (queue A) that brings them. The TPU tuning
 arguments of bhr_tpu (tile, kernel_knobs, use_pallas, interpret) have no
 counterpart here.
 """
@@ -185,9 +186,7 @@ class BlackHoleRenderer:
             raise _not_ported("the neural surrogate", "11")
         if custom_physics is not None or model == "custom":
             raise _not_ported("plugin physics (model='custom')", "14")
-        if model in ("kerr", "kerr_lt"):
-            raise _not_ported(f"model {model!r}", "9")
-        if model not in ("schwarzschild", "flat"):
+        if model not in ("schwarzschild", "kerr", "kerr_lt", "flat"):
             raise ValueError(f"unknown spacetime model {model!r}")
         if skybox is not None:
             raise _not_ported("texture skyboxes", "10")

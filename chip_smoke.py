@@ -6,17 +6,25 @@ Builds the port's two kernels from this checkout with nvcc, one nvcc per
 source started together (bhr_tpu_torch/csrc/render_mono.cu, the
 monolithic trace + shade kernel, and csrc/trace_planes.cu, the staged
 trace kernel), holds every kernel variant against its plain PyTorch
-version on the card, and drives the renderer's paths at 1920x1080x500:
-  * the main path, Euler on the Schwarzschild metric through
-    BlackHoleRenderer.render_frame and OrbitAnimator.render_frames, both
-    math tiers (one render_mono launch per frame);
-  * BASELINE config 4 (rk4, adaptive dt, accretion disk, camera [15,5,0]):
-    the fast tier one render_mono launch, the exact tier one trace_planes
-    launch and the plain PyTorch epilogue, frame by frame and as a 4-frame
-    animation with no host sync;
+version on the card, and drives the renderer's paths:
+  * the main path at 1920x1080x500, Euler on the Schwarzschild metric
+    through BlackHoleRenderer.render_frame and OrbitAnimator.render_frames,
+    both math tiers (one render_mono launch per frame);
+  * BASELINE config 4 at 1920x1080x500 (rk4, adaptive dt, accretion disk,
+    camera [15,5,0]): the fast tier one render_mono launch, the exact tier
+    one trace_planes launch and the plain PyTorch epilogue, frame by frame
+    and as a 4-frame animation with no host sync;
+  * BASELINE config 5 at 3840x2160x2000 (exact Kerr, spin 0.9, the disk,
+    Euler, camera [15,5,0]): the same two routes, one frame held against
+    the whole plain frame, then 2 orbit frames with no host sync, each held
+    against the plain version on a band of 256 rows through the shadow and
+    the disk (the whole plain frame takes about a minute);
+  * kerr_lt at 1920x1080x500, spin 0.9, camera [15,5,0]: fast monolithic,
+    exact staged, and its step heatmap;
   * the debug step heatmap (one trace_planes launch and the epilogue);
   * a small matrix at 160x96x200: every integrator x {fixed, adaptive dt}
-    x {schwarzschild, flat} x tier x {monolithic, srgb-tonemapped staged}.
+    x {schwarzschild, flat, kerr, kerr_lt} x tier x {the passthrough
+    route, srgb-tonemapped staged}.
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Every frame is held against its plain version on the same
 inputs: exact tier packed words bit-equal on >= 99.9% of pixels, fast tier
@@ -25,8 +33,10 @@ status agrees with the plain version's on >= 99.5% of pixels and every
 ray the plain version captures is black in the kernel's frame on >= 99.5%
 of them. Each phase prints one line; any failed check raises, so the
 script exits non-zero and prints no result. The line before the last is a
-JSON record of every kernel variant; the last line is
-{"ok": true, "device": {...}}.
+JSON record of every kernel variant (its launches on the paths driven, its
+time and its plain version's, and its bound: the larger of the fp32
+operations it must do over 67 TFLOP/s and the bytes it must write over
+3.35 TB/s); the last line is {"ok": true, "device": {...}}.
 
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -36,6 +46,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -43,6 +54,10 @@ import tempfile
 import torch
 
 W, H, STEPS = 1920, 1080, 500
+W5, H5, STEPS5 = 3840, 2160, 2000  # BASELINE config 5 (scripts/golden_diff.py:50-51)
+BAND5 = (H5 // 2 - 128, H5 // 2 + 128)  # rows held against the plain version per orbit frame
+CONFIG5_FRAMES = 2
+SPIN = 0.9
 SMALL = (160, 96, 200)
 N_FRAMES = 8
 REPEATS = 5  # timed runs of N_FRAMES kernel frames; the median is reported
@@ -53,6 +68,63 @@ FAST_MIN = 0.995  # every channel within 1 level
 STATUS_MIN = 0.995  # ray status agrees; captured rays are black in the frame
 SIDE = ([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])  # scripts/golden_diff.py:128
 STATUS_CAPTURED = 2  # bhr_tpu_torch.ops.trace.STATUS_CAPTURED
+STATUS_DISK = 3
+# The card's peaks for the bound (NVIDIA H100 SXM data sheet): fp32 outside
+# the tensor cores, and device memory.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations of one ray-step, counted from bhr_tpu_torch/csrc/
+# trace_ray.cuh: each add, sub, mul, div, sqrt, rsqrt, rcp, min and max is
+# one operation, an FMA two. What a step evaluates more than once on the
+# same inputs counts once, and values of the launch's constants alone (4 a^2,
+# the radius guard, the drag's j) not at all; the per-ray ray-gen, initial
+# momentum and shading are left out. Keys: (model, tier, integrator) at
+# fixed dt with no disk; step_ops adds adaptive dt and the disk test.
+#  * Schwarzschild. Exact: loop test |rel| 6, accel 30 (10 of them on the
+#    position alone), axpy 6, guarded radius 7, renormalisation 9; euler
+#    6 + 30 + 2 axpys + 9; rk4 6 + 4 accels + 1 + 3 radii + 8 axpys + 2
+#    weighted sums of 15 + 9; leapfrog 6 + 30 + 2 axpys + 7 + 30 + 6 + 20
+#    (the last accel shares the position terms at new_rel) + 6 + 9. Fast:
+#    euler |rel|^2 5 + physics_substep 30 + 6 + vnorm 9; sl_deriv 33 (17 on
+#    the position alone; the first one's |rel|^2 is the loop test's); rk4 4
+#    sl_deriv + 8 axpys + 2 weighted sums of 12 + 9; leapfrog 33 + 2 axpys +
+#    33 + 6 + 16 + 6 + 9.
+#  * kerr_lt adds the drag to each acceleration: exact 23 (11 on the
+#    position alone), fast 26 (14) in sl_deriv, 29 in physics_substep, which
+#    also drops the clamp (1).
+#  * Kerr-Schild: ks_all 134 = the geometry at q 95 (ks_r2 14, of which the
+#    loop test's is the same; f and l 20 more; dr, df, dl 61) + s 6, f s 1,
+#    dq 6, s^2/2 2, dp 24. Euler: ks_all without dq 128 + axpy 6 + dq at
+#    (q, p') 13 + axpy 6; rk4 4 ks_all + 8 axpys + 2 weighted sums of 15;
+#    leapfrog dp at (q, p) 128, dq at (q, p_half) on the same geometry 13,
+#    dq alone at q_mid 47, dp at (q', p_half) 128, dp at (q', p_pred) on the
+#    same geometry 33, 5 axpys. The exact tier adds the escape test's |q| 1.
+OPS_PER_STEP = {
+    ("schwarzschild", "exact", "euler"): 57, ("schwarzschild", "exact", "rk4"): 235,
+    ("schwarzschild", "exact", "leapfrog"): 126, ("schwarzschild", "fast", "euler"): 50,
+    ("schwarzschild", "fast", "rk4"): 213, ("schwarzschild", "fast", "leapfrog"): 115,
+    ("kerr_lt", "exact", "euler"): 57 + 23, ("kerr_lt", "exact", "rk4"): 235 + 4 * 23,
+    ("kerr_lt", "exact", "leapfrog"): 126 + 2 * 23 + 12, ("kerr_lt", "fast", "euler"): 50 - 1 + 29,
+    ("kerr_lt", "fast", "rk4"): 213 + 4 * 26, ("kerr_lt", "fast", "leapfrog"): 115 + 2 * 26 + 12,
+    ("kerr", "exact", "euler"): 154, ("kerr", "exact", "rk4"): 615,
+    ("kerr", "exact", "leapfrog"): 380, ("kerr", "fast", "euler"): 153,
+    ("kerr", "fast", "rk4"): 614, ("kerr", "fast", "leapfrog"): 379,
+}
+# Adaptive dt: 5 operations on the loop's radius, the fast tier's radius
+# r^2 rsqrt(r^2) (1 where the step has the rsqrt, 2 for Kerr-Schild), and
+# the dt-scaled step sizes the integrator rebuilds every step.
+ADAPTIVE_STEP_SIZES = {"euler": 0, "rk4": 2, "leapfrog": 1}  # dt/2, dt/6
+DISK_OPS = 1  # the crossing test's sign product
+BYTES_PER_PIXEL = {"render_mono": 4, "trace_planes": 32}  # packed word; 6 fp32 + 2 int32 planes
+REPLACES = {
+    ("render_mono", "schwarzschild"): "bhr_tpu/ops/pallas_trace.py:1280",
+    ("trace_planes", "schwarzschild"): "bhr_tpu/ops/pallas_trace.py:1151 and :1335",
+    ("render_mono", "kerr"): "bhr_tpu/ops/pallas_trace.py:548-700 (K6, in :1280)",
+    ("trace_planes", "kerr"): "bhr_tpu/ops/pallas_trace.py:548-700 (K6, in :1151 and :1335)",
+    ("render_mono", "kerr_lt"): "bhr_tpu/ops/pallas_trace.py:486-496 and :821-831 (K7, in :1280)",
+    ("trace_planes", "kerr_lt"): "bhr_tpu/ops/pallas_trace.py:385-397, :486-496 and :821-831 "
+                                 "(K7, in :1151 and :1335)",
+}
 
 
 def phase(name: str, msg: str) -> None:
@@ -104,17 +176,40 @@ def bar(fast: bool) -> str:
 
 def ptxas_summary(log: str) -> str:
     """'<kernel>: <registers and spills>' per instantiation, from nvcc
-    -Xptxas -v (template arguments: tier ILb1 fast / ILb0 exact, then the
-    integrator Li0 euler / Li1 rk4 / Li2 leapfrog)."""
-    names = {"ILb1ELi0": "fast,euler", "ILb1ELi1": "fast,rk4", "ILb1ELi2": "fast,leapfrog",
-             "ILb0ELi0": "exact,euler", "ILb0ELi1": "exact,rk4", "ILb0ELi2": "exact,leapfrog"}
+    -Xptxas -v (template arguments: tier ILb1 fast / ILb0 exact, the
+    integrator Li0 euler / Li1 rk4 / Li2 leapfrog, then Lb1 for the
+    Kerr-Schild loop)."""
     out, tag = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            tag = next((v for k, v in names.items() if k in line), line.split()[-3])
-        elif tag and ("Used" in line or "spill" in line):
-            out.append(f"{tag}: {line.replace('ptxas info    :', '').strip()}")
+            m = re.search(r"ILb([01])ELi([0-2])ELb([01])E", line)
+            tag = (f"{'fast' if m[1] == '1' else 'exact'},"
+                   f"{('euler', 'rk4', 'leapfrog')[int(m[2])]}{',ks' if m[3] == '1' else ''}"
+                   if m else line.split()[-3])
+        elif tag and "Used" in line:
+            out.append(f"{tag}: {line.split('Used')[1].split(',')[0].strip()}")
+        elif tag and "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 "
+                                                                        "bytes spill stores"):
+            out.append(f"{tag}: {line.strip()}")
     return " | ".join(out) or "already built"
+
+
+def step_ops(model: str, fast: bool, integrator: str, *, adaptive: bool, disk: bool) -> int:
+    """fp32 operations of one ray-step of a configuration (OPS_PER_STEP)."""
+    n = OPS_PER_STEP[(model, "fast" if fast else "exact", integrator)]
+    if adaptive:
+        n += 5 + ADAPTIVE_STEP_SIZES[integrator] + (0 if not fast else 2 if model == "kerr" else 1)
+    return n + (DISK_OPS if disk else 0)
+
+
+def bound(kernel: str, model: str, fast: bool, integrator: str, ray_steps: int, pixels: int, *,
+          adaptive: bool, disk: bool) -> tuple[float, str]:
+    """(ms, 'operations' or 'bytes'): the least time the card could take
+    to integrate `ray_steps` ray-steps and write `pixels` outputs."""
+    ops = ray_steps * step_ops(model, fast, integrator, adaptive=adaptive, disk=disk)
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = pixels * BYTES_PER_PIXEL[kernel] / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def cuda_ms(fn, n_frames: int, repeats: int = 1) -> float:
@@ -134,26 +229,39 @@ def cuda_ms(fn, n_frames: int, repeats: int = 1) -> float:
 
 class Variants:
     """Per-variant record for the `kernels` line: main-path launches,
-    the largest level difference against the plain version, and the
-    times at 1920x1080x500."""
+    the largest level difference against the plain version, the times of
+    the kernel and its plain version, and the bound of the timed work.
+    A variant is (kernel, tier, integrator, model); Schwarzschild and flat
+    share their keys (flat is a runtime flag of the same instantiation)."""
 
     def __init__(self):
         self.rec = {}
 
-    def key(self, kernel: str, fast: bool, integrator: str) -> str:
-        return f"{kernel}<{'fast' if fast else 'exact'},{integrator}>"
+    def key(self, kernel: str, fast: bool, integrator: str, model: str = "schwarzschild") -> str:
+        suffix = "" if model in ("schwarzschild", "flat") else f",{model}"
+        return f"{kernel}<{'fast' if fast else 'exact'},{integrator}{suffix}>"
 
-    def get(self, kernel, fast, integrator) -> dict:
-        return self.rec.setdefault(self.key(kernel, fast, integrator),
-                                   {"launches": 0, "max_abs_err": 0, "ms": None,
-                                    "plain_ms": None, "config": None})
+    def get(self, kernel, fast, integrator, model="schwarzschild") -> dict:
+        return self.rec.setdefault(
+            self.key(kernel, fast, integrator, model),
+            {"kernel": kernel, "model": model if model != "flat" else "schwarzschild",
+             "launches": 0, "max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
+             "bound_by": None, "config": None})
 
-    def launched(self, kernel, fast, integrator, n):
-        self.get(kernel, fast, integrator)["launches"] += n
+    def launched(self, kernel, fast, integrator, n, model="schwarzschild"):
+        self.get(kernel, fast, integrator, model)["launches"] += n
 
-    def err(self, kernel, fast, integrator, e):
-        r = self.get(kernel, fast, integrator)
+    def err(self, kernel, fast, integrator, e, model="schwarzschild"):
+        r = self.get(kernel, fast, integrator, model)
         r["max_abs_err"] = max(r["max_abs_err"], e)
+
+    def timed(self, kernel, fast, integrator, model, *, ms, plain_ms, ray_steps, pixels, config,
+              adaptive=False, disk=False):
+        r = self.get(kernel, fast, integrator, model)
+        b, by = bound(kernel, model, fast, integrator, ray_steps, pixels, adaptive=adaptive,
+                      disk=disk)
+        r.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, config=config,
+                 ray_steps=ray_steps)
 
 
 def main() -> None:
@@ -169,7 +277,9 @@ def main() -> None:
     print(smi, flush=True)
 
     import bhr_tpu_torch as bt
+    from bhr_tpu_torch.core.camera import generate_rays
     from bhr_tpu_torch.ops import trace_kernel as tk
+    from bhr_tpu_torch.ops.trace import trace_rays
     from bhr_tpu_torch.renderer import shade_image
     from bhr_tpu_torch.utils import build
 
@@ -192,29 +302,82 @@ def main() -> None:
         tk.LAUNCHES = 0
         tk.TRACE_LAUNCHES = 0
 
-    def plain_staged(cam, scene, config, fast, renderer, tonemap="passthrough"):
-        """The staged frame's plain version: plain trace, same epilogue."""
-        res = tk.trace_image_reference(cam, scene, config, fast_math=fast, device="cuda")
+    def plain_trace(cam, scene, config, fast, rows=None):
+        """The plain trace of the frame, or of its rows rows[0] .. rows[1] - 1
+        (a band, where the whole frame's plain trace takes too long)."""
+        if rows is None:
+            return tk.trace_image_reference(cam, scene, config, fast_math=fast, device="cuda")
+        origins, dirs = generate_rays(cam, scene.screen_width, scene.screen_height, scene.fov,
+                                      device="cuda")
+        return trace_rays(origins[rows[0]:rows[1]], dirs[rows[0]:rows[1]],
+                          scene.black_hole_position, scene.schwarzschild_radius, scene.spin,
+                          scene.max_steps, config, fast_math=fast)
+
+    def plain_mono(cam, scene, config, fast, rows=None):
+        """The monolithic frame's plain version: (packed frame, trace)."""
+        res = plain_trace(cam, scene, config, fast, rows)
+        return tk.shade_packed_reference(res, cam, scene, config, fast_math=fast), res
+
+    def plain_staged(cam, scene, config, fast, renderer, tonemap="passthrough", rows=None,
+                     res=None):
+        """The staged frame's plain version: the plain trace (or `res`), the
+        same epilogue."""
+        if res is None:
+            res = plain_trace(cam, scene, config, fast, rows)
         frame = shade_image(res, cam, scene, renderer.disk_params(scene), renderer._lut,
                             tonemap=tonemap, seed=renderer.skybox_seed, packed=True)
         return frame, res
 
-    def check_mono(cam, scene, config, fast, frame):
-        """A monolithic frame against its plain version, with the kernel's
-        status from a comparison launch of the planes kernel."""
-        plain_res = tk.trace_image_reference(cam, scene, config, fast_math=fast, device="cuda")
-        plain = tk.shade_packed_reference(plain_res, cam, scene, config, fast_math=fast)
+    def band(x, rows):
+        return x if rows is None else x[rows[0]:rows[1]]
+
+    def shares(res) -> dict:
+        return {"disk_frac": (res.status == STATUS_DISK).float().mean().item(),
+                "captured_frac": (res.status == STATUS_CAPTURED).float().mean().item(),
+                "ray_steps": int(res.steps.sum().item())}
+
+    def check_mono(cam, scene, config, fast, frame, rows=None, plain=None):
+        """A monolithic frame (or its band of `rows`) against its plain
+        version (`plain`, or computed here), with the kernel's status from a
+        comparison launch of the planes kernel."""
+        plain, plain_res = plain or plain_mono(cam, scene, config, fast, rows)
         k_status = tk.trace_image(cam, scene, config, fast_math=fast, device="cuda").status
-        s = compare(frame, plain, fast, k_status, plain_res.status)
-        var.err("render_mono", fast, config.integrator, s["max_abs_err"])
-        s["disk_frac"] = (plain_res.status == 3).float().mean().item()
-        s["ray_steps"] = int(plain_res.steps.sum().item())
+        s = compare(band(frame, rows), plain, fast, band(k_status, rows), plain_res.status)
+        var.err("render_mono", fast, config.integrator, s["max_abs_err"], config.model)
+        s.update(shares(plain_res))
         return s
+
+    def check_staged(cam, scene, config, fast, renderer, frame, tonemap="passthrough",
+                     rows=None, plain_res=None):
+        """A staged frame (or its band) against the plain trace (`plain_res`,
+        or computed here) and the same epilogue."""
+        plain, plain_res = plain_staged(cam, scene, config, fast, renderer, tonemap, rows,
+                                        plain_res)
+        k_res = tk.trace_image(cam, scene, config, fast_math=fast, device="cuda")
+        s = compare(band(frame, rows), plain, fast, band(k_res.status, rows), plain_res.status)
+        var.err("trace_planes", fast, config.integrator, s["max_abs_err"], config.model)
+        s.update(shares(plain_res))
+        return s, k_res, plain_res
+
+    def animate(renderer, n_frames):
+        """n_frames orbit frames with no host sync (sync debug mode
+        'error'), timed by CUDA events: (frames, ms/frame)."""
+        anim = bt.OrbitAnimator(renderer)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the loop raises
+        frames = anim.render_frames(n_frames, packed=True)
+        torch.cuda.set_sync_debug_mode("default")
+        end.record()
+        torch.cuda.synchronize()
+        return frames, start.elapsed_time(end) / n_frames, anim
 
     # 3. every variant against its plain version, small: the two cameras of
     # the main path, then the matrix of integrators, dt, models, tiers and paths
     sw, sh, ss = SMALL
-    scene = bt.SceneParams(screen_width=sw, screen_height=sh, max_steps=ss)
+    scene = bt.SceneParams(screen_width=sw, screen_height=sh, max_steps=ss, spin=SPIN)
     for cam_name, cam in {"default": bt.Camera.default(), "side": side}.items():
         for fast in (True, False):
             kf = tk.render_packed(cam, scene, fast_math=fast, device="cuda")
@@ -223,41 +386,39 @@ def main() -> None:
             phase("small", f"{sw}x{sh}x{ss} {cam_name} {'fast' if fast else 'exact'} "
                   f"({bar(fast)}): " + json.dumps(s))
     n_cases, worst = 0, {}
+    models = ("schwarzschild", "flat", "kerr", "kerr_lt")
     for integ in ("euler", "rk4", "leapfrog"):
         for adaptive in (False, True):
-            for model in ("schwarzschild", "flat"):
+            for model in models:
                 for fast in (True, False):
                     for tonemap in ("passthrough", "srgb"):
                         r = bt.BlackHoleRenderer(sw, sh, integ, model=model, adaptive=adaptive,
                                                  fast_math=fast, tonemap=tonemap, device="cuda")
+                        mono = tk.monolithic_eligible(r.config, scene, fast_math=fast,
+                                                      skybox=None, disk_params=None,
+                                                      tonemap=tonemap)
                         reset()
                         frame = r.render_frame(side, scene)
                         torch.cuda.synchronize()
                         launched = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
                         packed = frame.view(torch.int32).view(sh, sw)
-                        if tonemap == "passthrough":
-                            if launched != (1, 0):
-                                raise AssertionError(f"monolithic frame launched {launched}")
-                            var.launched("render_mono", fast, integ, 1)
+                        if launched != ((1, 0) if mono else (0, 1)):
+                            raise AssertionError(f"{r.config} {tonemap} launched {launched}")
+                        if mono:
+                            var.launched("render_mono", fast, integ, 1, model)
                             s = check_mono(side, scene, r.config, fast, packed)
                         else:
-                            if launched != (0, 1):
-                                raise AssertionError(f"staged frame launched {launched}")
-                            var.launched("trace_planes", fast, integ, 1)
-                            plain, plain_res = plain_staged(side, scene, r.config, fast, r,
-                                                            "srgb")
-                            k_res = tk.trace_image(side, scene, r.config, fast_math=fast,
-                                                   device="cuda")
-                            s = compare(packed, plain, fast, k_res.status, plain_res.status)
-                            var.err("trace_planes", fast, integ, s["max_abs_err"])
+                            var.launched("trace_planes", fast, integ, 1, model)
+                            s, _, _ = check_staged(side, scene, r.config, fast, r, packed, tonemap)
                         n_cases += 1
                         for key in ("bit_same", "within_1", "status_agree", "captured_black"):
                             worst[key] = min(worst.get(key, 1.0), s[key])
                         worst["max_abs_err"] = max(worst.get("max_abs_err", 0),
                                                    s["max_abs_err"])
-    phase("matrix", f"{n_cases} cases at {sw}x{sh}x{ss} (3 integrators x fixed/adaptive x "
-          f"schwarzschild/flat x fast/exact x monolithic/srgb staged), each 1 launch of its "
-          f"kernel and held to its tier's bar; worst over the cases: " + json.dumps(worst))
+    phase("matrix", f"{n_cases} cases at {sw}x{sh}x{ss}, spin {SPIN} (3 integrators x "
+          f"fixed/adaptive x {'/'.join(models)} x fast/exact x passthrough (monolithic, "
+          f"but exact kerr_lt staged)/srgb staged), each 1 launch of its kernel and held to its "
+          f"tier's bar; worst over the cases: " + json.dumps(worst))
 
     # 4. main path at full size, both tiers
     full_scene = bt.SceneParams(screen_width=W, screen_height=H, max_steps=STEPS)
@@ -317,13 +478,15 @@ def main() -> None:
             errs.append(compare(frames[k], plain[k], fast, k_status,
                                 plain_res[k].status)["max_abs_err"])
         var.err("render_mono", fast, "euler", max(errs))
-        r = var.get("render_mono", fast, "euler")
-        r.update(ms=ms, plain_ms=plain_ms,
-                 config="euler, fixed dt, Camera.default() orbit, no disk (the main path)")
+        ray_steps = sum(int(r.steps.sum().item()) for r in plain_res) // N_FRAMES
+        var.timed("render_mono", fast, "euler", "schwarzschild", ms=ms, plain_ms=plain_ms,
+                  ray_steps=ray_steps, pixels=W * H,
+                  config="euler, fixed dt, Camera.default() orbit, no disk (the main path)")
         phase("animation", f"{N_FRAMES} frames {W}x{H}x{STEPS} {tier}: render_frames "
               f"{anim_ms:.3f} ms/frame, kernel {ms:.3f} ms/launch (medians of {REPEATS}), "
-              f"plain {plain_ms:.3f} ms/frame, launches={launches}, frames agree with "
-              f"the plain version ({bar(fast)}; max_abs_err {max(errs)}) on {smi}")
+              f"plain {plain_ms:.3f} ms/frame, {ray_steps} ray-steps/frame, launches={launches}, "
+              f"frames agree with the plain version ({bar(fast)}; max_abs_err {max(errs)}) "
+              f"on {smi}")
 
     # 6. (a) BASELINE config 4: rk4, adaptive dt, the disk, camera [15,5,0]
     cfg4 = dict(integrator="rk4", adaptive=True, disk=True)
@@ -342,31 +505,16 @@ def main() -> None:
         if fast:
             s = check_mono(side, full_scene, renderer.config, True, packed)
         else:
-            plain, plain_res = plain_staged(side, full_scene, renderer.config, False, renderer)
-            k_res = tk.trace_image(side, full_scene, renderer.config, device="cuda")
-            s = compare(packed, plain, False, k_res.status, plain_res.status)
-            var.err(kernel, False, "rk4", s["max_abs_err"])
-            s["disk_frac"] = (plain_res.status == 3).float().mean().item()
-            s["ray_steps"] = int(plain_res.steps.sum().item())
+            s, k_res, _ = check_staged(side, full_scene, renderer.config, False, renderer, packed)
             s["epilogue_ms"] = cuda_ms(
                 lambda: shade_image(k_res, side, full_scene, renderer.disk_params(full_scene),
                                     renderer._lut, tonemap="passthrough", packed=True),
                 1, REPEATS)
-        anim = bt.OrbitAnimator(renderer)
+        bt.OrbitAnimator(renderer).render_frames(BASELINE_FRAMES, packed=True)  # warm-up
         reset()
-        anim.render_frames(BASELINE_FRAMES, packed=True)  # warm-up
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda.set_sync_debug_mode("error")  # a host sync in the loop raises
-        anim.render_frames(BASELINE_FRAMES, packed=True)
-        torch.cuda.set_sync_debug_mode("default")
-        end.record()
-        torch.cuda.synchronize()
-        anim_ms = start.elapsed_time(end) / BASELINE_FRAMES
+        _, anim_ms, _ = animate(renderer, BASELINE_FRAMES)
         n = tk.LAUNCHES if fast else tk.TRACE_LAUNCHES
-        if n != 2 * BASELINE_FRAMES or (tk.TRACE_LAUNCHES if fast else tk.LAUNCHES):
+        if n != BASELINE_FRAMES or (tk.TRACE_LAUNCHES if fast else tk.LAUNCHES):
             raise AssertionError(f"BASELINE 4 animation launched {tk.LAUNCHES}, "
                                  f"{tk.TRACE_LAUNCHES}")
         var.launched(kernel, fast, "rk4", n)
@@ -375,7 +523,119 @@ def main() -> None:
               f"OrbitAnimator {BASELINE_FRAMES} frames {anim_ms:.3f} ms/frame with no host sync "
               f"(CUDA events, sync debug mode 'error') on {smi}")
 
-    # 7. (b) the debug step heatmap, both tiers: the steps plane against the
+    # 7. (a) BASELINE config 5: exact Kerr at spin 0.9, the disk, Euler,
+    # camera [15,5,0], 3840x2160x2000. One frame against the whole plain
+    # frame (timed: the plain version's ms); then CONFIG5_FRAMES orbit
+    # frames with no host sync, each against the plain version on BAND5.
+    scene5 = bt.SceneParams(screen_width=W5, screen_height=H5, max_steps=STEPS5, spin=SPIN)
+    cfg5 = dict(model="kerr", disk=True)
+    for fast in (True, False):
+        tier = "fast" if fast else "exact"
+        kernel = "render_mono" if fast else "trace_planes"
+        renderer = bt.BlackHoleRenderer(W5, H5, fast_math=fast, device="cuda", **cfg5)
+        reset()
+        frame = renderer.render_frame(side, scene5)
+        torch.cuda.synchronize()
+        launches = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
+        if launches != ((1, 0) if fast else (0, 1)):
+            raise AssertionError(f"BASELINE 5 {tier} launched {launches}, not one {kernel}")
+        var.launched(kernel, fast, "euler", 1, "kerr")
+        if frame.shape != (H5, W5, 4):
+            raise AssertionError(f"BASELINE 5 frame is {tuple(frame.shape)}")
+        packed = frame.view(torch.int32).view(H5, W5)
+        # the plain version timed alone, as in phase 10: the trace, and for
+        # the monolithic kernel its shading; the comparison runs after
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain = (plain_mono(side, scene5, renderer.config, True) if fast else
+                 plain_trace(side, scene5, renderer.config, False))
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        s = (check_mono(side, scene5, renderer.config, True, packed, plain=plain) if fast else
+             check_staged(side, scene5, renderer.config, False, renderer, packed,
+                          plain_res=plain)[0])
+        ray_steps = s["ray_steps"]
+        if fast:
+            out = torch.empty((H5, W5), dtype=torch.int32, device="cuda")
+            launch = lambda: tk.render_packed(side, scene5, renderer.config, fast_math=True,
+                                              device="cuda", out=out)
+        else:
+            planes = tk.empty_trace_result(H5, W5, "cuda")
+            launch = lambda: tk.trace_image(side, scene5, renderer.config, device="cuda",
+                                            out=planes)
+        ms = cuda_ms(lambda: [launch() for _ in range(3)], 3, REPEATS)
+        var.timed(kernel, fast, "euler", "kerr", ms=ms, plain_ms=plain_ms,
+                  ray_steps=ray_steps, pixels=W5 * H5, disk=True,
+                  config="BASELINE config 5: kerr spin 0.9, euler, fixed dt, disk, camera "
+                         "[15,5,0], 3840x2160x2000")
+        reset()
+        frames, anim_ms, anim = animate(renderer, CONFIG5_FRAMES)
+        n = tk.LAUNCHES if fast else tk.TRACE_LAUNCHES
+        if n != CONFIG5_FRAMES or (tk.TRACE_LAUNCHES if fast else tk.LAUNCHES):
+            raise AssertionError(f"BASELINE 5 animation launched {tk.LAUNCHES}, "
+                                 f"{tk.TRACE_LAUNCHES}")
+        var.launched(kernel, fast, "euler", n, "kerr")
+        band_stats = []
+        for k, t in enumerate(anim.frame_times(CONFIG5_FRAMES)):
+            cam = bt.orbit_camera(t)
+            b = (check_mono(cam, scene5, renderer.config, True, frames[k], BAND5) if fast else
+                 check_staged(cam, scene5, renderer.config, False, renderer, frames[k],
+                              rows=BAND5)[0])
+            band_stats.append({key: b[key] for key in ("bit_same", "within_1", "status_agree",
+                                                      "max_abs_err", "disk_frac",
+                                                      "captured_frac")})
+        phase("baseline5", f"{W5}x{H5}x{STEPS5} kerr spin {SPIN} euler disk {tier}: "
+              f"render_frame 1 {kernel} launch, held against the whole plain frame "
+              f"({bar(fast)}): {json.dumps(s)}; kernel {ms:.3f} ms (median of {REPEATS} x 3), "
+              f"plain {plain_ms:.1f} ms, {ray_steps} ray-steps integrated "
+              f"({ray_steps / (W5 * H5 * STEPS5):.4f} of the nominal W*H*max_steps); "
+              f"OrbitAnimator {CONFIG5_FRAMES} frames {anim_ms:.3f} ms/frame with no host sync "
+              f"(CUDA events, sync debug mode 'error'), rows {BAND5[0]}-{BAND5[1] - 1} of each "
+              f"held against the plain version: {json.dumps(band_stats)} on {smi}")
+        del frames, renderer
+
+    # 8. (b) kerr_lt at 1920x1080x500, spin 0.9, camera [15,5,0]: fast
+    # monolithic, exact staged, and the step heatmap (steps plane against
+    # the plain version's)
+    scene_lt = full_scene.replace(spin=SPIN)
+    for fast in (True, False):
+        tier = "fast" if fast else "exact"
+        kernel = "render_mono" if fast else "trace_planes"
+        renderer = bt.BlackHoleRenderer(W, H, fast_math=fast, device="cuda", model="kerr_lt")
+        reset()
+        frame = renderer.render_frame(side, scene_lt)
+        torch.cuda.synchronize()
+        launches = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
+        if launches != ((1, 0) if fast else (0, 1)):
+            raise AssertionError(f"kerr_lt {tier} launched {launches}, not one {kernel}")
+        var.launched(kernel, fast, "euler", 1, "kerr_lt")
+        packed = frame.view(torch.int32).view(H, W)
+        s = (check_mono(side, scene_lt, renderer.config, True, packed) if fast else
+             check_staged(side, scene_lt, renderer.config, False, renderer, packed)[0])
+        debug = scene_lt.replace(debug_mode=1)
+        reset()
+        hframe = renderer.render_frame(side, debug)
+        torch.cuda.synchronize()
+        if (tk.LAUNCHES, tk.TRACE_LAUNCHES) != (0, 1):
+            raise AssertionError(f"kerr_lt debug frame launched {tk.LAUNCHES}, "
+                                 f"{tk.TRACE_LAUNCHES}")
+        var.launched("trace_planes", fast, "euler", 1, "kerr_lt")
+        k_res = tk.trace_image(side, debug, renderer.config, fast_math=fast, device="cuda")
+        hplain, hres = plain_staged(side, debug, renderer.config, fast, renderer)
+        steps_same = (k_res.steps == hres.steps).float().mean().item()
+        if steps_same < STATUS_MIN:
+            raise AssertionError(f"kerr_lt steps plane agrees on {steps_same}")
+        h = compare(hframe.view(torch.int32).view(H, W), hplain, fast, k_res.status,
+                    hres.status, heatmap=True)
+        var.err("trace_planes", fast, "euler", h["max_abs_err"], "kerr_lt")
+        phase("kerr_lt", f"{W}x{H}x{STEPS} kerr_lt spin {SPIN} euler {tier}: render_frame 1 "
+              f"{kernel} launch ({bar(fast)}): {json.dumps(s)}; heatmap 1 trace_planes launch, "
+              f"steps plane equal to the plain version's on {steps_same:.6f} (bar {STATUS_MIN}), "
+              f"frame {json.dumps(h)}")
+
+    # 9. (b) the debug step heatmap, both tiers: the steps plane against the
     # plain version's
     debug_scene = full_scene.replace(debug_mode=1)
     for fast in (True, False):
@@ -401,54 +661,75 @@ def main() -> None:
               f"frame ({bar(fast)}, but for captured_black: the heatmap colours every ray): "
               f"{json.dumps(s)}")
 
-    # 8. times of every variant at full size: kernel launches back to back
-    # (median of REPEATS runs of 3) beside one run of its plain version
-    timing = {
-        ("render_mono", "rk4"): (side, dict(integrator="rk4", adaptive=True, disk=True)),
-        ("render_mono", "leapfrog"): (side, dict(integrator="leapfrog", adaptive=True,
-                                                 disk=True)),
-        ("trace_planes", "euler"): (bt.Camera.default(), dict()),
-        ("trace_planes", "rk4"): (side, dict(integrator="rk4", adaptive=True, disk=True)),
-        ("trace_planes", "leapfrog"): (side, dict(integrator="leapfrog", adaptive=True,
-                                                  disk=True)),
-    }
-    for (kernel, integ), (cam, kw) in timing.items():
-        for fast in (True, False):
+    # 10. times of every other variant at 1920x1080x500: kernel launches
+    # back to back (median of REPEATS runs of 3) beside one run of its plain
+    # version, whose step counts give the ray-steps of the bound
+    disk_cfg = dict(adaptive=True, disk=True)
+    both, fast_only, exact_only = (True, False), (True,), (False,)
+    timing = [  # (kernel, integrator, model, tiers, camera, config); the rest is timed above
+        ("render_mono", "rk4", "schwarzschild", both, side, disk_cfg),
+        ("render_mono", "leapfrog", "schwarzschild", both, side, disk_cfg),
+        ("trace_planes", "euler", "schwarzschild", both, bt.Camera.default(), {}),
+        ("trace_planes", "rk4", "schwarzschild", both, side, disk_cfg),
+        ("trace_planes", "leapfrog", "schwarzschild", both, side, disk_cfg),
+        ("render_mono", "euler", "kerr", exact_only, side, {}),
+        ("render_mono", "rk4", "kerr", both, side, disk_cfg),
+        ("render_mono", "leapfrog", "kerr", both, side, disk_cfg),
+        ("trace_planes", "euler", "kerr", fast_only, side, {}),
+        ("trace_planes", "rk4", "kerr", both, side, disk_cfg),
+        ("trace_planes", "leapfrog", "kerr", both, side, disk_cfg),
+        ("render_mono", "euler", "kerr_lt", fast_only, side, {}),
+        ("render_mono", "rk4", "kerr_lt", fast_only, side, disk_cfg),
+        ("render_mono", "leapfrog", "kerr_lt", fast_only, side, disk_cfg),
+        ("trace_planes", "euler", "kerr_lt", both, side, {}),
+        ("trace_planes", "rk4", "kerr_lt", both, side, disk_cfg),
+        ("trace_planes", "leapfrog", "kerr_lt", both, side, disk_cfg),
+    ]
+    timing_scene = full_scene.replace(spin=SPIN)
+    for kernel, integ, model, tiers, cam, kw in timing:
+        for fast in tiers:
             if kernel == "render_mono" and not fast:
                 kw = {**kw, "disk": False}  # the exact tier's disk is staged
-            config = bt.TraceConfig(**kw)
+            config = bt.TraceConfig(integrator=integ, model=model, **kw)
+            plain_res = [None]
             if kernel == "render_mono":
                 out = torch.empty((H, W), dtype=torch.int32, device="cuda")
 
                 def launch():
-                    tk.render_packed(cam, full_scene, config, fast_math=fast, device="cuda",
+                    tk.render_packed(cam, timing_scene, config, fast_math=fast, device="cuda",
                                      out=out)
 
                 def plain():
-                    tk.render_packed_reference(cam, full_scene, config, fast_math=fast,
-                                               device="cuda")
+                    plain_res[0] = tk.trace_image_reference(cam, timing_scene, config,
+                                                            fast_math=fast, device="cuda")
+                    tk.shade_packed_reference(plain_res[0], cam, timing_scene, config,
+                                              fast_math=fast)
             else:
                 planes = tk.empty_trace_result(H, W, "cuda")
 
                 def launch():
-                    tk.trace_image(cam, full_scene, config, fast_math=fast, device="cuda",
+                    tk.trace_image(cam, timing_scene, config, fast_math=fast, device="cuda",
                                    out=planes)
 
                 def plain():
-                    tk.trace_image_reference(cam, full_scene, config, fast_math=fast,
-                                             device="cuda")
+                    plain_res[0] = tk.trace_image_reference(cam, timing_scene, config,
+                                                            fast_math=fast, device="cuda")
             launch()  # warm-up
             ms = cuda_ms(lambda: [launch() for _ in range(3)], 3, REPEATS)
             plain_ms = cuda_ms(plain, 1)
-            r = var.get(kernel, fast, integ)
-            r.update(ms=ms, plain_ms=plain_ms,
-                     config=f"{integ}, {'adaptive' if config.adaptive else 'fixed'} dt, "
-                            f"{'disk' if config.disk else 'no disk'}, "
-                            f"camera {cam.position.tolist()}")
-            phase("timing", f"{var.key(kernel, fast, integ)} at {W}x{H}x{STEPS} "
-                  f"({r['config']}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms on {smi}")
+            ray_steps = int(plain_res[0].steps.sum().item())
+            desc = (f"{model}{f' spin {SPIN}' if model != 'schwarzschild' else ''}, {integ}, "
+                    f"{'adaptive' if config.adaptive else 'fixed'} dt, "
+                    f"{'disk' if config.disk else 'no disk'}, camera {cam.position.tolist()}, "
+                    f"{W}x{H}x{STEPS}")
+            var.timed(kernel, fast, integ, model, ms=ms, plain_ms=plain_ms, ray_steps=ray_steps,
+                      pixels=W * H, config=desc, adaptive=config.adaptive, disk=config.disk)
+            r = var.get(kernel, fast, integ, model)
+            phase("timing", f"{var.key(kernel, fast, integ, model)} ({desc}): kernel {ms:.3f} "
+                  f"ms, plain {plain_ms:.3f} ms, {ray_steps} ray-steps, bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}) on {smi}")
 
-    # 9. output
+    # 11. output
     renderer = records["exact"]["renderer"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frame.png")
@@ -458,18 +739,17 @@ def main() -> None:
         raise AssertionError("PNG read back differs from the frame")
     phase("output", f"saved and read back a {back.shape} PNG")
 
-    replaces = {"render_mono": "bhr_tpu/ops/pallas_trace.py:1280",
-                "trace_planes": "bhr_tpu/ops/pallas_trace.py:1151 and :1335"}
     kernels = []
     for key, r in sorted(var.rec.items()):
-        name = key.split("<")[0]
         if r["launches"] == 0:
             raise AssertionError(f"{key} was launched no time on the paths driven")
         kernels.append({"name": key, "route": "cuda",
-                        "source": f"bhr_tpu_torch/csrc/{name}.cu",
-                        "replaces": replaces[name],
+                        "source": f"bhr_tpu_torch/csrc/{r['kernel']}.cu",
+                        "replaces": REPLACES[(r["kernel"], r["model"])],
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "config": r["config"]})
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "config": r["config"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ MODULES = [
     "bhr_tpu_torch.models.schwarzschild", "bhr_tpu_torch.core.camera",
     "bhr_tpu_torch.core.scene", "bhr_tpu_torch.core.math", "bhr_tpu_torch.utils.build",
     "bhr_tpu_torch.models.disk", "bhr_tpu_torch.ops.display", "bhr_tpu_torch.ops.heatmap",
+    "bhr_tpu_torch.models.kerr", "bhr_tpu_torch.models.kerr_schild",
 ]
 
 
@@ -84,9 +85,9 @@ def test_no_fallback_in_the_cuda_path():
 @pytest.mark.parametrize(
     "args,kw,item",
     [
-        (("euler",), dict(model="kerr"), "item 9"),
-        (("euler",), dict(model="kerr_lt"), "item 9"),
-        (("src/ray_tracer_kerr.wgsl",), {}, "item 9"),
+        (("euler",), dict(model="kerr", skybox="sky.exr"), "item 10"),
+        (("neural_kerr",), {}, "item 11"),
+        (("src/ray_tracer_kerr.wgsl",), dict(multires=2), "item 12"),
         (("euler",), dict(skybox="sky.exr"), "item 10"),
         (("neural",), {}, "item 11"),
         (("euler",), dict(neural_params={}), "item 11"),
@@ -110,20 +111,26 @@ def test_renderer_outside_slice_raises(args, kw, item):
         (("euler",), dict(model="flat")),
         (("euler",), dict(tonemap="reinhard")),
         (("euler",), dict(disk=True)),
+        (("euler",), dict(model="kerr")),
+        (("euler",), dict(model="kerr_lt")),
+        (("src/ray_tracer_kerr.wgsl",), {}),
     ],
-    ids=["rk4", "leapfrog", "rk4-wgsl", "adaptive", "flat", "reinhard", "disk"],
+    ids=["rk4", "leapfrog", "rk4-wgsl", "adaptive", "flat", "reinhard", "disk", "kerr",
+         "kerr_lt", "kerr-wgsl"],
 )
 def test_renderer_renders_what_once_raised(args, kw):
-    """Each configuration that raised before this slice renders, and
-    agrees with bhr_tpu's renderer (oracle path, exact tier) at 24x16x120
-    within 1 level on every pixel."""
+    """Each configuration that raised before this slice or an earlier one
+    renders, and agrees with bhr_tpu's renderer (oracle path, exact tier)
+    at 24x16x120, spin 0.9, within 1 level on every pixel."""
     jr = J.BlackHoleRenderer(24, 16, *args, use_pallas=False, **kw)
     cam = ([0.0, 3.0, 20.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
     want = np.asarray(jr.render_frame(
-        J.Camera.new(*cam), J.SceneParams(screen_width=24, screen_height=16, max_steps=120)))
+        J.Camera.new(*cam), J.SceneParams(screen_width=24, screen_height=16, max_steps=120,
+                                          spin=np.float32(0.9))))
     tr = T.BlackHoleRenderer(24, 16, *args, device="cpu", **kw)
     got = tr.render_frame(T.Camera.new(*cam),
-                          T.SceneParams(screen_width=24, screen_height=16, max_steps=120))
+                          T.SceneParams(screen_width=24, screen_height=16, max_steps=120,
+                                        spin=0.9))
     assert tr.config.integrator == jr.config.integrator and tr.config.model == jr.config.model
     diff = np.abs(got.numpy().astype(int) - want.astype(int)).max(-1)
     assert diff.max() <= 1, diff.max()
@@ -153,9 +160,9 @@ def test_debug_heatmap_raises():
 
 @pytest.mark.parametrize(
     "config",
-    [T.TraceConfig(model="kerr"), T.TraceConfig(model="kerr_lt"),
+    [T.TraceConfig(model="custom"), T.TraceConfig(integrator="leapfrog", model="custom"),
      T.TraceConfig(integrator="neural")],
-    ids=["kerr", "kerr_lt", "neural"],
+    ids=["custom", "custom-leapfrog", "neural"],
 )
 def test_trace_and_render_outside_slice_raise(config):
     scene = T.SceneParams(screen_width=4, screen_height=4, max_steps=2)
@@ -174,23 +181,26 @@ def test_trace_and_render_outside_slice_raise(config):
 @pytest.mark.parametrize(
     "config",
     [T.TraceConfig(integrator="rk4"), T.TraceConfig(integrator="leapfrog"),
-     T.TraceConfig(adaptive=True), T.TraceConfig(disk=True)],
-    ids=["rk4", "leapfrog", "adaptive", "disk"],
+     T.TraceConfig(adaptive=True), T.TraceConfig(disk=True), T.TraceConfig(model="kerr"),
+     T.TraceConfig(model="kerr_lt", disk=True)],
+    ids=["rk4", "leapfrog", "adaptive", "disk", "kerr", "kerr_lt-disk"],
 )
 def test_trace_and_render_what_once_raised(config):
     """trace_rays, the monolithic wrapper and render_image take each
-    configuration that raised before this slice; in the fast tier
-    render_image is the monolithic frame, and the exact frame of a
-    configuration without the disk is too."""
-    scene = T.SceneParams(screen_width=12, screen_height=8, max_steps=60)
+    configuration that raised before this slice or an earlier one (spin
+    0.9); render_image is the monolithic frame wherever the route takes
+    it: the fast tier, and the exact tier without the disk but for
+    kerr_lt."""
+    scene = T.SceneParams(screen_width=12, screen_height=8, max_steps=60, spin=0.9)
     cam = T.Camera.new([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
     origins, dirs = T.generate_rays(cam, 12, 8, scene.fov)
-    res = trace.trace_rays(origins, dirs, torch.zeros(3), 2.0, 0.0, 60, config)
+    res = trace.trace_rays(origins, dirs, torch.zeros(3), 2.0, 0.9, 60, config)
     assert res.status.shape == (8, 12) and int(res.steps.max()) == 60
     for fast in (False, True):
         frame = T.render_image(cam, scene, config=config, fast_math=fast, device="cpu",
                                packed=True)
-        if fast or not config.disk:
+        if trace_kernel.monolithic_eligible(config, scene, fast_math=fast, skybox=None,
+                                            disk_params=None, tonemap="passthrough"):
             mono = trace_kernel.render_packed(cam, scene, config, fast_math=fast, device="cpu")
             torch.testing.assert_close(frame, mono, rtol=0, atol=0)
 
@@ -199,8 +209,8 @@ def test_trace_and_render_what_once_raised(config):
     "kw,config",
     [(dict(skybox=object()), T.TraceConfig()),
      (dict(skybox=object()), T.TraceConfig(disk=True)),
-     ({}, T.TraceConfig(model="kerr"))],
-    ids=["skybox", "skybox-disk", "kerr"])
+     ({}, T.TraceConfig(model="custom"))],
+    ids=["skybox", "skybox-disk", "custom"])
 def test_render_image_outside_slice_raises(kw, config):
     scene = T.SceneParams(screen_width=4, screen_height=4, max_steps=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

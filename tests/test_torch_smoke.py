@@ -85,3 +85,55 @@ def test_compare_lets_a_heatmap_colour_captured_rays():
         chip_smoke.compare(_frame(rgb), _frame(rgb), False, status, status)
     s = chip_smoke.compare(_frame(rgb), _frame(rgb), False, status, status, heatmap=True)
     assert s["captured_black"] == 0.0 and s["bit_same"] == 1.0
+
+
+def test_bound_takes_the_larger_of_operations_and_bytes():
+    """BASELINE config 5's fast frame: 2.9e9 ray-steps x 154 operations
+    (the Kerr-Schild Euler step 153 and the disk test 1) over 67 TFLOP/s
+    bind; with no steps the 32-byte planes over 3.35 TB/s do."""
+    ms, by = chip_smoke.bound("render_mono", "kerr", True, "euler", 2_901_389_628, 3840 * 2160,
+                              adaptive=False, disk=True)
+    assert by == "operations" and abs(ms - 2_901_389_628 * 154 / 67e12 * 1e3) < 1e-9
+    ms, by = chip_smoke.bound("trace_planes", "schwarzschild", False, "rk4", 0, 3840 * 2160,
+                              adaptive=True, disk=True)
+    assert by == "bytes" and abs(ms - 3840 * 2160 * 32 / 3.35e12 * 1e3) < 1e-12
+
+
+@pytest.mark.parametrize("model, fast, integrator, adaptive, disk, ops", [
+    ("schwarzschild", False, "rk4", True, True, 235 + 5 + 2 + 1),
+    ("schwarzschild", True, "leapfrog", True, False, 115 + 5 + 1 + 1),
+    ("kerr", True, "euler", True, True, 153 + 5 + 2 + 1),
+    ("kerr", False, "leapfrog", False, False, 380),
+])
+def test_step_ops_adds_adaptive_dt_and_the_disk_test(model, fast, integrator, adaptive, disk,
+                                                     ops):
+    assert chip_smoke.step_ops(model, fast, integrator, adaptive=adaptive, disk=disk) == ops
+
+
+def test_step_ops_counts_shared_work_once():
+    """Leapfrog's five Kerr-Schild evaluations need the geometry at q and
+    at q' once each: fewer than 2.5 Euler steps, not 5; kerr_lt's leapfrog
+    adds two full drags and the velocity part of a third."""
+    for fast in (True, False):
+        euler = chip_smoke.step_ops("kerr", fast, "euler", adaptive=False, disk=False)
+        leap = chip_smoke.step_ops("kerr", fast, "leapfrog", adaptive=False, disk=False)
+        assert 2.4 * euler < leap < 2.5 * euler
+    assert chip_smoke.OPS_PER_STEP[("kerr_lt", "exact", "leapfrog")] == 126 + 23 + 23 + 12
+
+
+def test_ptxas_summary_names_every_instantiation():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN3bhr18render_mono_kernelILb1ELi2ELb1EEEv' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN3bhr18render_mono_kernelILb1ELi2ELb1EEEv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 48 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3bhr18render_mono_kernelILb0ELi1ELb0EEEv' "
+        "for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 0 barriers",
+    ])
+    assert chip_smoke.ptxas_summary(log) == (
+        "fast,leapfrog,ks: 48 registers | exact,rk4: 8 bytes stack frame, 4 bytes spill "
+        "stores, 4 bytes spill loads | exact,rk4: 255 registers")
+    assert chip_smoke.ptxas_summary("") == "already built"

@@ -111,9 +111,10 @@ def test_fast_disk_frame_matches_jax_monolithic():
 
 def test_monolithic_eligible_matches_jax():
     """The port's predicate is bhr_tpu's on every ported model: disk frames
-    go monolithic in the fast tier only; a debug view or a tonemap never."""
+    and kerr_lt go monolithic in the fast tier only; a debug view or a
+    tonemap never."""
     for integ in ("euler", "rk4", "leapfrog"):
-        for model in ("schwarzschild", "flat"):
+        for model in ("schwarzschild", "flat", "kerr", "kerr_lt"):
             for adaptive in (False, True):
                 for disk in (False, True):
                     for fast in (False, True):

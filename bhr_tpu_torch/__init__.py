@@ -1,14 +1,19 @@
 """bhr_tpu_torch: the PyTorch and CUDA port of bhr_tpu, the general-
 relativistic black-hole raytracer, for NVIDIA Hopper GPUs.
 
-It renders bhr_tpu's Schwarzschild and flat-spacetime frames -- the euler,
-rk4 and leapfrog integrators, fixed or adaptive dt, the accretion disk,
-the analytic star field, the tonemaps and the step heatmap, packed RGBA
-output -- through two CUDA kernels written for sm_90a (csrc/render_mono.cu,
-trace + shade; csrc/trace_planes.cu, trace into planes for the PyTorch
-shading epilogue), in the fast and the exact math tier, with a plain
-PyTorch version of each beside it. It imports torch and never jax;
-bhr_tpu stays the reference it is tested against.
+It renders bhr_tpu's Schwarzschild, exact Kerr, Lense-Thirring Kerr and
+flat-spacetime frames -- the euler, rk4 and leapfrog integrators, fixed or
+adaptive dt, the accretion disk, the analytic star field, the tonemaps and
+the step heatmap, packed RGBA output -- through two CUDA kernels written
+for sm_90a (csrc/render_mono.cu, trace + shade; csrc/trace_planes.cu,
+trace into planes for the PyTorch shading epilogue), in the fast and the
+exact math tier; and the neural surrogate's frames (integrator "neural",
+the Schwarzschild or Kerr MLP) through a third, csrc/neural_mlp.cu
+(ray-gen, features, the MLP on the tensor cores, rotation and star field in
+one launch), at the default (bf16) or highest (fp32) precision tier, or
+through the staged route ops/neural_trace. A plain PyTorch version stands
+beside each kernel. It imports torch and never jax; bhr_tpu stays the
+reference it is tested against.
 """
 
 from .animation import OrbitAnimator
@@ -22,7 +27,8 @@ from .core.scene import (
     ESCAPE_RADIUS,
     SceneParams,
 )
-from .from_numpy import camera_from_numpy, scene_from_numpy
+from .from_numpy import camera_from_numpy, neural_params_from_numpy, scene_from_numpy
+from .models.neural import NeuralSurrogate
 from .ops.trace import TraceConfig, TraceResult, trace_rays
 from .renderer import BlackHoleRenderer, CudaContext, GpuContext, TpuContext, render_image
 
@@ -38,6 +44,7 @@ __all__ = [
     "DEFAULT_DT",
     "ESCAPE_RADIUS",
     "GpuContext",
+    "NeuralSurrogate",
     "OrbitAnimator",
     "SceneParams",
     "TpuContext",
@@ -46,6 +53,7 @@ __all__ = [
     "camera_from_numpy",
     "cross",
     "generate_rays",
+    "neural_params_from_numpy",
     "normalize",
     "orbit_camera",
     "render_image",

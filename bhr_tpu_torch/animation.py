@@ -4,9 +4,10 @@ angle = t * 0.3 rad/s, radius 15, height 5, looking at the origin).
 
 Where bhr_tpu fuses the frames into one lax.scan, the port renders frame
 by frame into one preallocated (F, H, W) tensor: one monolithic kernel
-launch per frame, or, for a staged configuration, one planes-kernel launch
-into trace planes reused across frames and an epilogue that writes its
-packed words into frames[k]. The cameras and kernel parameters are
+launch per frame (one neural_mlp launch for a neural renderer), or, for a
+staged configuration, one planes-kernel launch into trace planes reused
+across frames (the neural staged route for a neural one) and an epilogue
+that writes its packed words into frames[k]. The cameras and kernel parameters are
 computed on the host and passed by value, and the epilogue's per-frame
 scalars reach the device as fill-kernel arguments, so no frame waits for
 the device. The animation is a pure function of the frame index, so
@@ -47,13 +48,15 @@ class OrbitAnimator:
         disk_params = r.disk_params(scene)
         frames = torch.empty((n_frames, r.height, r.width), dtype=torch.int32, device=r.device)
         planes = None
-        if not monolithic_eligible(r.config, scene, fast_math=r.fast_math, skybox=None,
-                                   disk_params=disk_params, tonemap=r.tonemap):
+        if r.config.integrator != "neural" and not monolithic_eligible(
+                r.config, scene, fast_math=r.fast_math, skybox=None, disk_params=disk_params,
+                tonemap=r.tonemap):
             planes = empty_trace_result(r.height, r.width, r.device)
         for k, t in enumerate(self.frame_times(n_frames, fps, start_frame)):
             cam = orbit_camera(t, radius=self.radius, height=self.height,
                                rotation_speed=self.rotation_speed)
             render_image(cam, scene, config=r.config, fast_math=r.fast_math, device=r.device,
                          tonemap=r.tonemap, seed=r.skybox_seed, packed=True,
-                         disk_params=disk_params, lut=r._lut, out=frames[k], planes=planes)
+                         disk_params=disk_params, lut=r._lut, out=frames[k], planes=planes,
+                         **r.neural_kwargs())
         return frames if packed else unpack_frame(frames)

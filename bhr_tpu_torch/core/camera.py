@@ -8,7 +8,7 @@ import dataclasses
 
 import torch
 
-from .math import cross, dot, normalize, sqrt_rn
+from .math import cross, dot, normalize, on_device, sqrt_rn
 
 _F32 = torch.float32
 
@@ -73,21 +73,24 @@ def generate_rays(
     host, by default), exactly as ops/trace_kernel.build_params computes
     them for the kernel. Every division has a tensor divisor on `device`:
     CUDA turns division by a host scalar into a multiply by its reciprocal,
-    which rounds differently.
+    which rounds differently. Host values reach the device through fill
+    kernels (core/math.on_device), so ray-gen makes the host wait for
+    nothing.
     """
     device = camera.position.device if device is None else torch.device(device)
     fov = torch.as_tensor(fov, dtype=_F32)
     wf = torch.tensor(float(width), dtype=_F32)
     hf = torch.tensor(float(height), dtype=_F32)
-    aspect = (wf / hf).to(device)
-    fov_factor = torch.tan(fov * 0.5).to(device)
+    aspect = on_device(wf / hf, device)
+    fov_factor = on_device(torch.tan(fov * 0.5), device)
     xs = torch.arange(width, dtype=_F32, device=device)
     ys = torch.arange(height, dtype=_F32, device=device)
-    u = (xs / wf.to(device) - 0.5) * 2.0
-    v = (ys / hf.to(device) - 0.5) * -2.0
+    u = (xs / on_device(wf, device) - 0.5) * 2.0
+    v = (ys / on_device(hf, device) - 0.5) * -2.0
     u = u * aspect
     vv, uu = torch.meshgrid(v, u, indexing="ij")  # (H, W)
-    cam = camera.to(device)
+    cam = Camera(*(on_device(getattr(camera, f.name), device)
+                   for f in dataclasses.fields(camera)))
     d = (
         cam.forward
         + cam.right * (uu * fov_factor)[..., None]

@@ -1,0 +1,626 @@
+// Neural-surrogate render kernel for Hopper (sm_90a): N1 (Schwarzschild)
+// and N2 (Kerr) in one source.
+//
+// Replaces bhr_tpu/ops/neural_pallas.py:_build_kernel(emit="frame") (the
+// kernel of `_render`, :135-364), reached there through
+// neural_render_packed. Per pixel: ray-gen from the 32-float parameter
+// struct (the layout of ops/trace_kernel.build_params), the plane basis,
+// 16 features (22 for Kerr) in the order of models/neural.ray_features
+// (models/neural_kerr.ray_features_kerr), the tanh MLP, the envelope, the
+// in-plane rotation by delta (and for Kerr the tilt chi out of the plane),
+// the analytic star field (starfield.cuh), captured rays black, and one
+// packed RGBA word -- the only store to device memory.
+//
+// Layout. A block of `pix` pixels and 256 threads holds two activation
+// buffers and one or two chunks of a layer's weights in shared memory.
+// A layer streams its weights through the chunks, n_chunk output channels
+// at a time, from device memory (L2-resident: the largest net's weights
+// are 0.27 MB in bf16) by cp.async, so a copy needs no register round trip;
+// with two chunk buffers the next chunk's copy overlaps this chunk's
+// products, and the first chunk's copy overlaps the features. The 256-wide
+// nets' two 256 x 256 matrices do not fit in the 227 KB a block may use
+// whole, so they stream. The host picks pix, n_chunk and the buffers so
+// that the block fits (ops/neural_kernel.kernel_plan: any hidden width that
+// is a multiple of 128, up to 1152 in the default tier and 1024 in the
+// fp32 one).
+//
+// Tiers (template parameter HI), the arithmetic of models/neural.py:
+//  * default (HI = false): bf16 operands, fp32 accumulation, by
+//    mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on the tensor
+//    cores, pixels as M, output channels as N, input channels as K (the
+//    Kerr net's 22 features padded with zeros to K = 32, which is exact).
+//    Activations are pixel-major and the weights W^T (out, in), so both
+//    fragments come by ldmatrix; each warp computes 16 pixels x 64
+//    channels at a time; the bias and tanhf are fp32 and the result is
+//    rounded to bf16 for the next layer.
+//  * highest (HI = true): fp32 operands and fmaf on the CUDA cores.
+//    Activations are channel-major and the weights W (in, out), so each
+//    thread reads a float4 of 4 pixels and a float2 of 2 channels a k and
+//    does 8 fmaf; no TF32.
+// The head (2 or 3 outputs) is a per-pixel fmaf loop in both tiers; its
+// output stays fp32. The per-pixel arithmetic around the MLP is written
+// with correctly rounded, uncontracted operations (Arith<false>) and the
+// full-precision tanhf, logf, log1pf, expf, sinf and cosf, in the order of
+// the plain version ops/neural_kernel.neural_render_packed_reference, so
+// that kernel and plain version differ only where the matrix sums are
+// taken in another order. No --use_fast_math.
+//
+// Bound, at 1920x1080 (chip_smoke.py counts it): the MLP's FLOPs over the
+// tensor cores' bf16 peak (default) or the fp32 peak (highest), the
+// per-pixel fp32 operations over the fp32 peak, or the 4 bytes a pixel
+// written over the memory rate, whichever is largest -- the FLOPs, for
+// every committed net. This kernel is still simple: mma.sync rather than
+// wgmma, no TMA, no persistent blocks, every block streams every layer's
+// weights again, and the per-pixel work runs on one thread a pixel.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "starfield.cuh"
+
+namespace bhr {
+
+constexpr int kMaxLayers = 8;
+
+// The MLP as the wrapper prepared it (utils/build.py:MlpDesc), by value.
+struct MlpDesc {
+  int n_layers;
+  int dims[kMaxLayers + 1];  // dims[0]: padded inputs; dims[l + 1]: layer l's outputs
+  int pix;                   // pixels per block
+  int n_chunk;               // output channels per staged weight chunk
+  int nbuf;                  // weight-chunk buffers: 2 overlaps copy and products
+  const void* w[kMaxLayers];   // layer l: W^T (dims[l + 1], dims[l]) bf16, or W fp32
+  const float* b[kMaxLayers];  // layer l: bias (dims[l + 1],), fp32
+};
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
+constexpr float kBcFactor = static_cast<float>(2.598076211);
+// h(p) of models/neural_kerr.bc_factor_kerr, lowest order first
+__constant__ const float kBcPoly[7] = {3.196512167f,  -0.406504577f, -0.102461550f,
+                                       -0.006447487f, 0.033141079f,  -0.081345290f,
+                                       -0.090476836f};
+
+template <bool HI>
+struct Elem;
+
+template <>
+struct Elem<false> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ T from(float x) { return __float2bfloat16_rn(x); }
+  static __device__ __forceinline__ float to(T x) { return __bfloat162float(x); }
+};
+
+template <>
+struct Elem<true> {
+  using T = float;
+  static __device__ __forceinline__ T from(float x) { return x; }
+  static __device__ __forceinline__ float to(T x) { return x; }
+};
+
+__host__ __device__ __forceinline__ int widest(const MlpDesc& m) {
+  int h = 0;
+  for (int l = 0; l < m.n_layers; ++l) h = m.dims[l] > h ? m.dims[l] : h;
+  return h;
+}
+
+// Shared-memory layout. Default tier: activations pixel-major, pix rows of
+// hmax + 8 bf16 (16 bytes of padding: ldmatrix rows land in distinct
+// banks), and each weight chunk n_chunk rows of W^T at the same stride.
+// fp32 tier: activations channel-major, hmax rows of pix + 4 floats (a
+// float4 of 4 pixels a read), and each chunk hmax rows of n_chunk floats.
+template <bool HI>
+__host__ __device__ __forceinline__ int act_stride(int hmax, int pix) {
+  return HI ? pix + 4 : hmax + 8;
+}
+
+template <bool HI>
+__host__ __device__ __forceinline__ int act_rows(int hmax, int pix) {
+  return HI ? hmax : pix;
+}
+
+template <bool HI>
+__host__ __device__ __forceinline__ int chunk_stride(int hmax, int n_chunk) {
+  return HI ? n_chunk : hmax + 8;
+}
+
+template <bool HI>
+__host__ __device__ __forceinline__ int chunk_rows(int hmax, int n_chunk) {
+  return HI ? hmax : n_chunk;
+}
+
+// Two activation buffers and nbuf weight chunks, in bytes.
+template <bool HI>
+__host__ __device__ __forceinline__ int64_t smem_bytes(const MlpDesc& m) {
+  const int h = widest(m);
+  return (2 * static_cast<int64_t>(act_rows<HI>(h, m.pix)) * act_stride<HI>(h, m.pix) +
+          static_cast<int64_t>(m.nbuf) * chunk_rows<HI>(h, m.n_chunk) *
+              chunk_stride<HI>(h, m.n_chunk)) *
+         static_cast<int64_t>(sizeof(typename Elem<HI>::T));
+}
+
+using A = Arith<false>;
+
+// Per-frame constants: the radial unit vector from the hole to the camera.
+struct Frame {
+  float rs, r0, ux, uy, uz, spin;
+};
+
+__device__ __forceinline__ Frame frame_constants(const Params& p) {
+  const Vec3 rel{A::sub(p.v[P_CAM], p.v[P_BH]), A::sub(p.v[P_CAM + 1], p.v[P_BH + 1]),
+                 A::sub(p.v[P_CAM + 2], p.v[P_BH + 2])};
+  const float r0 = A::sqrt(dot<false>(rel, rel));
+  return Frame{p.v[P_RS], r0, A::div(rel.x, r0), A::div(rel.y, r0), A::div(rel.z, r0),
+               p.v[P_SPIN]};
+}
+
+// One pixel's ray in the plane basis, its criticality coordinate (t, or
+// Kerr's xi-shifted tk) and, into `f`, its features.
+struct Geo {
+  float c, s, whx, why, whz, nyp, t_env;
+};
+
+template <bool KERR>
+__device__ __forceinline__ Geo pixel_geometry(const Params& p, const Frame& fr, int row, int col,
+                                              float* f) {
+  // ray-gen, as core/camera.generate_rays, normalised by a correctly
+  // rounded rsqrt as bhr_tpu's kernel does
+  const float u = A::mul(A::mul(A::sub(A::div(static_cast<float>(col), p.v[P_WF]), 0.5f), 2.0f),
+                         p.v[P_ASPECT]);
+  const float v = A::mul(A::sub(A::div(static_cast<float>(row), p.v[P_HF]), 0.5f), -2.0f);
+  const float uf = A::mul(u, p.v[P_FOVF]);
+  const float vf = A::mul(v, p.v[P_FOVF]);
+  Vec3 d;
+  d.x = A::add(A::add(p.v[P_FWD], A::mul(p.v[P_RIGHT], uf)), A::mul(p.v[P_UP], vf));
+  d.y = A::add(A::add(p.v[P_FWD + 1], A::mul(p.v[P_RIGHT + 1], uf)), A::mul(p.v[P_UP + 1], vf));
+  d.z = A::add(A::add(p.v[P_FWD + 2], A::mul(p.v[P_RIGHT + 2], uf)), A::mul(p.v[P_UP + 2], vf));
+  const float inv = A::rsqrt(dot<false>(d, d));
+  d = Vec3{A::mul(d.x, inv), A::mul(d.y, inv), A::mul(d.z, inv)};
+
+  // plane basis (neural_pallas.py:197-208)
+  const float c = dot<false>(d, Vec3{fr.ux, fr.uy, fr.uz});
+  const Vec3 w{A::sub(d.x, A::mul(c, fr.ux)), A::sub(d.y, A::mul(c, fr.uy)),
+               A::sub(d.z, A::mul(c, fr.uz))};
+  const float s_raw = A::sqrt(dot<false>(w, w));
+  const float s_inv = A::div(1.0f, fmaxf(s_raw, 1e-12f));
+  Geo g;
+  g.c = c;
+  g.whx = A::mul(w.x, s_inv);
+  g.why = A::mul(w.y, s_inv);
+  g.whz = A::mul(w.z, s_inv);
+  const float s = fminf(fmaxf(s_raw, 0.0f), 1.0f);
+  g.s = s;
+
+  // features (neural_pallas.py:210-228; models/neural.ray_features)
+  const float rs = fr.rs, r0 = fr.r0;
+  const float r0s = A::mul(r0, s);
+  const float t = A::sub(A::div(r0s, A::mul(kBcFactor, rs)), 1.0f);
+  f[0] = A::div(rs, r0);
+  f[1] = c;
+  f[2] = s;
+  f[3] = fminf(fmaxf(A::div(A::mul(kBcFactor, rs), A::add(r0s, 1e-6f)), 0.0f), 4.0f);
+  f[4] = A::mul(0.25f, rs);
+  f[5] = A::mul(0.25f, logf(r0));
+  f[6] = A::mul(0.2f, logf(A::add(fabsf(t), 1e-3f)));
+  f[7] = tanhf(A::mul(8.0f, t));
+  float sk = s, ck = c;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // double-angle octaves
+    const float s2 = A::mul(A::mul(2.0f, sk), ck);
+    const float c2 = A::sub(A::mul(ck, ck), A::mul(sk, sk));
+    f[8 + 2 * i] = s2;
+    f[9 + 2 * i] = c2;
+    sk = s2;
+    ck = c2;
+  }
+  g.t_env = t;
+  g.nyp = 0.0f;
+  if constexpr (KERR) {
+    // spin block (neural_pallas.py:229-264; models/neural_kerr.py)
+    const float spin = fr.spin;
+    const float nyp = A::sub(A::mul(fr.uz, g.whx), A::mul(fr.ux, g.whz));
+    const float xi = A::mul(spin, nyp);
+    const float pp = -xi;
+    float h = kBcPoly[6];  // c0 + p (c1 + p (c2 + ... + p c6)), innermost first
+#pragma unroll
+    for (int i = 5; i >= 0; --i) h = A::add(kBcPoly[i], A::mul(pp, h));
+    const float bck = A::mul(A::add(2.0f, A::mul(A::sqrt(fmaxf(A::add(1.0f, xi), 0.0f)), h)), 0.5f);
+    const float red = A::sqrt(fmaxf(A::sub(1.0f, A::div(rs, r0)), 0.04f));
+    const float tk = A::sub(A::div(r0s, A::mul(A::mul(bck, rs), red)), 1.0f);
+    f[16] = spin;
+    f[17] = xi;
+    f[18] = A::mul(spin, fr.uy);
+    f[19] = A::mul(spin, g.why);
+    f[20] = A::mul(0.2f, logf(A::add(fabsf(tk), 1e-3f)));
+    f[21] = tanhf(A::mul(8.0f, tk));
+    g.t_env = tk;
+    g.nyp = nyp;
+  }
+  return g;
+}
+
+// D += A B for one m16n8k16 tile: bf16 operands, fp32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of each, the mma fragment layout.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// 16 bytes from device memory into shared memory without a register round
+// trip (cp.async); completion is awaited with cp_async_wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most `pending` (0 or 1) committed groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending) {
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  }
+}
+
+// The default tier's chunk: out[:, n0 : n0 + n_chunk] =
+// bf16(tanh(in @ W^T[n0 : n0 + n_chunk]^T + b)), with the chunk's W^T rows
+// (n_chunk x k_in) in `wsm` and activations pixel-major (pix x ld). Warps
+// take items of 16 pixels x 64 channels; fragments come by ldmatrix: A
+// rows g and g + 8, columns 2t, 2t + 1 (+ 8); B column g, rows 2t, 2t + 1
+// (+ 8); C rows g and g + 8, columns 2t, 2t + 1, for lane (g, t) =
+// (lane / 4, lane % 4).
+__device__ __forceinline__ void hidden_chunk_mma(const __nv_bfloat16* __restrict__ in,
+                                                 const __nv_bfloat16* __restrict__ wsm,
+                                                 __nv_bfloat16* __restrict__ out,
+                                                 const float* __restrict__ bias, int ld, int k_in,
+                                                 int n0, int n_chunk, int pix) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_sub = n_chunk / 64;
+  const int items = (pix / 16) * n_sub;
+  // this lane's ldmatrix rows: A matrices (rows +0/+8) x (k +0/+8), B
+  // matrices (k +0/+8) x (channels +0/+8)
+  const int a_row = lane % 8 + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
+  const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;
+  for (int item = warp; item < items; item += kThreads / 32) {
+    const int m0 = (item / n_sub) * 16;
+    const int nn = (item % n_sub) * 64;
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    const __nv_bfloat16* a_base = in + (m0 + a_row) * ld + a_col;
+    const __nv_bfloat16* b_base = wsm + (nn + b_row) * ld + b_col;
+    // the fragments of k-step k0; b[jj] holds n-tiles 2 jj and 2 jj + 1
+    auto load = [&](int k0, uint32_t(&a)[4], uint32_t(&b)[4][4]) {
+      ldmatrix_x4(a, a_base + k0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) ldmatrix_x4(b[jj], b_base + 16 * jj * ld + k0);
+    };
+    auto mmas = [&](const uint32_t(&a)[4], const uint32_t(&b)[4][4]) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        mma_bf16(acc[2 * jj], a, b[jj][0], b[jj][1]);
+        mma_bf16(acc[2 * jj + 1], a, b[jj][2], b[jj][3]);
+      }
+    };
+    // two register stages: the next k-step's fragments load while this
+    // one's products run
+    uint32_t a0[4], b0[4][4], a1[4], b1[4][4];
+    load(0, a0, b0);
+    int k0 = 0;
+    for (; k0 + 32 <= k_in; k0 += 32) {
+      load(k0 + 16, a1, b1);
+      mmas(a0, b0);
+      if (k0 + 32 < k_in) load(k0 + 32, a0, b0);
+      mmas(a1, b1);
+    }
+    if (k0 < k_in) mmas(a0, b0);  // an odd count of k-steps: the last is in stage 0
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + nn + 8 * j + 2 * t;
+      const float b0 = bias[n], b1 = bias[n + 1];
+      *reinterpret_cast<__nv_bfloat162*>(out + (m0 + g) * ld + n) =
+          __floats2bfloat162_rn(tanhf(acc[j][0] + b0), tanhf(acc[j][1] + b1));
+      *reinterpret_cast<__nv_bfloat162*>(out + (m0 + g + 8) * ld + n) =
+          __floats2bfloat162_rn(tanhf(acc[j][2] + b0), tanhf(acc[j][3] + b1));
+    }
+  }
+}
+
+// The fp32 tier's chunk, channel-major: in (k_in x ld), the chunk's rows of
+// W (k_in x n_chunk) in `wsm`, out (n x ld). Each thread computes 4 pixels
+// x 2 channels from one float4 and one float2 a k, with fmaf over k in order.
+__device__ __forceinline__ void hidden_chunk_fp32(const float* __restrict__ in,
+                                                  const float* __restrict__ wsm,
+                                                  float* __restrict__ out,
+                                                  const float* __restrict__ bias, int ld, int k_in,
+                                                  int n0, int n_chunk, int pix) {
+  const int nc2 = n_chunk / 2, p4 = pix / 4;
+  for (int item = threadIdx.x; item < p4 * nc2; item += kThreads) {
+    const int tx = item % nc2, ty = item / nc2;
+    float acc[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.0f;
+    const float* a_col = in + 4 * ty;
+    const float* w_col = wsm + 2 * tx;
+#pragma unroll 8
+    for (int k = 0; k < k_in; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(a_col + k * ld);
+      const float2 w = *reinterpret_cast<const float2*>(w_col + k * n_chunk);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] = fmaf(av[i], w.x, acc[i][0]);
+        acc[i][1] = fmaf(av[i], w.y, acc[i][1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + 2 * tx + j;
+      const float b = bias[n];
+      *reinterpret_cast<float4*>(out + n * ld + 4 * ty) =
+          make_float4(tanhf(acc[0][j] + b), tanhf(acc[1][j] + b), tanhf(acc[2][j] + b),
+                      tanhf(acc[3][j] + b));
+    }
+  }
+}
+
+// Start the copy of one weight chunk (output channels [n0, n0 + n_chunk) of
+// layer l) into `wsm`: the default tier's W^T rows (n_chunk x k_in, row
+// stride ld), the fp32 tier's W columns (k_in x n_chunk).
+template <bool HI>
+__device__ __forceinline__ void stage_chunk(const MlpDesc& m, int l, int n0,
+                                            typename Elem<HI>::T* __restrict__ wsm, int ld) {
+  using T = typename Elem<HI>::T;
+  constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte copy moves
+  const int k_in = m.dims[l];
+  const T* w = static_cast<const T*>(m.w[l]);
+  if constexpr (HI) {
+    const int n_out = m.dims[l + 1], vecs = m.n_chunk / kVec;
+    for (int i = threadIdx.x; i < k_in * vecs; i += kThreads) {
+      const int k = i / vecs, v = i % vecs;
+      cp_async16(wsm + k * m.n_chunk + v * kVec, w + static_cast<int64_t>(k) * n_out + n0 + v * kVec);
+    }
+  } else {
+    const int vecs = k_in / kVec;
+    for (int i = threadIdx.x; i < m.n_chunk * vecs; i += kThreads) {
+      const int r = i / vecs, v = i % vecs;
+      cp_async16(wsm + r * ld + v * kVec, w + static_cast<int64_t>(n0 + r) * k_in + v * kVec);
+    }
+  }
+  cp_async_commit();
+}
+
+// The hidden layers' weight chunks in order: step s -> (layer, first channel).
+__device__ __forceinline__ void chunk_of(const MlpDesc& m, int s, int& l, int& n0) {
+  l = 0;
+  while (s >= m.dims[l + 1] / m.n_chunk) {
+    s -= m.dims[l + 1] / m.n_chunk;
+    ++l;
+  }
+  n0 = s * m.n_chunk;
+}
+
+template <bool KERR, bool HI>
+__global__ void __launch_bounds__(kThreads)
+    neural_render_kernel(const Params p, const uint32_t seed_term, const int height,
+                         const int width, const MlpDesc mlp, uint32_t* __restrict__ frame) {
+  using E = Elem<HI>;
+  using T = typename E::T;
+  constexpr int kFeats = KERR ? 22 : 16;
+  constexpr int kOut = KERR ? 3 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pix = mlp.pix;
+  // activations: pixel-major (pix x ld) in the default tier, channel-major
+  // (H x ld) in the fp32 one; weight chunks after them
+  const int hmax = widest(mlp);
+  const int ld = act_stride<HI>(hmax, pix);
+  const int act_elems = act_rows<HI>(hmax, pix) * ld;
+  const int chunk_elems = chunk_rows<HI>(hmax, mlp.n_chunk) * chunk_stride<HI>(hmax, mlp.n_chunk);
+  T* act = reinterpret_cast<T*>(smem);
+  T* act2 = act + act_elems;
+  T* wbuf = act2 + act_elems;
+  const int64_t n_pixels = static_cast<int64_t>(height) * width;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * pix;
+  const Frame fr = frame_constants(p);
+  int steps = 0;
+  for (int l = 0; l + 1 < mlp.n_layers; ++l) steps += mlp.dims[l + 1] / mlp.n_chunk;
+
+  // the first weight chunk streams in while the features are computed
+  stage_chunk<HI>(mlp, 0, 0, wbuf, ld);
+
+  // 1. features, rounded to the tier's operand type; padding and pixels
+  // past the frame's end are zeros
+  for (int i = threadIdx.x; i < pix; i += kThreads) {
+    const int64_t id = first + i;
+    float f[kFeats];
+    if (id < n_pixels) {
+      pixel_geometry<KERR>(p, fr, static_cast<int>(id / width), static_cast<int>(id % width), f);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kFeats; ++k) f[k] = 0.0f;
+    }
+    const int step = HI ? ld : 1;
+    T* x = HI ? act + i : act + i * ld;
+#pragma unroll
+    for (int k = 0; k < kFeats; ++k) x[k * step] = E::from(f[k]);
+    for (int k = kFeats; k < mlp.dims[0]; ++k) x[k * step] = E::from(0.0f);
+  }
+
+  // 2. the hidden layers, weights streamed n_chunk output channels at a
+  // time; with two chunk buffers the next chunk's copy overlaps this one's
+  // products
+  for (int s = 0; s < steps; ++s) {
+    int l, n0;
+    chunk_of(mlp, s, l, n0);
+    T* wsm = wbuf + (mlp.nbuf == 2 ? (s % 2) * chunk_elems : 0);
+    if (mlp.nbuf == 2 && s + 1 < steps) {
+      int l1, n1;
+      chunk_of(mlp, s + 1, l1, n1);
+      stage_chunk<HI>(mlp, l1, n1, wbuf + ((s + 1) % 2) * chunk_elems, ld);
+      cp_async_wait(1);
+    } else {
+      cp_async_wait(0);
+    }
+    __syncthreads();  // this chunk, and the layer's input, are in place
+    if constexpr (HI) {
+      hidden_chunk_fp32(act, wsm, act2, mlp.b[l], ld, mlp.dims[l], n0, mlp.n_chunk, pix);
+    } else {
+      hidden_chunk_mma(act, wsm, act2, mlp.b[l], ld, mlp.dims[l], n0, mlp.n_chunk, pix);
+    }
+    __syncthreads();  // every warp is done with this chunk and this input
+    if (n0 + mlp.n_chunk == mlp.dims[l + 1]) {
+      T* tmp = act;
+      act = act2;
+      act2 = tmp;
+    }
+    if (mlp.nbuf == 1 && s + 1 < steps) {
+      int l1, n1;
+      chunk_of(mlp, s + 1, l1, n1);
+      stage_chunk<HI>(mlp, l1, n1, wbuf, ld);
+    }
+  }
+
+  // 3. the head, the envelope, the rotation, the star field, the packed word
+  const int lh = mlp.n_layers - 1;
+  const int k_head = mlp.dims[lh];
+  const T* wh = static_cast<const T*>(mlp.w[lh]);
+  for (int i = threadIdx.x; i < pix; i += kThreads) {
+    const int64_t id = first + i;
+    if (id >= n_pixels) continue;
+    const int step = HI ? ld : 1;
+    const T* h = HI ? act + i : act + i * ld;
+    float head[kOut];
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) {
+      // W^T (n_out, K) in the default tier, W (K, n_out) in the fp32 one
+      const T* w = HI ? wh + o : wh + o * k_head;
+      const int w_step = HI ? kOut : 1;
+      float acc = 0.0f;
+      for (int k = 0; k < k_head; ++k) acc = fmaf(E::to(h[k * step]), E::to(w[k * w_step]), acc);
+      head[o] = acc + mlp.b[lh][o];
+    }
+    float f[kFeats];
+    const Geo g =
+        pixel_geometry<KERR>(p, fr, static_cast<int>(id / width), static_cast<int>(id % width), f);
+    const float c = g.c, s = g.s;
+    // envelope (neural_pallas.py:306-311): (rs/r0) s (1/4 + log1p(1 / (|t| + 0.02)) sigmoid(-8c))
+    const float sig = A::div(1.0f, A::add(1.0f, expf(-A::mul(-8.0f, c))));
+    const float spike = A::mul(log1pf(A::div(1.0f, A::add(fabsf(g.t_env), 2e-2f))), sig);
+    const float e_d = A::mul(A::mul(A::div(fr.rs, fr.r0), s), A::add(0.25f, spike));
+    const float delta = A::mul(head[0], e_d);
+    const float cd = cosf(delta), sd = sinf(delta);
+    const float cos_phi = A::sub(A::mul(c, cd), A::mul(s, sd));
+    const float sin_phi = A::add(A::mul(s, cd), A::mul(c, sd));
+    Vec3 v;
+    if constexpr (KERR) {
+      // the frame-dragging tilt out of the plane (neural_pallas.py:318-330)
+      const float chi = A::mul(head[1], A::mul(e_d, A::add(fabsf(fr.spin), 1e-3f)));
+      const float cc = cosf(chi), sc = sinf(chi);
+      const float nxp = A::sub(A::mul(fr.uy, g.whz), A::mul(fr.uz, g.why));
+      const float nzp = A::sub(A::mul(fr.ux, g.why), A::mul(fr.uy, g.whx));
+      const float a = A::mul(cc, cos_phi), b = A::mul(cc, sin_phi);
+      v.x = A::add(A::add(A::mul(a, fr.ux), A::mul(b, g.whx)), A::mul(sc, nxp));
+      v.y = A::add(A::add(A::mul(a, fr.uy), A::mul(b, g.why)), A::mul(sc, g.nyp));
+      v.z = A::add(A::add(A::mul(a, fr.uz), A::mul(b, g.whz)), A::mul(sc, nzp));
+    } else {
+      v.x = A::add(A::mul(cos_phi, fr.ux), A::mul(sin_phi, g.whx));
+      v.y = A::add(A::mul(cos_phi, fr.uy), A::mul(sin_phi, g.why));
+      v.z = A::add(A::mul(cos_phi, fr.uz), A::mul(sin_phi, g.whz));
+    }
+    const float vinv = A::rsqrt(dot<false>(v, v));
+    v = Vec3{A::mul(v.x, vinv), A::mul(v.y, vinv), A::mul(v.z, vinv)};
+    float r, gg, b;
+    procedural_background<false>(v, seed_term, r, gg, b);
+    const float live = head[kOut - 1] <= 0.0f ? 1.0f : 0.0f;  // logit > 0: captured, black
+    frame[id] = quantize_half_up_rn(r, live) | (quantize_half_up_rn(gg, live) << 8) |
+                (quantize_half_up_rn(b, live) << 16) | 0xFF000000u;
+  }
+}
+
+template <bool KERR, bool HI>
+int launch(const Params& p, uint32_t seed_term, int height, int width, const MlpDesc& mlp,
+           uint32_t* frame, cudaStream_t s) {
+  const int64_t smem = smem_bytes<HI>(mlp);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = neural_render_kernel<KERR, HI>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_pixels = static_cast<int64_t>(height) * width;
+  const unsigned blocks = static_cast<unsigned>((n_pixels + mlp.pix - 1) / mlp.pix);
+  kernel<<<blocks, kThreads, static_cast<size_t>(smem), s>>>(p, seed_term, height, width, mlp,
+                                                              frame);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shapes the kernel takes: 2..kMaxLayers layers; inputs padded to a
+// multiple of 16 that holds the model's features; hidden widths that
+// n_chunk divides (a multiple of 64 in the default tier, of 4 in the fp32
+// one); the model's head; pix a multiple of 16 (default) or 4 (fp32); one
+// or two weight-chunk buffers.
+bool shapes_ok(const MlpDesc& m, bool kerr, bool hi) {
+  if (m.n_layers < 2 || m.n_layers > kMaxLayers) return false;
+  if (m.dims[0] % 16 != 0 || m.dims[0] < (kerr ? 22 : 16)) return false;
+  if (m.dims[m.n_layers] != (kerr ? 3 : 2)) return false;
+  if (m.pix <= 0 || m.pix % (hi ? 4 : 16) != 0) return false;
+  if (m.n_chunk <= 0 || m.n_chunk % (hi ? 4 : 64) != 0) return false;
+  if (m.nbuf != 1 && m.nbuf != 2) return false;
+  for (int l = 1; l < m.n_layers; ++l) {
+    if (m.dims[l] % m.n_chunk != 0 || m.dims[l] % 16 != 0) return false;
+  }
+  for (int l = 0; l < m.n_layers; ++l) {
+    if (m.w[l] == nullptr || m.b[l] == nullptr) return false;
+  }
+  return true;
+}
+
+}  // namespace
+}  // namespace bhr
+
+// C entry point, bound with ctypes by bhr_tpu_torch/utils/build.py.
+// Renders one neural frame on `stream` into `out`, a contiguous (height,
+// width) array of 32-bit words on `device`, and returns cudaGetLastError()
+// after the launch (0 on success; cudaErrorInvalidValue for shapes the
+// kernel does not take). Does not synchronise. `kerr` selects N2 (22
+// features, 3 heads) over N1, `highest` the fp32 tier over the bf16 one.
+extern "C" int bhr_neural_render(bhr::Params params, uint32_t seed_term, int kerr, int highest,
+                                 int height, int width, bhr::MlpDesc mlp, int device, void* out,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!bhr::shapes_ok(mlp, kerr != 0, highest != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (height <= 0 || width <= 0) return 0;
+  auto* frame = static_cast<uint32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (kerr && highest) return bhr::launch<true, true>(params, seed_term, height, width, mlp, frame, s);
+  if (kerr) return bhr::launch<true, false>(params, seed_term, height, width, mlp, frame, s);
+  if (highest) return bhr::launch<false, true>(params, seed_term, height, width, mlp, frame, s);
+  return bhr::launch<false, false>(params, seed_term, height, width, mlp, frame, s);
+}
+
+extern "C" const char* bhr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,5 +1,6 @@
-"""Build the port's data model from numpy arrays, so one scene can feed
-both bhr_tpu and bhr_tpu_torch (pass np.asarray of each JAX field)."""
+"""Build the port's data model from numpy arrays, so one scene (or one
+set of surrogate weights) can feed both bhr_tpu and bhr_tpu_torch (pass
+np.asarray of each JAX field)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 
 from .core.camera import Camera
 from .core.scene import DEBUG_NONE, SceneParams
+from .models.neural import NeuralSurrogate
 
 
 def _f32(x) -> torch.Tensor:
@@ -33,3 +35,11 @@ def scene_from_numpy(black_hole_position, schwarzschild_radius, fov, spin, scree
         max_steps=int(max_steps),
         debug_mode=int(debug_mode),
     )
+
+
+def neural_params_from_numpy(params) -> NeuralSurrogate:
+    """A NeuralSurrogate from bhr_tpu's tuple of (W, b) surrogate weights
+    (np.asarray of each), so that both packages compute with the same fp32
+    weights."""
+    return NeuralSurrogate((np.asarray(w, np.float32), np.asarray(b, np.float32))
+                           for w, b in params)

@@ -1,0 +1,313 @@
+"""The neural surrogate's CUDA kernel, its wrapper and its plain PyTorch
+version (PyTorch port of bhr_tpu/ops/neural_pallas.py).
+
+`neural_render_packed` wraps csrc/neural_mlp.cu, which replaces
+`_build_kernel(emit="frame")` for the Schwarzschild net (N1) and the Kerr
+net (N2): ray-gen, features, the tanh MLP, envelope, rotation, star field
+and the packed word in one launch per frame. `neural_render_packed_reference`
+is its plain version: the same per-pixel arithmetic in the same order
+(bhr_tpu's kernel's: an rsqrt-normalised ray, the tangent scaled by
+1 / max(s, 1e-12), capture where the logit is positive, round-half-up),
+with the matrix chain through models/neural.mlp_apply. The wrapper runs the
+plain version for a CPU device; for a CUDA device it launches the kernel or
+raises -- it never falls back.
+
+The kernel computes the ``default`` tier (bf16 operands, fp32
+accumulation, on the tensor cores) and the ``highest`` one (fp32 on the
+CUDA cores); models/neural.py says what each means. The renderer sends it
+the nets bhr_tpu sends its kernel (`kernel_takes`: hidden widths that are
+multiples of 128); the kernel holds those of at most 8 layers up to what a
+block's shared memory holds (`kernel_plan`: widths up to 1152 in the
+default tier, 1024 in the highest) and raises for any other.
+The texture variant (N3, item 10) and the row-band variant (N4, item 15)
+are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.camera import Camera
+from ..core.math import rsqrt, sqrt_rn
+from ..core.scene import SceneParams
+from ..models.neural import (
+    _BC_FACTOR,
+    NeuralSurrogate,
+    envelope,
+    fourier_octaves,
+    mlp_apply,
+    rotate_in_plane,
+)
+from ..models.neural_kerr import criticality_kerr
+from .sampling import pack_rgba8_planes
+from .starfield import procedural_background, seed_term
+from ..utils.build import MAX_LAYERS, MlpDesc
+from .trace import TraceConfig
+from .trace_kernel import (
+    _P_ASPECT,
+    _P_BH,
+    _P_CAM,
+    _P_FOVF,
+    _P_FWD,
+    _P_HF,
+    _P_RIGHT,
+    _P_RS,
+    _P_SPIN,
+    _P_UP,
+    _P_WF,
+    _check_out,
+    _kernel_device,
+    _kernel_params,
+    _raise_on_error,
+    build_params,
+)
+
+# Kernel launches so far in this process: incremented by `neural_render_packed`
+# right after a successful launch of csrc/neural_mlp.cu, and nowhere else.
+NEURAL_LAUNCHES = 0
+
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use (sm_90)
+KERNEL_TIERS = ("default", "highest")
+# Pixels per block and output channels per staged weight chunk, tried
+# largest first, with two chunk buffers before one: the default tier's mma
+# items are 16 pixels x 64 channels, the fp32 tier's thread tiles 4 x 2.
+_PIX = {"default": (128, 64, 32, 16), "highest": (64, 32, 16)}
+_CHUNK = {"default": (64,), "highest": (32, 16)}
+
+
+def as_surrogate(params) -> NeuralSurrogate:
+    """`params` as a NeuralSurrogate: itself, or one built from (W, b) pairs."""
+    return params if isinstance(params, NeuralSurrogate) else NeuralSurrogate(params)
+
+
+def kernel_tier(precision) -> str:
+    """The kernel's tier for `precision` (None is "default"); raises for
+    "high", which bhr_tpu sends to its staged path."""
+    precision = "default" if precision is None else precision
+    if precision not in KERNEL_TIERS:
+        raise ValueError(f"the neural kernel computes the {KERNEL_TIERS} tiers, not "
+                         f"{precision!r}; render it through ops/neural_trace (the renderer "
+                         "routes it there)")
+    return precision
+
+
+def padded_inputs(n_in: int) -> int:
+    """The first layer's input width padded with zeros to a multiple of 16
+    (the mma's K): 16 for the Schwarzschild net, 32 for Kerr's 22."""
+    return -(-n_in // 16) * 16
+
+
+def smem_bytes(hmax: int, pix: int, n_chunk: int, nbuf: int, precision: str) -> int:
+    """Shared memory of a block, as csrc/neural_mlp.cu:smem_bytes counts it:
+    two activation buffers and `nbuf` weight chunks. Default tier: pix rows
+    of hmax + 8 bf16, chunks of n_chunk rows of W^T at that stride; fp32
+    tier: hmax rows of pix + 4 floats, chunks of hmax rows of n_chunk."""
+    if kernel_tier(precision) == "highest":
+        return (2 * hmax * (pix + 4) + nbuf * hmax * n_chunk) * 4
+    return (2 * pix + nbuf * n_chunk) * (hmax + 8) * 2
+
+
+def kernel_shapes_ok(params) -> bool:
+    """bhr_tpu's `neural_shapes_ok` (bhr_tpu/renderer.py:169-183): at
+    least 2 layers, the Schwarzschild (16 in, 2 out) or Kerr (22 in, 3 out)
+    shapes, and hidden widths that are multiples of 128."""
+    layers = list(params)
+    return (len(layers) >= 2
+            and (layers[0][0].shape[0], layers[-1][0].shape[1]) in ((16, 2), (22, 3))
+            and all(w.shape[1] % 128 == 0 for w, _ in layers[:-1]))
+
+
+def kernel_plan(params, precision) -> tuple[int, int, int] | None:
+    """(pixels per block, channels per weight chunk, chunk buffers) for this
+    net and tier, or None when no block of the kernel holds it: a net that
+    `kernel_shapes_ok` refuses, more than MAX_LAYERS layers, or a widest
+    layer for which no block fits in shared memory (`smem_bytes`; widths up
+    to 1152 fit in the default tier, 1024 in the fp32 one)."""
+    if not kernel_shapes_ok(params) or len(params) > MAX_LAYERS:
+        return None
+    params = as_surrogate(params)
+    precision = kernel_tier(precision)
+    hmax = max(padded_inputs(params[0][0].shape[0]), *params.widths)
+    for pix in _PIX[precision]:
+        for nc in _CHUNK[precision]:
+            for nbuf in (2, 1):
+                if smem_bytes(hmax, pix, nc, nbuf, precision) <= SMEM_LIMIT:
+                    return pix, nc, nbuf
+    return None
+
+
+def kernel_takes(params, scene: SceneParams, *, tonemap: str, precision) -> bool:
+    """True where bhr_tpu takes its kernel (bhr_tpu/renderer.py:166-192):
+    the analytic star field (the caller has no skybox), the passthrough
+    tonemap, no debug view, the default or highest tier and a net that
+    `kernel_shapes_ok` takes. `neural_render_packed` raises for such a net
+    when `kernel_plan` finds no block for it; the frame never goes to the
+    staged route instead."""
+    return (tonemap == "passthrough" and scene.debug_mode == 0 and precision in KERNEL_TIERS
+            and kernel_shapes_ok(params))
+
+
+def prep_weights(params, *, precision, device) -> tuple:
+    """The kernel's operands (bhr_tpu/ops/neural_pallas.py:85-107 without
+    the TPU's pads), contiguous on `device`: per layer the weights with the
+    first layer's inputs zero-padded to `padded_inputs`, and the bias in
+    fp32. ``default``: W^T (out, in) in bf16, the mma's B operand;
+    ``highest``: W (in, out) in fp32, read a row of output channels at a
+    time."""
+    highest = kernel_tier(precision) == "highest"
+    ops = []
+    for i, (w, b) in enumerate(as_surrogate(params)):
+        w = w.to(device=device, dtype=torch.float32)
+        if i == 0:
+            w = torch.nn.functional.pad(w, (0, 0, 0, padded_inputs(w.shape[0]) - w.shape[0]))
+        w = w if highest else w.t().to(torch.bfloat16)
+        ops.append((w.contiguous(), b.to(device=device, dtype=torch.float32).contiguous()))
+    return tuple(ops)
+
+
+def _mlp_desc(params: NeuralSurrogate, precision: str, device: torch.device, plan):
+    """The kernel's MlpDesc for `params`, with its operands, kept on the
+    module per tier and device (their pointers are in the descriptor) and
+    prepared again once a weight or bias has changed: another tensor, or
+    an in-place write such as load_state_dict's."""
+    key = (precision, str(device))
+    stamp = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+                  for t in params.buffers())
+    held = params._kernel_operands.get(key)
+    if held is None or held[0] != stamp:
+        ops = prep_weights(params, precision=precision, device=device)
+        desc = MlpDesc()
+        desc.n_layers = len(ops)
+        for i, (w, b) in enumerate(ops):
+            desc.dims[i] = params[i][0].shape[0] if i else padded_inputs(params[0][0].shape[0])
+            desc.w[i] = w.data_ptr()
+            desc.b[i] = b.data_ptr()
+        desc.dims[len(ops)] = params[-1][0].shape[1]
+        desc.pix, desc.n_chunk, desc.nbuf = plan
+        params._kernel_operands[key] = held = (stamp, ops, desc)
+    return held[2]
+
+
+def neural_render_packed_reference(params, camera: Camera, scene: SceneParams, *,
+                                   seed: int = 2020, precision="default",
+                                   device) -> torch.Tensor:
+    """The kernel's plain PyTorch version, on any device -> packed int32
+    (H, W): bhr_tpu/ops/neural_pallas.py:155-362 operation for operation,
+    with the MLP through mlp_apply at `precision`."""
+    params = as_surrogate(params)
+    precision = kernel_tier(precision)
+    device = torch.device(device)
+    kerr = params.model == "kerr"
+    f32 = torch.float32
+    p = build_params(camera, scene, TraceConfig()).to(device)
+    cam, fwd, right, up, bh = (p[i:i + 3] for i in (_P_CAM, _P_FWD, _P_RIGHT, _P_UP, _P_BH))
+    rs, fovf, spin = p[_P_RS], p[_P_FOVF], p[_P_SPIN]
+    h, w = scene.screen_height, scene.screen_width
+
+    # ray-gen (core/camera.generate_rays), normalised by rsqrt
+    u = (torch.arange(w, dtype=f32, device=device)[None, :] / p[_P_WF] - 0.5) * 2.0 * p[_P_ASPECT]
+    v = (torch.arange(h, dtype=f32, device=device)[:, None] / p[_P_HF] - 0.5) * -2.0
+    uf, vf = u * fovf, v * fovf
+    d = [fwd[i] + right[i] * uf + up[i] * vf for i in range(3)]
+    inv = rsqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    dx, dy, dz = (di * inv for di in d)
+
+    # plane basis: u_hat is a per-frame constant
+    rel = [cam[i] - bh[i] for i in range(3)]
+    r0 = sqrt_rn(rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2])
+    ux, uy, uz = (ri / r0 for ri in rel)
+    c = dx * ux + dy * uy + dz * uz
+    wx, wy, wz = dx - c * ux, dy - c * uy, dz - c * uz
+    s_raw = sqrt_rn(wx * wx + wy * wy + wz * wz)
+    s_inv = 1.0 / torch.clamp_min(s_raw, 1e-12)
+    whx, why, whz = wx * s_inv, wy * s_inv, wz * s_inv
+    s = torch.clamp(s_raw, 0.0, 1.0)
+
+    # features (models/neural.ray_features; the Kerr spin block)
+    ones = torch.ones_like(c)
+    r0s = r0 * s
+    t = r0s / (_BC_FACTOR * rs) - 1.0
+    feats = [(rs / r0) * ones, c, s, torch.clamp(_BC_FACTOR * rs / (r0s + 1e-6), 0.0, 4.0),
+             (0.25 * rs) * ones, (0.25 * torch.log(r0)) * ones,
+             0.2 * torch.log(torch.abs(t) + 1e-3), torch.tanh(8.0 * t), *fourier_octaves(c, s)]
+    if kerr:
+        nyp = uz * whx - ux * whz
+        xi = spin * nyp
+        t = criticality_kerr(r0, rs, s, xi)  # the envelope's coordinate is tk
+        feats += [spin * ones, xi, (spin * uy) * ones, spin * why,
+                  0.2 * torch.log(torch.abs(t) + 1e-3), torch.tanh(8.0 * t)]
+    weights = [(wi.to(device), bi.to(device)) for wi, bi in params]
+    out = mlp_apply(weights, torch.stack(feats, dim=-1).reshape(h * w, -1),
+                    precision=precision).reshape(h, w, -1)
+
+    # envelope, rotation by delta (and the tilt chi), renormalisation
+    e_d = envelope(r0, rs, s, c, t)
+    cos_phi, sin_phi = rotate_in_plane(c, s, out[..., 0] * e_d)
+    if kerr:
+        chi = out[..., 1] * (e_d * (torch.abs(spin) + 1e-3))
+        cc, sc = torch.cos(chi), torch.sin(chi)
+        nxp = uy * whz - uz * why
+        nzp = ux * why - uy * whx
+        a, b = cc * cos_phi, cc * sin_phi
+        vx = a * ux + b * whx + sc * nxp
+        vy = a * uy + b * why + sc * nyp
+        vz = a * uz + b * whz + sc * nzp
+    else:
+        vx = cos_phi * ux + sin_phi * whx
+        vy = cos_phi * uy + sin_phi * why
+        vz = cos_phi * uz + sin_phi * whz
+    vinv = rsqrt(vx * vx + vy * vy + vz * vz)
+    r_, g_, b_ = procedural_background(vx * vinv, vy * vinv, vz * vinv, seed=seed)
+    live = (out[..., -1] <= 0.0).to(f32)  # a positive logit is captured: black
+    return pack_rgba8_planes(r_ * live, g_ * live, b_ * live, half_up=True)
+
+
+def neural_render_packed(params, camera: Camera, scene: SceneParams, *, seed: int = 2020,
+                         precision="default", device,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """One neural frame as a single kernel launch -> packed int32 (H, W)
+    (bhr_tpu/ops/neural_pallas.py:421-461).
+
+    `params` is a NeuralSurrogate (Schwarzschild or Kerr by its shapes; the
+    Kerr spin comes from the scene) or a sequence of (W, b); `precision`
+    is "default" (or None) or "highest". On a CPU device this is
+    `neural_render_packed_reference`. On a CUDA device it launches
+    csrc/neural_mlp.cu on the current stream, without a host sync (the
+    weights are prepared on the device at the first call and kept on the
+    module), and raises when CUDA is not available or the launch fails. On
+    either device it raises for a net that `kernel_plan` finds no block
+    for. `out`, if given, is a contiguous int32 (H, W) tensor on `device`
+    that receives the frame.
+    """
+    global NEURAL_LAUNCHES
+    params = as_surrogate(params)
+    precision = kernel_tier(precision)
+    plan = kernel_plan(params, precision)
+    if plan is None:
+        raise ValueError(f"the neural kernel has no block for a net of {len(params)} layers and "
+                         f"hidden widths {params.widths} at precision {precision!r}: it takes up "
+                         f"to {MAX_LAYERS} layers of widths that are multiples of 128, up to "
+                         "1152 (default) or 1024 (highest) (see kernel_plan)")
+    device = _kernel_device(device, "neural_render_packed")
+    shape = (scene.screen_height, scene.screen_width)
+    if out is not None:
+        _check_out(out, shape, torch.int32, device, "out")
+    if device.type == "cpu":
+        frame = neural_render_packed_reference(params, camera, scene, seed=seed,
+                                               precision=precision, device=device)
+        return frame if out is None else out.copy_(frame)
+    from ..utils.build import load_neural_mlp
+
+    lib = load_neural_mlp()
+    desc = _mlp_desc(params, precision, device, plan)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.bhr_neural_render(
+        _kernel_params(camera, scene, TraceConfig()), seed_term(seed),
+        int(params.model == "kerr"), int(precision == "highest"), shape[0], shape[1], desc,
+        device.index, out.data_ptr(), stream,
+    )
+    _raise_on_error(lib, rc, "neural_render launch")
+    NEURAL_LAUNCHES += 1
+    return out

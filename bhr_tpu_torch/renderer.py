@@ -16,25 +16,34 @@ exact math tier. A frame that the monolithic kernel can produce goes to it
 (csrc/render_mono.cu); every other one is traced by the planes kernel
 (csrc/trace_planes.cu) and shaded by the plain PyTorch epilogue
 `shade_image` on the device, as bhr_tpu/renderer.py:render_image routes
-them. On the CPU each kernel's plain PyTorch version stands in. Plugin
-physics, texture skyboxes, the neural surrogate and multires raise
-NotImplementedError naming the ROADMAP item (queue A) that brings them. The TPU tuning
-arguments of bhr_tpu (tile, kernel_knobs, use_pallas, interpret) have no
-counterpart here.
+them. The neural surrogate (integrator "neural", model schwarzschild or
+kerr) renders a frame with the analytic star field, the passthrough
+tonemap and no debug view at the default or highest precision tier in one
+csrc/neural_mlp.cu launch, and every other neural frame through the
+staged route ops/neural_trace and `shade_image`. On the CPU each kernel's
+plain PyTorch version stands in. Plugin physics, texture skyboxes and
+multires raise NotImplementedError naming the ROADMAP item (queue A) that
+brings them. The TPU tuning arguments of bhr_tpu (tile, kernel_knobs,
+use_pallas, interpret) have no counterpart here.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 
+import numpy as np
 import torch
 
 from .core.camera import Camera
 from .core.math import on_device
 from .core.scene import SceneParams
 from .io import image as image_io
+from .models import neural, neural_kerr
 from .models.disk import DiskParams, blackbody_lut
 from .ops.display import TONEMAPS
+from .ops.neural_kernel import as_surrogate, kernel_takes, neural_render_packed
+from .ops.neural_trace import neural_trace_image
 from .ops.sampling import unpack_frame
 from .ops.shading import shade_planes_packed
 from .ops.starfield import procedural_background
@@ -77,6 +86,13 @@ class CudaContext:
 GpuContext = CudaContext
 TpuContext = CudaContext
 
+logger = logging.getLogger("bhr_tpu_torch")
+
+NEURAL_PRECISIONS = ("auto", "default", "high", "highest")
+# asset train_precision values whose weights need a multi-pass tier
+# (bhr_tpu/renderer.py:545-550)
+_FP32_TRAINED = ("float32", "highest", "high", "tensorfloat32")
+
 
 def _integrator_from_path(name: str) -> tuple[str, str]:
     """Map an integrator name or legacy shader path to (integrator, model)."""
@@ -101,10 +117,25 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A, item {item})")
 
 
+def _check_neural(model: str, adaptive: bool, disk: bool, multires: int) -> None:
+    """The ValueErrors of bhr_tpu/renderer.py:481-500 for integrator='neural'."""
+    if model not in ("schwarzschild", "kerr"):
+        raise ValueError(f"integrator='neural' supports model='schwarzschild' or 'kerr' (got "
+                         f"{model!r}); surrogates are trained on those dynamics")
+    if adaptive or disk:
+        raise ValueError("integrator='neural' does not support adaptive stepping or the "
+                         "accretion disk -- it predicts only the final direction and capture "
+                         "status")
+    if multires:
+        raise ValueError("integrator='neural' has no multires mode (the surrogate already "
+                         "skips integration; there is no low-res geodesic pass to save)")
+
+
 def render_image(camera: Camera, scene: SceneParams, *, config: TraceConfig, fast_math: bool,
                  device, tonemap: str = "passthrough", seed: int = 2020, packed: bool = False,
                  skybox=None, disk_params=None, lut=None, out: torch.Tensor | None = None,
-                 planes: TraceResult | None = None) -> torch.Tensor:
+                 planes: TraceResult | None = None, neural_params=None,
+                 neural_dtype: str = "float32", neural_precision: str = "default") -> torch.Tensor:
     """One frame on `device`: uint8 (H, W, 4), or the packed int32 (H, W)
     frame when `packed` (bhr_tpu/renderer.py:127-307).
 
@@ -114,11 +145,27 @@ def render_image(camera: Camera, scene: SceneParams, *, config: TraceConfig, fas
     the (512, 3) `lut` shade the disk in the staged epilogue. `out`, if
     given, receives the packed frame; `planes` (ops/trace_kernel.
     empty_trace_result) are reused for the staged path's trace.
+
+    With config.integrator "neural", `neural_params` (a NeuralSurrogate on
+    `device`) predicts the deflection field: one neural_mlp launch where
+    `kernel_takes` the frame, else the staged route at `neural_dtype` and
+    `neural_precision` ("default", "high" or "highest"), then shade_image.
     """
     if skybox is not None:
         raise _not_ported("texture skyboxes", "10")
     if tonemap not in TONEMAPS:
         raise ValueError(f"unknown tonemap {tonemap!r}; have {sorted(TONEMAPS)}")
+    if config.integrator == "neural":
+        if neural_params is None:
+            raise ValueError("integrator='neural' needs neural_params")
+        if kernel_takes(neural_params, scene, tonemap=tonemap, precision=neural_precision):
+            frame = neural_render_packed(neural_params, camera, scene, seed=seed,
+                                         precision=neural_precision, device=device, out=out)
+            return frame if packed else unpack_frame(frame)
+        result = neural_trace_image(neural_params, camera, scene, device=device,
+                                    dtype=neural_dtype, precision=neural_precision)
+        return shade_image(result, camera, scene, None, None, tonemap=tonemap, seed=seed,
+                           packed=packed, out=out)
     if monolithic_eligible(config, scene, fast_math=fast_math, skybox=skybox,
                            disk_params=disk_params, tonemap=tonemap):
         frame = render_packed(camera, scene, config, seed=seed, fast_math=fast_math,
@@ -178,22 +225,29 @@ class BlackHoleRenderer:
         dt: float | None = None,
         multires: int = 0,
         neural_params=None,
+        neural_dtype: str = "float32",
+        neural_precision: str = "auto",
         custom_physics=None,
     ):
         integ, path_model = _integrator_from_path(integrator)
         model = model or path_model
-        if integ == "neural" or neural_params is not None:
-            raise _not_ported("the neural surrogate", "11")
         if custom_physics is not None or model == "custom":
             raise _not_ported("plugin physics (model='custom')", "14")
         if model not in ("schwarzschild", "kerr", "kerr_lt", "flat"):
             raise ValueError(f"unknown spacetime model {model!r}")
         if skybox is not None:
             raise _not_ported("texture skyboxes", "10")
+        if integ == "neural":
+            _check_neural(model, adaptive, disk, multires)
         if multires:
             raise _not_ported("multires rendering", "12")
         if tonemap not in TONEMAPS:
             raise ValueError(f"unknown tonemap {tonemap!r}; have {sorted(TONEMAPS)}")
+        if neural_precision not in NEURAL_PRECISIONS:
+            raise ValueError(f"neural_precision must be auto/default/high/highest, got "
+                             f"{neural_precision!r}")
+        if str(neural_dtype) not in ("float32", "bfloat16"):
+            raise ValueError(f"neural_dtype must be float32 or bfloat16, got {neural_dtype!r}")
         if context is not None and device is not None:
             raise ValueError("pass either context= or device=, not both")
         self.context = context if context is not None else CudaContext.new(device)
@@ -211,6 +265,15 @@ class BlackHoleRenderer:
         self.camera = Camera.default()
         self.scene = SceneParams(screen_width=self.width, screen_height=self.height)
         self._last_frame = None
+        # the neural surrogate (bhr_tpu/renderer.py:466-556): weights, their
+        # trained domain, and the precision tier resolved from the asset
+        self.neural_params = None
+        self.neural_dtype = str(neural_dtype)
+        self.neural_precision = neural_precision
+        self._neural_domain = None
+        self._neural_spin_range = None
+        if integ == "neural":
+            self._load_neural(model, neural_params)
 
     # -- constructors matching the reference API (lib.rs:339, 351) ---------
 
@@ -232,6 +295,68 @@ class BlackHoleRenderer:
             scene = scene.replace(screen_width=self.width, screen_height=self.height)
         return scene
 
+    def neural_kwargs(self) -> dict:
+        """render_image's neural arguments for this renderer (none for the
+        geodesic integrators)."""
+        if self.config.integrator != "neural":
+            return {}
+        return dict(neural_params=self.neural_params, neural_dtype=self.neural_dtype,
+                    neural_precision=self.neural_precision)
+
+    def _load_neural(self, model: str, params) -> None:
+        """Load the surrogate (the model's default asset when `params` is
+        None, an npz path, a NeuralSurrogate or (W, b) pairs) onto the
+        device, with its trained domain, and resolve "auto" precision from
+        the asset's train_precision (bhr_tpu/renderer.py:501-556)."""
+        load = neural_kerr.load_params if model == "kerr" else neural.load_params
+        if params is None:
+            asset = "neural_kerr.npz" if model == "kerr" else "neural_schwarzschild.npz"
+            params = neural.ASSETS_DIR / asset
+            if not params.exists():
+                raise FileNotFoundError(f"no trained surrogate weights at {params} (pass "
+                                        "neural_params=)")
+        meta = None
+        if isinstance(params, (str, bytes)) or hasattr(params, "__fspath__"):
+            params, meta = load(params)
+            if "r_range" in meta and "rs_range" in meta:
+                self._neural_domain = (tuple(np.asarray(meta["r_range"], np.float32)),
+                                       tuple(np.asarray(meta["rs_range"], np.float32)))
+            if "spin_range" in meta:
+                self._neural_spin_range = tuple(np.asarray(meta["spin_range"], np.float32))
+        params = as_surrogate(params)
+        if params.model != model:
+            raise ValueError(f"the surrogate's shapes are a {params.model} net, not {model}")
+        if self.neural_precision == "auto":
+            # bf16-trained weights (no train_precision, or "default") are
+            # native to the default tier; fp32-trained ones need "high"
+            tp = str(meta.get("train_precision", "default")) if meta is not None else "default"
+            self.neural_precision = "high" if tp in _FP32_TRAINED else "default"
+        # a module of its own, so that moving it leaves the caller's in place
+        self.neural_params = neural.NeuralSurrogate(params).to(self.device)
+
+    def _warn_outside_domain(self, camera: Camera, scene: SceneParams) -> None:
+        """Warn when the camera distance, rs or spin lie outside the ranges
+        the weights were trained on (bhr_tpu/renderer.py:687-720)."""
+        def host(x):
+            return np.asarray(torch.as_tensor(x, dtype=torch.float32).cpu(), np.float32)
+
+        if self._neural_domain is not None:
+            r_rng, rs_rng = self._neural_domain
+            r0 = float(np.linalg.norm(host(camera.position) - host(scene.black_hole_position)))
+            rs_v = float(host(scene.schwarzschild_radius))
+            if not (r_rng[0] <= r0 <= r_rng[1] and rs_rng[0] <= rs_v <= rs_rng[1]):
+                logger.warning(
+                    "neural surrogate extrapolating outside its trained domain: camera "
+                    "r0=%.1f (trained %.1f-%.1f), rs=%.2f (trained %.2f-%.2f) -- quality is "
+                    "unvalidated there", r0, r_rng[0], r_rng[1], rs_v, rs_rng[0], rs_rng[1],
+                )
+        if self._neural_spin_range is not None:
+            spin_v = float(host(scene.spin))
+            lo, hi = self._neural_spin_range
+            if not lo <= spin_v <= hi:
+                logger.warning("Kerr neural surrogate extrapolating outside its trained spin "
+                               "range: a*=%.2f (trained %.2f-%.2f)", spin_v, lo, hi)
+
     def disk_params(self, scene: SceneParams) -> DiskParams | None:
         """The scene's disk on the device (bhr_tpu/renderer.py:721-722), or
         None without the disk. Built by fill kernels: no host sync."""
@@ -245,10 +370,12 @@ class BlackHoleRenderer:
         tensor on the renderer's device. Does not wait for the device."""
         camera = camera if camera is not None else self.camera
         scene = self.frame_scene(scene)
+        if self.config.integrator == "neural":
+            self._warn_outside_domain(camera, scene)
         frame = render_image(
             camera, scene, config=self.config, fast_math=self.fast_math,
             device=self.device, tonemap=self.tonemap, seed=self.skybox_seed,
-            disk_params=self.disk_params(scene), lut=self._lut,
+            disk_params=self.disk_params(scene), lut=self._lut, **self.neural_kwargs(),
         )
         self.camera = camera
         self.scene = scene

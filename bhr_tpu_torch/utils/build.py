@@ -28,6 +28,8 @@ NVCC_FLAGS = (
 )
 RENDER_MONO_SOURCES = ("render_mono.cu",)
 TRACE_PLANES_SOURCES = ("trace_planes.cu",)
+NEURAL_MLP_SOURCES = ("neural_mlp.cu",)
+MAX_LAYERS = 8  # kMaxLayers of csrc/neural_mlp.cu
 
 
 class KernelParams(ctypes.Structure):
@@ -35,6 +37,23 @@ class KernelParams(ctypes.Structure):
     passed to the kernel by value."""
 
     _fields_ = [("v", ctypes.c_float * 32)]
+
+
+class MlpDesc(ctypes.Structure):
+    """bhr::MlpDesc of csrc/neural_mlp.cu, passed by value: the layer count,
+    the widths (dims[0] the padded inputs, dims[l + 1] layer l's outputs),
+    the block's pixels, the channels per weight chunk and the number of
+    chunk buffers, and each layer's weights and bias as device pointers."""
+
+    _fields_ = [
+        ("n_layers", ctypes.c_int),
+        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+        ("pix", ctypes.c_int),
+        ("n_chunk", ctypes.c_int),
+        ("nbuf", ctypes.c_int),
+        ("w", ctypes.c_void_p * MAX_LAYERS),
+        ("b", ctypes.c_void_p * MAX_LAYERS),
+    ]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +158,29 @@ def load_trace_planes() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.bhr_trace_planes.restype = ctypes.c_int
+    lib.bhr_error_string.argtypes = [ctypes.c_int]
+    lib.bhr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_neural_mlp() -> ctypes.CDLL:
+    """Build (at first use) and load the neural surrogate's kernel library,
+    with the C signatures of csrc/neural_mlp.cu declared."""
+    lib = ctypes.CDLL(str(build("neural_mlp", NEURAL_MLP_SOURCES).path))
+    lib.bhr_neural_render.argtypes = [
+        KernelParams,  # params, by value
+        ctypes.c_uint32,  # seed_term
+        ctypes.c_int,  # kerr
+        ctypes.c_int,  # highest
+        ctypes.c_int,  # height
+        ctypes.c_int,  # width
+        MlpDesc,  # the MLP, by value
+        ctypes.c_int,  # device
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # stream
+    ]
+    lib.bhr_neural_render.restype = ctypes.c_int
     lib.bhr_error_string.argtypes = [ctypes.c_int]
     lib.bhr_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's two kernels from this checkout with nvcc, one nvcc per
-source started together (bhr_tpu_torch/csrc/render_mono.cu, the
-monolithic trace + shade kernel, and csrc/trace_planes.cu, the staged
-trace kernel), holds every kernel variant against its plain PyTorch
-version on the card, and drives the renderer's paths:
+Builds the port's three kernels from this checkout with nvcc, one nvcc
+per source started together (bhr_tpu_torch/csrc/render_mono.cu, the
+monolithic trace + shade kernel, csrc/trace_planes.cu, the staged trace
+kernel, and csrc/neural_mlp.cu, the neural surrogate's kernel), holds
+every kernel variant against its plain PyTorch version on the card, and
+drives the renderer's paths:
   * the main path at 1920x1080x500, Euler on the Schwarzschild metric
     through BlackHoleRenderer.render_frame and OrbitAnimator.render_frames,
     both math tiers (one render_mono launch per frame);
@@ -24,19 +25,38 @@ version on the card, and drives the renderer's paths:
   * the debug step heatmap (one trace_planes launch and the epilogue);
   * a small matrix at 160x96x200: every integrator x {fixed, adaptive dt}
     x {schwarzschild, flat, kerr, kerr_lt} x tier x {the passthrough
-    route, srgb-tonemapped staged}.
+    route, srgb-tonemapped staged};
+  * the neural surrogate (integrator "neural"): a matrix at 160x96 over
+    the five committed nets, both tiers and two cameras, and over seeded
+    random nets of widths 384 to 1152 that reach every other block plan
+    of the kernel (PLAN_NETS); the main path at
+    1920x1080 through render_frame (N1 Schwarzschild and N2 Kerr at spin
+    0.9 in the default tier, N2 at the highest tier), one neural_mlp
+    launch a frame; 8 OrbitAnimator frames with no host sync; the staged
+    routes (srgb tonemap; "auto" resolved to "high"), with no kernel
+    launch; and each variant's time beside its plain version's, its bound
+    and the staged route's MLP chain through torch.matmul (cuBLAS).
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Every frame is held against its plain version on the same
 inputs: exact tier packed words bit-equal on >= 99.9% of pixels, fast tier
 channels within 1 level on >= 99.5%, and in both tiers the kernel's ray
 status agrees with the plain version's on >= 99.5% of pixels and every
 ray the plain version captures is black in the kernel's frame on >= 99.5%
-of them. Each phase prints one line; any failed check raises, so the
+of them. Neural frames are held to bhr_tpu's bars for its neural kernel
+(tests/test_neural.py:262-266, tests/test_neural_kerr.py:478-479): the
+default tier bit-equal on >= 99% of pixels, off by more than 2 levels on
+<= 0.1%, its capture (black) mask equal on >= 99.9%; the highest tier
+bit-equal on >= 99.9% -- the matrix sums are taken in another order
+(bf16 operands in the tensor cores against cuBLAS's fp32 products), and
+near the capture fold a last-bit difference in an output moves a pixel.
+Each phase prints one line; any failed check raises, so the
 script exits non-zero and prints no result. The line before the last is a
 JSON record of every kernel variant (its launches on the paths driven, its
-time and its plain version's, and its bound: the larger of the fp32
-operations it must do over 67 TFLOP/s and the bytes it must write over
-3.35 TB/s); the last line is {"ok": true, "device": {...}}.
+time and its plain version's, and its bound: the larger of the operations
+it must do over the card's peak for their type -- fp32 at 67 TFLOP/s, the
+neural default tier's products at 989 TFLOP/s bf16 -- and the bytes it
+must write over 3.35 TB/s; for the neural kernel also the cuBLAS MLP
+chain's time); the last line is {"ok": true, "device": {...}}.
 
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -116,6 +136,41 @@ OPS_PER_STEP = {
 ADAPTIVE_STEP_SIZES = {"euler": 0, "rk4": 2, "leapfrog": 1}  # dt/2, dt/6
 DISK_OPS = 1  # the crossing test's sign product
 BYTES_PER_PIXEL = {"render_mono": 4, "trace_planes": 32}  # packed word; 6 fp32 + 2 int32 planes
+# The neural kernel (csrc/neural_mlp.cu). Its bound is the largest of the
+# MLP's FLOPs (2 in * out a layer a pixel) over the tensor cores' bf16 peak
+# (default tier) or the fp32 peak (highest), the per-pixel fp32 operations
+# over the fp32 peak, and the 4 bytes a pixel written over the memory rate.
+# Per-pixel operations, counted from the kernel as OPS_PER_STEP is (each
+# add, sub, mul, div, min, max, abs, floor, sqrt, rsqrt and each tanh,
+# log, log1p, exp, sin and cos one operation; values of the launch's
+# constants alone, such as rs / r0, not at all; the star field's integer
+# hashing not at all): ray-gen 30, plane basis 24, the 16 features 33,
+# envelope and rotation 21, direction 9 (Kerr: the tilt 27), renormalising
+# 9, the star field 345, quantizing 18, the head's biases 2; Kerr adds 33
+# for its 6 features and 1 bias. Each hidden unit adds its bias and tanh.
+PEAK_BF16_TENSOR = 989e12
+NEURAL_PIXEL_OPS = {"schwarzschild": 30 + 24 + 33 + 21 + 9 + 9 + 345 + 18 + 2,
+                    "kerr": 30 + 24 + 33 + 33 + 21 + 27 + 9 + 345 + 18 + 3}
+NEURAL_DEFAULT_BARS = dict(same=0.99, off2=1e-3, black=0.999)
+NEURAL_HIGHEST_SAME = 0.999
+NEURAL_ASSETS = {  # (model, asset)
+    "n1": ("schwarzschild", "neural_schwarzschild.npz"),
+    "n1_orbit": ("schwarzschild", "neural_schwarzschild_orbit.npz"),
+    "n1_xl": ("schwarzschild", "neural_schwarzschild_orbit_xl.npz"),
+    "n2": ("kerr", "neural_kerr.npz"),
+    "n2_fp32": ("kerr", "neural_kerr_default.npz"),
+}
+# Seeded random nets, hidden widths (w, 128, w), that reach every block plan
+# of csrc/neural_mlp.cu the committed nets do not (ops/neural_kernel.
+# kernel_plan: pixels per block, channels per weight chunk, chunk buffers;
+# tests/test_torch_neural.py:PLAN_NETS is the same list and checks that it
+# covers every plan): (tier, model, w, seed), each seed picked so that the
+# capture mask is mixed at both cameras.
+PLAN_NETS = (("default", "kerr", 384, 0), ("default", "schwarzschild", 512, 4),
+             ("default", "kerr", 640, 0), ("default", "schwarzschild", 1152, 0),
+             ("highest", "schwarzschild", 384, 0), ("highest", "kerr", 512, 0),
+             ("highest", "schwarzschild", 640, 0), ("highest", "kerr", 768, 0),
+             ("highest", "schwarzschild", 1024, 2))
 REPLACES = {
     ("render_mono", "schwarzschild"): "bhr_tpu/ops/pallas_trace.py:1280",
     ("trace_planes", "schwarzschild"): "bhr_tpu/ops/pallas_trace.py:1151 and :1335",
@@ -124,6 +179,9 @@ REPLACES = {
     ("render_mono", "kerr_lt"): "bhr_tpu/ops/pallas_trace.py:486-496 and :821-831 (K7, in :1280)",
     ("trace_planes", "kerr_lt"): "bhr_tpu/ops/pallas_trace.py:385-397, :486-496 and :821-831 "
                                  "(K7, in :1151 and :1335)",
+    ("neural_mlp", "schwarzschild"): "bhr_tpu/ops/neural_pallas.py:135 (N1, _build_kernel "
+                                     "emit='frame', called at :408)",
+    ("neural_mlp", "kerr"): "bhr_tpu/ops/neural_pallas.py:229-267 and :318-330 (N2, in :135)",
 }
 
 
@@ -183,9 +241,11 @@ def ptxas_summary(log: str) -> str:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"ILb([01])ELi([0-2])ELb([01])E", line)
+            n = re.search(r"neural_render_kernelILb([01])ELb([01])E", line)
             tag = (f"{'fast' if m[1] == '1' else 'exact'},"
                    f"{('euler', 'rk4', 'leapfrog')[int(m[2])]}{',ks' if m[3] == '1' else ''}"
-                   if m else line.split()[-3])
+                   if m else f"{'kerr' if n[1] == '1' else 'schwarzschild'},"
+                   f"{'highest' if n[2] == '1' else 'default'}" if n else line.split()[-3])
         elif tag and "Used" in line:
             out.append(f"{tag}: {line.split('Used')[1].split(',')[0].strip()}")
         elif tag and "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 "
@@ -227,6 +287,65 @@ def cuda_ms(fn, n_frames: int, repeats: int = 1) -> float:
     return statistics.median(runs)
 
 
+def neural_compare(kernel_packed: torch.Tensor, plain_packed: torch.Tensor,
+                   highest: bool) -> dict:
+    """Hold a neural kernel frame against its plain version at the tier's
+    bars (NEURAL_DEFAULT_BARS, NEURAL_HIGHEST_SAME); raise if one fails."""
+    k = kernel_packed.contiguous().view(torch.uint8).view(*kernel_packed.shape, 4).int()
+    p = plain_packed.contiguous().view(torch.uint8).view(*plain_packed.shape, 4).int()
+    if not bool((k[..., 3] == 255).all()):
+        raise AssertionError("kernel frame has alpha != 255")
+    diff = (k[..., :3] - p[..., :3]).abs().amax(-1)
+    k_black, p_black = (k[..., :3] == 0).all(-1), (p[..., :3] == 0).all(-1)
+    stats = {"bit_same": (kernel_packed == plain_packed).float().mean().item(),
+             "off_by_more_than_2": (diff > 2).float().mean().item(),
+             "max_abs_err": int(diff.max().item()),
+             "black_agree": (k_black == p_black).float().mean().item(),
+             "black_frac": k_black.float().mean().item()}
+    b = NEURAL_DEFAULT_BARS
+    ok = (stats["bit_same"] >= (NEURAL_HIGHEST_SAME if highest else b["same"])
+          and stats["off_by_more_than_2"] <= b["off2"] and stats["black_agree"] >= b["black"])
+    if not ok:
+        raise AssertionError(f"neural kernel disagrees with its plain version: {stats}")
+    return stats
+
+
+def random_net(model: str, width: int, seed: int) -> list:
+    """(W, b) numpy pairs of a tanh MLP with hidden widths (width, 128,
+    width) for `model`: N(0, 1/fan_in) weights (a quarter of that scale in
+    the head) and biases of standard deviation 0.1, from numpy's generator
+    at `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kerr = model == "kerr"
+    dims = [22 if kerr else 16, width, 128, width, 3 if kerr else 2]
+    layers = []
+    for i, (a, b) in enumerate(zip(dims, dims[1:])):
+        scale = (0.25 if i == len(dims) - 2 else 1.0) / np.sqrt(a)
+        layers.append((rng.standard_normal((a, b)) * scale, rng.standard_normal(b) * 0.1))
+    return layers
+
+
+def neural_bar(highest: bool) -> str:
+    b = NEURAL_DEFAULT_BARS
+    same = NEURAL_HIGHEST_SAME if highest else b["same"]
+    return (f"bit_same >= {same}, off_by_more_than_2 <= {b['off2']}, "
+            f"black_agree >= {b['black']}")
+
+
+def neural_bound(params, model: str, highest: bool, pixels: int) -> tuple[float, str]:
+    """(ms, 'operations' or 'bytes'): the least time the card could take to
+    render `pixels` neural pixels with `params` (see NEURAL_PIXEL_OPS)."""
+    mlp = 2 * sum(w.shape[0] * w.shape[1] for w, _ in params) * pixels
+    hidden = sum(w.shape[1] for w, _ in list(params)[:-1])
+    t_mlp = mlp / (PEAK_FP32 if highest else PEAK_BF16_TENSOR) * 1e3
+    t_pix = (NEURAL_PIXEL_OPS[model] + 2 * hidden) * pixels / PEAK_FP32 * 1e3
+    t_bytes = pixels * 4 / PEAK_BYTES * 1e3
+    t_ops = max(t_mlp, t_pix)
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 class Variants:
     """Per-variant record for the `kernels` line: main-path launches,
     the largest level difference against the plain version, the times of
@@ -255,6 +374,14 @@ class Variants:
         r = self.get(kernel, fast, integrator, model)
         r["max_abs_err"] = max(r["max_abs_err"], e)
 
+    def neural(self, model: str, highest: bool) -> dict:
+        """The record of neural_mlp's variant for a model and tier."""
+        return self.rec.setdefault(
+            f"neural_mlp<{model},{'highest' if highest else 'default'}>",
+            {"kernel": "neural_mlp", "model": model, "launches": 0, "max_abs_err": 0, "ms": None,
+             "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
+             "config": None})
+
     def timed(self, kernel, fast, integrator, model, *, ms, plain_ms, ray_steps, pixels, config,
               adaptive=False, disk=False):
         r = self.get(kernel, fast, integrator, model)
@@ -278,22 +405,28 @@ def main() -> None:
 
     import bhr_tpu_torch as bt
     from bhr_tpu_torch.core.camera import generate_rays
+    from bhr_tpu_torch.models import neural as tn
+    from bhr_tpu_torch.models import neural_kerr as tnk
+    from bhr_tpu_torch.ops import neural_kernel as nk
     from bhr_tpu_torch.ops import trace_kernel as tk
+    from bhr_tpu_torch.ops.neural_trace import neural_trace_image
     from bhr_tpu_torch.ops.trace import trace_rays
     from bhr_tpu_torch.renderer import shade_image
     from bhr_tpu_torch.utils import build
 
     # 2. build: one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         jobs = {name: pool.submit(build.build, name, sources) for name, sources in
                 (("render_mono", build.RENDER_MONO_SOURCES),
-                 ("trace_planes", build.TRACE_PLANES_SOURCES))}
+                 ("trace_planes", build.TRACE_PLANES_SOURCES),
+                 ("neural_mlp", build.NEURAL_MLP_SOURCES))}
         for name, job in jobs.items():
             info = job.result()
             phase("build", f"{info.path.name} in {info.seconds:.1f} s; ptxas: "
                   f"{ptxas_summary(info.log)}")
     build.load_render_mono()
     build.load_trace_planes()
+    build.load_neural_mlp()
 
     var = Variants()
     side = bt.Camera.new(*SIDE)
@@ -301,6 +434,10 @@ def main() -> None:
     def reset():
         tk.LAUNCHES = 0
         tk.TRACE_LAUNCHES = 0
+        nk.NEURAL_LAUNCHES = 0
+
+    def counts():
+        return tk.LAUNCHES, tk.TRACE_LAUNCHES, nk.NEURAL_LAUNCHES
 
     def plain_trace(cam, scene, config, fast, rows=None):
         """The plain trace of the frame, or of its rows rows[0] .. rows[1] - 1
@@ -478,6 +615,7 @@ def main() -> None:
             errs.append(compare(frames[k], plain[k], fast, k_status,
                                 plain_res[k].status)["max_abs_err"])
         var.err("render_mono", fast, "euler", max(errs))
+        rec["anim_ms"] = anim_ms
         ray_steps = sum(int(r.steps.sum().item()) for r in plain_res) // N_FRAMES
         var.timed("render_mono", fast, "euler", "schwarzschild", ms=ms, plain_ms=plain_ms,
                   ray_steps=ray_steps, pixels=W * H,
@@ -630,8 +768,12 @@ def main() -> None:
         h = compare(hframe.view(torch.int32).view(H, W), hplain, fast, k_res.status,
                     hres.status, heatmap=True)
         var.err("trace_planes", fast, "euler", h["max_abs_err"], "kerr_lt")
+        # the fast frame keeps bhr_tpu's unclamped Euler step, so rays that
+        # pass r ~ r_s part from the plain version; its margin is printed
+        margin = (f"margin over its bar: {round((s['within_1'] - FAST_MIN) * W * H)} pixels "
+                  f"(within 1 level on {s['within_1']:.6f} against {FAST_MIN}); " if fast else "")
         phase("kerr_lt", f"{W}x{H}x{STEPS} kerr_lt spin {SPIN} euler {tier}: render_frame 1 "
-              f"{kernel} launch ({bar(fast)}): {json.dumps(s)}; heatmap 1 trace_planes launch, "
+              f"{kernel} launch ({bar(fast)}): {json.dumps(s)}; {margin}heatmap 1 trace_planes launch, "
               f"steps plane equal to the plain version's on {steps_same:.6f} (bar {STATUS_MIN}), "
               f"frame {json.dumps(h)}")
 
@@ -729,7 +871,206 @@ def main() -> None:
                   f"ms, plain {plain_ms:.3f} ms, {ray_steps} ray-steps, bound "
                   f"{r['bound_ms']:.3f} ms ({r['bound_by']}) on {smi}")
 
-    # 11. output
+    # 11. the neural surrogate (integrator "neural"): (a) every committed
+    # net at 160x96 through render_frame, both cameras, against the plain
+    # version; one neural_mlp launch a frame
+    def net_path(key):
+        return tn.ASSETS_DIR / NEURAL_ASSETS[key][1]
+
+    sw, sh = SMALL[:2]
+    matrix = (("n1", "default", 0.0), ("n1_xl", "default", 0.0), ("n2", "default", SPIN),
+              ("n2", "default", 0.0), ("n2_fp32", "highest", SPIN))
+    worst = {}
+    for key, tier, spin in matrix:
+        model = NEURAL_ASSETS[key][0]
+        highest = tier == "highest"
+        r = bt.BlackHoleRenderer(sw, sh, "neural", model=model, neural_params=net_path(key),
+                                 neural_precision=tier, device="cuda")
+        for cam in (bt.Camera.default(), side):
+            scene = bt.SceneParams(screen_width=sw, screen_height=sh, spin=spin)
+            reset()
+            frame = r.render_frame(cam, scene)
+            torch.cuda.synchronize()
+            if counts() != (0, 0, 1):
+                raise AssertionError(f"neural {key} {tier} frame launched {counts()}")
+            plain = nk.neural_render_packed_reference(r.neural_params, cam, scene, precision=tier,
+                                                      device="cuda")
+            st = neural_compare(frame.view(torch.int32).view(sh, sw), plain, highest)
+            rec = var.neural(model, highest)
+            rec["launches"] += 1
+            rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+            w = worst.setdefault(tier, {})
+            for k in ("bit_same", "black_agree"):
+                w[k] = min(w.get(k, 1.0), st[k])
+            for k in ("off_by_more_than_2", "max_abs_err"):
+                w[k] = max(w.get(k, 0), st[k])
+    phase("neural_matrix", f"{2 * len(matrix)} frames at {sw}x{sh}: {', '.join(NEURAL_ASSETS[k][1] + ' ' + t + f' spin {sp}' for k, t, sp in matrix)}, "
+          f"cameras default and [15,5,0], each 1 neural_mlp launch held to its tier's bar "
+          f"(default: {neural_bar(False)}; highest: {neural_bar(True)}); worst by tier: "
+          + json.dumps(worst))
+
+    # every other block plan of the kernel, on the seeded random nets of
+    # PLAN_NETS, both cameras, through render_frame
+    plans = []
+    for tier, model, width, seed in PLAN_NETS:
+        highest = tier == "highest"
+        net = bt.NeuralSurrogate(random_net(model, width, seed))
+        plan = nk.kernel_plan(net, tier)
+        r = bt.BlackHoleRenderer(sw, sh, "neural", model=model, neural_params=net,
+                                 neural_precision=tier, device="cuda")
+        for cam in (bt.Camera.default(), side):
+            scene = bt.SceneParams(screen_width=sw, screen_height=sh,
+                                   spin=SPIN if model == "kerr" else 0.0)
+            reset()
+            frame = r.render_frame(cam, scene)
+            torch.cuda.synchronize()
+            if counts() != (0, 0, 1):
+                raise AssertionError(f"neural plan {plan} frame launched {counts()}")
+            plain = nk.neural_render_packed_reference(r.neural_params, cam, scene, precision=tier,
+                                                      device="cuda")
+            st = neural_compare(frame.view(torch.int32).view(sh, sw), plain, highest)
+            if not 0.05 <= st["black_frac"] <= 0.95:
+                raise AssertionError(f"neural plan {plan}: the capture mask is not mixed: {st}")
+            rec = var.neural(model, highest)
+            rec["launches"] += 1
+            rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+            plans.append({"tier": tier, "model": model, "hidden": list(net.widths),
+                          "plan": list(plan), **{k: st[k] for k in ("bit_same", "black_agree",
+                                                                    "black_frac")}})
+    phase("neural_plans", f"{len(plans)} frames at {sw}x{sh} of seeded random nets, one per "
+          f"block plan (pixels, channels a chunk, chunk buffers) and camera, each 1 neural_mlp "
+          f"launch held to its tier's bar: " + json.dumps(plans))
+
+    # (b) the neural main path at 1920x1080 through render_frame: the
+    # default Schwarzschild and Kerr assets (N1, N2 at the default tier) and
+    # the fp32-trained Kerr net at an explicit "highest"
+    full_neural = bt.SceneParams(screen_width=W, screen_height=H)
+    main = (("n1", {}, 0.0, bt.Camera.default()), ("n2", {}, SPIN, side),
+            ("n2_fp32", dict(neural_params=net_path("n2_fp32"), neural_precision="highest"), SPIN,
+             side))
+    kernel_frames = {}
+    for key, kw, spin, cam in main:
+        model = NEURAL_ASSETS[key][0]
+        r = bt.BlackHoleRenderer(W, H, "neural", model=model, device="cuda", **kw)
+        highest = r.neural_precision == "highest"
+        scene = full_neural.replace(spin=spin)
+        reset()
+        frame = r.render_frame(cam, scene)
+        torch.cuda.synchronize()
+        if counts() != (0, 0, 1):
+            raise AssertionError(f"neural main path {key} launched {counts()}")
+        if frame.shape != (H, W, 4) or frame.dtype != torch.uint8:
+            raise AssertionError(f"neural frame is {frame.dtype} {tuple(frame.shape)}")
+        packed = frame.view(torch.int32).view(H, W)
+        plain = nk.neural_render_packed_reference(r.neural_params, cam, scene,
+                                                  precision=r.neural_precision, device="cuda")
+        st = neural_compare(packed, plain, highest)
+        rec = var.neural(model, highest)
+        rec["launches"] += 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+        kernel_frames[key] = packed.clone()
+        phase("neural_main", f"{W}x{H} {NEURAL_ASSETS[key][1]} ({model}, "
+              f"{r.neural_precision}, spin {spin}, camera {cam.position.tolist()}): render_frame "
+              f"1 neural_mlp launch ({neural_bar(highest)}): {json.dumps(st)}")
+
+    # (c) OrbitAnimator: N_FRAMES frames with no host sync, each against its
+    # plain version; ms/frame beside the main path's Euler frame
+    r_orbit = bt.BlackHoleRenderer(W, H, "neural", neural_params=net_path("n1_orbit"),
+                                   device="cuda")
+    bt.OrbitAnimator(r_orbit).render_frames(1, packed=True)  # warm-up: the weights' operands
+    reset()
+    frames, neural_anim_ms, anim = animate(r_orbit, N_FRAMES)
+    if counts() != (0, 0, N_FRAMES) or frames.shape != (N_FRAMES, H, W):
+        raise AssertionError(f"neural animation launched {counts()}: {tuple(frames.shape)}")
+    var.neural("schwarzschild", False)["launches"] += N_FRAMES
+    errs = []
+    for k, t in enumerate(anim.frame_times(N_FRAMES)):
+        plain = nk.neural_render_packed_reference(r_orbit.neural_params, bt.orbit_camera(t),
+                                                  r_orbit.scene, device="cuda")
+        errs.append(neural_compare(frames[k], plain, False))
+    rec = var.neural("schwarzschild", False)
+    rec["max_abs_err"] = max([rec["max_abs_err"]] + [e["max_abs_err"] for e in errs])
+    euler = {tier: records[tier]["anim_ms"] for tier in records}
+    phase("neural_animation", f"{N_FRAMES} frames {W}x{H} neural_schwarzschild_orbit.npz: "
+          f"OrbitAnimator {neural_anim_ms:.3f} ms/frame with no host sync (CUDA events, sync "
+          f"debug mode 'error'), launches={N_FRAMES}; every frame held to {neural_bar(False)} "
+          f"(worst bit_same {min(e['bit_same'] for e in errs):.6f}); against the main path's "
+          f"Euler frame at {W}x{H}x{STEPS}: "
+          + ", ".join(f"{tier} {ms:.3f} ms/frame, ratio {neural_anim_ms / ms:.4f}"
+                      for tier, ms in euler.items()) + f" on {smi}")
+    del frames
+
+    # (d) the staged routes: the srgb tonemap, and the fp32-trained Kerr net
+    # at "auto", which resolves to "high"; no kernel launch
+    r_srgb = bt.BlackHoleRenderer(W, H, "neural", tonemap="srgb", device="cuda")
+    r_high = bt.BlackHoleRenderer(W, H, "neural", model="kerr", neural_params=net_path("n2_fp32"),
+                                  device="cuda")
+    if r_high.neural_precision != "high":
+        raise AssertionError(f"'auto' resolved to {r_high.neural_precision}, not 'high'")
+    for name, r, cam, scene in (("srgb", r_srgb, bt.Camera.default(), full_neural),
+                                ("high", r_high, side, full_neural.replace(spin=SPIN))):
+        r.render_frame(cam, scene)  # warm-up
+        torch.cuda.synchronize()
+        reset()
+        ms = cuda_ms(lambda: r.render_frame(cam, scene), 1, REPEATS)
+        if counts() != (0, 0, 0):
+            raise AssertionError(f"staged neural {name} frame launched {counts()}")
+        frame = r.render_frame(cam, scene).view(torch.int32).view(H, W)
+        if name == "high":  # the highest kernel's frame, at the default tier's bars
+            st = neural_compare(kernel_frames["n2_fp32"], frame, False)
+        else:  # the rays it captures are black in the kernel's passthrough frame
+            cap = neural_trace_image(r.neural_params, cam, scene, device="cuda").status == 2
+            k = kernel_frames["n1"].view(torch.uint8).view(H, W, 4)[..., :3]
+            st = {"captured_black": (k[cap] == 0).all(-1).float().mean().item(),
+                  "captured_frac": cap.float().mean().item()}
+            if st["captured_black"] < NEURAL_DEFAULT_BARS["black"]:
+                raise AssertionError(f"staged srgb capture disagrees with the kernel: {st}")
+        bt.OrbitAnimator(r).render_frames(1, packed=True)  # warm-up
+        reset()
+        _, anim_ms, _ = animate(r, 2)  # the staged route makes the host wait for nothing
+        if counts() != (0, 0, 0):
+            raise AssertionError(f"staged neural {name} animation launched {counts()}")
+        phase("neural_staged", f"{W}x{H} {name} ({r.config.model}, precision "
+              f"{r.neural_precision}, tonemap {r.tonemap}): 0 kernel launches, "
+              f"{ms:.3f} ms/frame (render_frame, median of {REPEATS}); OrbitAnimator 2 "
+              f"frames {anim_ms:.3f} ms/frame with no host sync (sync debug mode 'error'); "
+              f"{json.dumps(st)}")
+
+    # (e) times at 1920x1080: the kernel (median of REPEATS x 3 launches),
+    # its plain version, the bound, and the staged route's MLP chain alone
+    # (models/neural.mlp_apply: torch.matmul, i.e. cuBLAS, at the tier)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for key, highest, cam, spin in (("n1", False, bt.Camera.default(), 0.0),
+                                    ("n1_xl", False, side, 0.0), ("n2", False, side, SPIN),
+                                    ("n2_fp32", True, side, SPIN)):
+        model = NEURAL_ASSETS[key][0]
+        tier = "highest" if highest else "default"
+        params = (tnk if model == "kerr" else tn).load_params(net_path(key))[0].to("cuda")
+        scene = full_neural.replace(spin=spin)
+        out = torch.empty((H, W), dtype=torch.int32, device="cuda")
+
+        def launch():
+            nk.neural_render_packed(params, cam, scene, precision=tier, device="cuda", out=out)
+
+        launch()  # warm-up
+        ms = cuda_ms(lambda: [launch() for _ in range(3)], 3, REPEATS)
+        plain_ms = cuda_ms(lambda: nk.neural_render_packed_reference(
+            params, cam, scene, precision=tier, device="cuda"), 1)
+        feats = torch.randn((W * H, params[0][0].shape[0]), generator=gen, device="cuda")
+        tn.mlp_apply(params, feats, precision=tier)  # warm-up
+        library_ms = cuda_ms(lambda: tn.mlp_apply(params, feats, precision=tier), 1, REPEATS)
+        b, by = neural_bound(params, model, highest, W * H)
+        desc = (f"{NEURAL_ASSETS[key][1]} (hidden {params.widths}), {tier}, spin {spin}, camera "
+                f"{cam.position.tolist()}, {W}x{H}")
+        if key != "n1_xl":  # the main path's nets; the 256-wide orbit net is printed only
+            var.neural(model, highest).update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                              library_ms=library_ms, config=desc)
+        phase("neural_timing", f"neural_mlp<{model},{tier}> ({desc}): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, cuBLAS MLP chain {library_ms:.3f} ms, bound {b:.3f} ms ({by}) "
+              f"on {smi}")
+        del params, feats
+
+    # 12. output
     renderer = records["exact"]["renderer"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frame.png")
@@ -748,7 +1089,7 @@ def main() -> None:
                         "replaces": REPLACES[(r["kernel"], r["model"])],
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None,
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "config": r["config"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

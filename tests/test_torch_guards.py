@@ -24,6 +24,8 @@ MODULES = [
     "bhr_tpu_torch.core.scene", "bhr_tpu_torch.core.math", "bhr_tpu_torch.utils.build",
     "bhr_tpu_torch.models.disk", "bhr_tpu_torch.ops.display", "bhr_tpu_torch.ops.heatmap",
     "bhr_tpu_torch.models.kerr", "bhr_tpu_torch.models.kerr_schild",
+    "bhr_tpu_torch.models.neural", "bhr_tpu_torch.models.neural_kerr",
+    "bhr_tpu_torch.ops.neural_trace", "bhr_tpu_torch.ops.neural_kernel",
 ]
 
 
@@ -86,11 +88,13 @@ def test_no_fallback_in_the_cuda_path():
     "args,kw,item",
     [
         (("euler",), dict(model="kerr", skybox="sky.exr"), "item 10"),
-        (("neural_kerr",), {}, "item 11"),
+        # the neural surrogate renders since its slice; with a texture
+        # skybox it needs N3, which waits for item 10
+        (("neural_kerr",), dict(skybox="sky.exr"), "item 10"),
         (("src/ray_tracer_kerr.wgsl",), dict(multires=2), "item 12"),
         (("euler",), dict(skybox="sky.exr"), "item 10"),
-        (("neural",), {}, "item 11"),
-        (("euler",), dict(neural_params={}), "item 11"),
+        (("neural",), dict(skybox="sky.exr"), "item 10"),
+        (("euler",), dict(neural_params={}, multires=3), "item 12"),
         (("euler",), dict(multires=3), "item 12"),
         (("euler",), dict(model="custom"), "item 14"),
         (("euler",), dict(custom_physics="plugin.py"), "item 14"),
@@ -165,6 +169,9 @@ def test_debug_heatmap_raises():
     ids=["custom", "custom-leapfrog", "neural"],
 )
 def test_trace_and_render_outside_slice_raise(config):
+    """The geodesic tracer and kernels refuse what they do not integrate,
+    the neural surrogate included; render_image renders a neural frame
+    with its weights (the surrogate's own route) and refuses one without."""
     scene = T.SceneParams(screen_width=4, screen_height=4, max_steps=2)
     origins, dirs = T.generate_rays(T.Camera.default(), 4, 4, scene.fov)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -173,6 +180,16 @@ def test_trace_and_render_outside_slice_raise(config):
         trace_kernel.render_packed(T.Camera.default(), scene, config, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trace_kernel.trace_image(T.Camera.default(), scene, config, device="cpu")
+    if config.integrator == "neural":
+        with pytest.raises(ValueError, match="neural_params"):
+            T.render_image(T.Camera.default(), scene, config=config, fast_math=False,
+                           device="cpu")
+        params, _ = T.models.neural.load_params(T.models.neural.ASSETS_DIR
+                                                / "neural_schwarzschild.npz")
+        frame = T.render_image(T.Camera.default(), scene, config=config, fast_math=False,
+                               device="cpu", neural_params=params)
+        assert frame.shape == (4, 4, 4) and frame.dtype == torch.uint8
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.render_image(T.Camera.default(), scene, config=config, fast_math=False,
                        device="cpu")

@@ -11,14 +11,19 @@ exact math tier; and the neural surrogate's frames (integrator "neural",
 the Schwarzschild or Kerr MLP) through a third, csrc/neural_mlp.cu
 (ray-gen, features, the MLP on the tensor cores, rotation and star field in
 one launch), at the default (bf16) or highest (fp32) precision tier, or
-through the staged route ops/neural_trace. A plain PyTorch version stands
-beside each kernel. It imports torch and never jax; bhr_tpu stays the
-reference it is tested against.
+through the staged route ops/neural_trace. A texture skybox
+(io/skybox.load_skybox; the bilinear, nearest and luma filters and the
+subsampled reconstructions of ops/sampling.py) is sampled by the staged
+epilogue after the planes kernel, or after the neural kernel's
+direction-plane output; multires frames (ops/multires.py) integrate at a
+fraction of the resolution through the planes kernel's strided and masked
+ray-gen. A plain PyTorch version stands beside each kernel. It imports
+torch and never jax; bhr_tpu stays the reference it is tested against.
 """
 
 from .animation import OrbitAnimator
 from .core.camera import Camera, generate_rays, orbit_camera
-from .core.math import cross, normalize
+from .core.math import cross, direction_to_equirectangular_uv, normalize
 from .core.scene import (
     CAPTURE_FACTOR,
     DEBUG_NONE,
@@ -27,10 +32,26 @@ from .core.scene import (
     ESCAPE_RADIUS,
     SceneParams,
 )
-from .from_numpy import camera_from_numpy, neural_params_from_numpy, scene_from_numpy
+from .from_numpy import (
+    camera_from_numpy,
+    neural_params_from_numpy,
+    scene_from_numpy,
+    texture_from_numpy,
+    trace_result_from_numpy,
+)
+from .io.skybox import load_skybox
 from .models.neural import NeuralSurrogate
+from .ops.multires import render_multires
 from .ops.trace import TraceConfig, TraceResult, trace_rays
-from .renderer import BlackHoleRenderer, CudaContext, GpuContext, TpuContext, render_image
+from .ops.trace_kernel import trace_image
+from .renderer import (
+    BlackHoleRenderer,
+    CudaContext,
+    GpuContext,
+    TpuContext,
+    render_image,
+    shade_image,
+)
 
 __version__ = "0.1.0"
 
@@ -52,11 +73,18 @@ __all__ = [
     "TraceResult",
     "camera_from_numpy",
     "cross",
+    "direction_to_equirectangular_uv",
     "generate_rays",
+    "load_skybox",
     "neural_params_from_numpy",
     "normalize",
     "orbit_camera",
     "render_image",
+    "render_multires",
     "scene_from_numpy",
+    "shade_image",
+    "texture_from_numpy",
+    "trace_image",
     "trace_rays",
+    "trace_result_from_numpy",
 ]

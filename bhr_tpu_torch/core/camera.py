@@ -59,6 +59,10 @@ def generate_rays(
     fov,
     *,
     device=None,
+    stride: int = 1,
+    row0: int = 0,
+    col0: int = 0,
+    local_shape: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel primary rays for a (height, width) image on `device`
     (default: the camera's device).
@@ -68,7 +72,11 @@ def generate_rays(
       v = (y / H - 0.5) * -2              (Y flipped)
       dir = normalize(fwd + right*u*tan(fov/2) + up*v*tan(fov/2))
 
-    Returns (origins, directions), each fp32[height, width, 3].
+    Returns (origins, directions), each fp32[height, width, 3] -- or
+    fp32[*local_shape, 3] with `local_shape`, whose pixel (i, j) is pixel
+    (i * stride + row0, j * stride + col0) of the full (height, width)
+    image (bhr_tpu/ops/pallas_trace.py:743-757: the multires low pass, or a
+    band); u and v always divide by the full width and height.
     tan(fov/2) and the aspect ratio are computed where `fov` lives (the
     host, by default), exactly as ops/trace_kernel.build_params computes
     them for the kernel. Every division has a tensor divisor on `device`:
@@ -83,8 +91,10 @@ def generate_rays(
     hf = torch.tensor(float(height), dtype=_F32)
     aspect = on_device(wf / hf, device)
     fov_factor = on_device(torch.tan(fov * 0.5), device)
-    xs = torch.arange(width, dtype=_F32, device=device)
-    ys = torch.arange(height, dtype=_F32, device=device)
+    local_h, local_w = local_shape or (height, width)
+    # pixel indices in integers, then converted, as the kernel does
+    xs = (torch.arange(local_w, device=device) * stride + col0).to(_F32)
+    ys = (torch.arange(local_h, device=device) * stride + row0).to(_F32)
     u = (xs / on_device(wf, device) - 0.5) * 2.0
     v = (ys / on_device(hf, device) - 0.5) * -2.0
     u = u * aspect

@@ -37,6 +37,17 @@ def normalize(v: torch.Tensor) -> torch.Tensor:
     return torch.where(nonzero, v / torch.where(nonzero, length, torch.ones_like(length)), v)
 
 
+def direction_to_equirectangular_uv(direction: torch.Tensor) -> torch.Tensor:
+    """Map fp32 (..., 3) directions to equirectangular (..., 2) UVs
+    (reference: wgsl:93-98): u = 0.5 + atan2(z, x) / (2 pi), v = 0.5 -
+    asin(y) / pi, on the direction normalised again as the shader does.
+    The divisors are tensors on the data's device (see `on_device`)."""
+    n = direction / sqrt_rn(dot(direction, direction))[..., None]
+    u = 0.5 + torch.atan2(n[..., 2], n[..., 0]) / on_device(6.28318530718, n.device)
+    v = 0.5 - torch.asin(torch.clamp(n[..., 1], -1.0, 1.0)) / on_device(3.14159265359, n.device)
+    return torch.stack([u, v], dim=-1)
+
+
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded fp32 1/sqrt(x).
 

@@ -1,15 +1,27 @@
 // Neural-surrogate render kernel for Hopper (sm_90a): N1 (Schwarzschild)
-// and N2 (Kerr) in one source.
+// and N2 (Kerr) in one source, and N3, their direction-plane output.
 //
-// Replaces bhr_tpu/ops/neural_pallas.py:_build_kernel(emit="frame") (the
-// kernel of `_render`, :135-364), reached there through
-// neural_render_packed. Per pixel: ray-gen from the 32-float parameter
-// struct (the layout of ops/trace_kernel.build_params), the plane basis,
+// Replaces bhr_tpu/ops/neural_pallas.py:_build_kernel (the kernel of
+// `_render`, :135-364): emit="frame", reached there through
+// neural_render_packed, and emit="dirs" (:338-343), reached through
+// neural_trace_dirs for frames with a texture skybox. Per pixel: ray-gen
+// from the 32-float parameter struct (the layout of
+// ops/trace_kernel.build_params), the plane basis,
 // 16 features (22 for Kerr) in the order of models/neural.ray_features
 // (models/neural_kerr.ray_features_kerr), the tanh MLP, the envelope, the
 // in-plane rotation by delta (and for Kerr the tilt chi out of the plane),
 // the analytic star field (starfield.cuh), captured rays black, and one
 // packed RGBA word -- the only store to device memory.
+//
+// N3 is the same kernel up to the unit direction and the capture logit;
+// where the launch gives direction planes instead of a frame, the thread
+// stores the TraceResult's planes directly -- vel fp32 (H, W, 3) and status
+// int32 (kCaptured where the logit is positive, else kEscaped), which the
+// TPU wrapper assembles from four fp32 planes in a second pass -- and skips
+// the star field. The switch is a runtime branch at the store, uniform over
+// the launch, not a template parameter: everything before it is shared
+// code, the branch costs one predicate a pixel, and the four instantiations
+// (and their build time) stay four.
 //
 // Layout. A block of `pix` pixels and 256 threads holds two activation
 // buffers and one or two chunks of a layer's weights in shared memory.
@@ -79,6 +91,7 @@ struct MlpDesc {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int32_t kStatusEscaped = 1, kStatusCaptured = 2;  // ops/trace.py STATUS_*
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
 constexpr float kBcFactor = static_cast<float>(2.598076211);
 // h(p) of models/neural_kerr.bc_factor_kerr, lowest order first
@@ -424,7 +437,8 @@ __device__ __forceinline__ void chunk_of(const MlpDesc& m, int s, int& l, int& n
 template <bool KERR, bool HI>
 __global__ void __launch_bounds__(kThreads)
     neural_render_kernel(const Params p, const uint32_t seed_term, const int height,
-                         const int width, const MlpDesc mlp, uint32_t* __restrict__ frame) {
+                         const int width, const MlpDesc mlp, uint32_t* __restrict__ frame,
+                         float* __restrict__ vel, int32_t* __restrict__ status) {
   using E = Elem<HI>;
   using T = typename E::T;
   constexpr int kFeats = KERR ? 22 : 16;
@@ -550,6 +564,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     const float vinv = A::rsqrt(dot<false>(v, v));
     v = Vec3{A::mul(v.x, vinv), A::mul(v.y, vinv), A::mul(v.z, vinv)};
+    if (vel != nullptr) {  // N3: the direction and the capture status, unshaded
+      vel[3 * id + 0] = v.x;
+      vel[3 * id + 1] = v.y;
+      vel[3 * id + 2] = v.z;
+      status[id] = head[kOut - 1] > 0.0f ? kStatusCaptured : kStatusEscaped;
+      continue;
+    }
     float r, gg, b;
     procedural_background<false>(v, seed_term, r, gg, b);
     const float live = head[kOut - 1] <= 0.0f ? 1.0f : 0.0f;  // logit > 0: captured, black
@@ -560,7 +581,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <bool KERR, bool HI>
 int launch(const Params& p, uint32_t seed_term, int height, int width, const MlpDesc& mlp,
-           uint32_t* frame, cudaStream_t s) {
+           uint32_t* frame, float* vel, int32_t* status, cudaStream_t s) {
   const int64_t smem = smem_bytes<HI>(mlp);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   auto* kernel = neural_render_kernel<KERR, HI>;
@@ -570,7 +591,7 @@ int launch(const Params& p, uint32_t seed_term, int height, int width, const Mlp
   const int64_t n_pixels = static_cast<int64_t>(height) * width;
   const unsigned blocks = static_cast<unsigned>((n_pixels + mlp.pix - 1) / mlp.pix);
   kernel<<<blocks, kThreads, static_cast<size_t>(smem), s>>>(p, seed_term, height, width, mlp,
-                                                              frame);
+                                                              frame, vel, status);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -599,26 +620,37 @@ bool shapes_ok(const MlpDesc& m, bool kerr, bool hi) {
 }  // namespace bhr
 
 // C entry point, bound with ctypes by bhr_tpu_torch/utils/build.py.
-// Renders one neural frame on `stream` into `out`, a contiguous (height,
-// width) array of 32-bit words on `device`, and returns cudaGetLastError()
-// after the launch (0 on success; cudaErrorInvalidValue for shapes the
-// kernel does not take). Does not synchronise. `kerr` selects N2 (22
-// features, 3 heads) over N1, `highest` the fp32 tier over the bf16 one.
+// Renders one neural frame on `stream` and returns cudaGetLastError() after
+// the launch (0 on success; cudaErrorInvalidValue for shapes the kernel
+// does not take). Exactly one output is given: `out`, a contiguous (height,
+// width) array of 32-bit words on `device` that receives the packed frame
+// (N1, N2), or `vel` and `status`, contiguous fp32 (height, width, 3) and
+// int32 (height, width), that receive the unit directions and the capture
+// status unshaded (N3; `seed_term` is then unused). Does not synchronise.
+// `kerr` selects the Kerr net (22 features, 3 heads), `highest` the fp32
+// tier over the bf16 one.
 extern "C" int bhr_neural_render(bhr::Params params, uint32_t seed_term, int kerr, int highest,
                                  int height, int width, bhr::MlpDesc mlp, int device, void* out,
-                                 void* stream) {
+                                 void* vel, void* status, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!bhr::shapes_ok(mlp, kerr != 0, highest != 0)) {
+  if (!bhr::shapes_ok(mlp, kerr != 0, highest != 0) ||
+      (out != nullptr) == (vel != nullptr) || (vel != nullptr) != (status != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (height <= 0 || width <= 0) return 0;
   auto* frame = static_cast<uint32_t*>(out);
+  auto* v = static_cast<float*>(vel);
+  auto* st = static_cast<int32_t*>(status);
   auto s = static_cast<cudaStream_t>(stream);
-  if (kerr && highest) return bhr::launch<true, true>(params, seed_term, height, width, mlp, frame, s);
-  if (kerr) return bhr::launch<true, false>(params, seed_term, height, width, mlp, frame, s);
-  if (highest) return bhr::launch<false, true>(params, seed_term, height, width, mlp, frame, s);
-  return bhr::launch<false, false>(params, seed_term, height, width, mlp, frame, s);
+  if (kerr && highest) {
+    return bhr::launch<true, true>(params, seed_term, height, width, mlp, frame, v, st, s);
+  }
+  if (kerr) return bhr::launch<true, false>(params, seed_term, height, width, mlp, frame, v, st, s);
+  if (highest) {
+    return bhr::launch<false, true>(params, seed_term, height, width, mlp, frame, v, st, s);
+  }
+  return bhr::launch<false, false>(params, seed_term, height, width, mlp, frame, v, st, s);
 }
 
 extern "C" const char* bhr_error_string(int code) {

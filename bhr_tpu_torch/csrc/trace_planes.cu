@@ -18,12 +18,29 @@
 // black hole's y. For Kerr-Schild rays `vel` is the unit coordinate
 // direction dq/dl, not the momentum the loop carries.
 //
+// Two ray-gen options of K4 that only multires reaches (bhr_tpu/ops/
+// multires.py), both runtime arguments of the one kernel, so that every
+// instantiation has them:
+//  * strided (pallas_trace.py:745-755): the grid covers a local (height,
+//    width) and thread (row, col) traces full-image pixel (row * stride +
+//    row0, col * stride + col0) -- stride, row0 and col0 come from the
+//    parameter struct (trace_ray.cuh:generate_ray), the outputs are indexed
+//    locally;
+//  * masked (pallas_trace.py:769-783): `mask` is fp32 (height, width) or
+//    null; a thread whose mask is not > 0 integrates nothing and writes
+//    defined values -- the camera position, its initial unit direction,
+//    kEscaped, 0 steps -- that the caller's merge discards. The TPU kernel
+//    got the same saving by starting such rays outside the escape sphere,
+//    because a tile, not a pixel, was its unit of control flow; here the
+//    thread returns, and a warp that is wholly masked off retires at once.
+// bhr_tpu's `linear` ray-gen is a TPU tiling knob with identical results.
+//
 // What bounds it: instruction issue in the geodesic loop, as for
 // render_mono.cu; the 32 bytes written per pixel are ~66 MB a 1920x1080
 // frame, a few tens of microseconds of the card's bandwidth against
-// milliseconds of loop. The `mask`, `strided` and `linear` ray-gen of K4
-// (multires and a TPU tiling knob) are not ported; row0/col0 in the
-// parameters keep bands possible.
+// milliseconds of loop. A masked launch reads 4 more bytes a pixel and
+// integrates only the rays its mask keeps: an edge mask is a thin ring, so
+// the few warps on it run the full loop while the others are gone.
 
 #include <cuda_runtime.h>
 
@@ -38,16 +55,31 @@ namespace {
 template <bool FAST, int INTEG, bool KS>
 __global__ void __launch_bounds__(256)
     trace_planes_kernel(const Params p, const int flags, const int height, const int width,
-                        const int max_steps, float* __restrict__ pos, float* __restrict__ vel,
+                        const int max_steps, const float* __restrict__ mask,
+                        float* __restrict__ pos, float* __restrict__ vel,
                         int32_t* __restrict__ status, int32_t* __restrict__ steps) {
   using A = Arith<FAST>;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
+  const int64_t i = static_cast<int64_t>(row) * width + col;
+
+  if (mask != nullptr && !(mask[i] > 0.0f)) {
+    Vec3 rel, dir;
+    generate_ray<FAST>(p, row, col, rel, dir);
+    pos[3 * i + 0] = p.v[P_CAM + 0];
+    pos[3 * i + 1] = p.v[P_CAM + 1];
+    pos[3 * i + 2] = p.v[P_CAM + 2];
+    vel[3 * i + 0] = dir.x;
+    vel[3 * i + 1] = dir.y;
+    vel[3 * i + 2] = dir.z;
+    status[i] = kEscaped;
+    steps[i] = 0;
+    return;
+  }
 
   const Ray ray = trace_ray<FAST, INTEG, KS>(p, flags, row, col, max_steps);
 
-  const int64_t i = static_cast<int64_t>(row) * width + col;
   pos[3 * i + 0] = A::add(ray.rel.x, p.v[P_BH + 0]);
   pos[3 * i + 1] = A::add(ray.rel.y, p.v[P_BH + 1]);
   pos[3 * i + 2] = A::add(ray.rel.z, p.v[P_BH + 2]);
@@ -60,20 +92,20 @@ __global__ void __launch_bounds__(256)
 
 template <bool FAST, bool KS>
 void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params& params,
-            int flags, int height, int width, int max_steps, float* pos, float* vel,
-            int32_t* status, int32_t* steps) {
+            int flags, int height, int width, int max_steps, const float* mask, float* pos,
+            float* vel, int32_t* status, int32_t* steps) {
   switch (integrator) {
     case kEuler:
       trace_planes_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(
-          params, flags, height, width, max_steps, pos, vel, status, steps);
+          params, flags, height, width, max_steps, mask, pos, vel, status, steps);
       break;
     case kRk4:
       trace_planes_kernel<FAST, kRk4, KS><<<grid, block, 0, s>>>(
-          params, flags, height, width, max_steps, pos, vel, status, steps);
+          params, flags, height, width, max_steps, mask, pos, vel, status, steps);
       break;
     default:
       trace_planes_kernel<FAST, kLeapfrog, KS><<<grid, block, 0, s>>>(
-          params, flags, height, width, max_steps, pos, vel, status, steps);
+          params, flags, height, width, max_steps, mask, pos, vel, status, steps);
   }
 }
 
@@ -81,24 +113,31 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
 }  // namespace bhr
 
 // C entry point, bound with ctypes by bhr_tpu_torch/utils/build.py.
-// Traces one frame on `stream` into contiguous arrays on `device`: pos and
-// vel fp32 (height, width, 3), status and steps int32 (height, width).
-// Returns cudaGetLastError() after the launch (0 on success); does not
-// synchronise. `integrator` is an Integrator and `flags` a TraceFlags mask
-// of trace_ray.cuh (at most one of flat, kerr_lt and Kerr-Schild).
+// Traces (height, width) rays on `stream` into contiguous arrays on
+// `device`: pos and vel fp32 (height, width, 3), status and steps int32
+// (height, width). (height, width) is the frame, or the local shape of a
+// strided or banded launch whose stride and origin are in `params`. `mask`
+// is null, or fp32 (height, width) on `device`: rays whose mask is not > 0
+// are not integrated. Returns cudaGetLastError() after the launch (0 on
+// success); does not synchronise. `integrator` is an Integrator and `flags`
+// a TraceFlags mask of trace_ray.cuh (at most one of flat, kerr_lt and
+// Kerr-Schild).
 extern "C" int bhr_trace_planes(bhr::Params params, int fast, int integrator, int flags,
-                                int height, int width, int max_steps, int device, void* pos,
-                                void* vel, void* status, void* steps, void* stream) {
+                                int height, int width, int max_steps, int device,
+                                const void* mask, void* pos, void* vel, void* status,
+                                void* steps, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int models = flags & (bhr::kFlagFlat | bhr::kFlagLT | bhr::kFlagKS);
-  if (integrator < bhr::kEuler || integrator > bhr::kLeapfrog || (models & (models - 1))) {
+  if (integrator < bhr::kEuler || integrator > bhr::kLeapfrog || (models & (models - 1)) ||
+      !(params.v[bhr::P_STRIDE] >= 1.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (height <= 0 || width <= 0) return 0;
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   auto s = static_cast<cudaStream_t>(stream);
+  auto* m = static_cast<const float*>(mask);
   auto* p = static_cast<float*>(pos);
   auto* v = static_cast<float*>(vel);
   auto* st = static_cast<int32_t*>(status);
@@ -106,16 +145,16 @@ extern "C" int bhr_trace_planes(bhr::Params params, int fast, int integrator, in
   const bool ks = flags & bhr::kFlagKS;
   if (fast && ks) {
     bhr::launch<true, true>(integrator, grid, block, s, params, flags, height, width, max_steps,
-                            p, v, st, n);
+                            m, p, v, st, n);
   } else if (fast) {
     bhr::launch<true, false>(integrator, grid, block, s, params, flags, height, width,
-                             max_steps, p, v, st, n);
+                             max_steps, m, p, v, st, n);
   } else if (ks) {
     bhr::launch<false, true>(integrator, grid, block, s, params, flags, height, width,
-                             max_steps, p, v, st, n);
+                             max_steps, m, p, v, st, n);
   } else {
     bhr::launch<false, false>(integrator, grid, block, s, params, flags, height, width,
-                              max_steps, p, v, st, n);
+                              max_steps, m, p, v, st, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

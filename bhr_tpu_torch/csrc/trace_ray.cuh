@@ -325,15 +325,19 @@ __device__ __forceinline__ bool disk_crossing(Vec3 old, Vec3 nw, float r_isco, f
 
 // ---- the ray ------------------------------------------------------------------
 
-// Primary ray of pixel (row, col) of the band at (P_ROW0, P_COL0)
-// (pallas_trace.py:742-765; core/camera.py:generate_rays), normalised
-// twice as generate_rays and trace_rays each normalise.
+// Primary ray of local pixel (row, col): full-image pixel (row * P_STRIDE +
+// P_ROW0, col * P_STRIDE + P_COL0), in integers and then converted, against
+// the full image's P_WF and P_HF (pallas_trace.py:742-765, strided :745-755;
+// core/camera.py:generate_rays), normalised twice as generate_rays and
+// trace_rays each normalise. Stride 1 at the origin is a whole frame; a
+// stride d is the multires low pass; row0 / col0 place a band.
 template <bool FAST>
 __device__ __forceinline__ void generate_ray(const Params& p, int row, int col, Vec3& rel,
                                              Vec3& vel) {
   using A = Arith<FAST>;
-  const float rows_f = static_cast<float>(row + static_cast<int>(p.v[P_ROW0]));
-  const float cols_f = static_cast<float>(col + static_cast<int>(p.v[P_COL0]));
+  const int stride = static_cast<int>(p.v[P_STRIDE]);
+  const float rows_f = static_cast<float>(row * stride + static_cast<int>(p.v[P_ROW0]));
+  const float cols_f = static_cast<float>(col * stride + static_cast<int>(p.v[P_COL0]));
   const float u = A::mul(A::mul(A::sub(A::div(cols_f, p.v[P_WF]), 0.5f), 2.0f), p.v[P_ASPECT]);
   const float v = A::mul(A::sub(A::div(rows_f, p.v[P_HF]), 0.5f), -2.0f);
   const float uf = A::mul(u, p.v[P_FOVF]);

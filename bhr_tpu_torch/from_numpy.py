@@ -1,6 +1,6 @@
 """Build the port's data model from numpy arrays, so one scene (or one
-set of surrogate weights) can feed both bhr_tpu and bhr_tpu_torch (pass
-np.asarray of each JAX field)."""
+set of surrogate weights, one skybox texture, one set of trace planes) can
+feed both bhr_tpu and bhr_tpu_torch (pass np.asarray of each JAX field)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import torch
 from .core.camera import Camera
 from .core.scene import DEBUG_NONE, SceneParams
 from .models.neural import NeuralSurrogate
+from .ops.sampling import luma_pack_texture, pack_texture_rgba8
+from .ops.trace import TraceResult
 
 
 def _f32(x) -> torch.Tensor:
@@ -43,3 +45,30 @@ def neural_params_from_numpy(params) -> NeuralSurrogate:
     weights."""
     return NeuralSurrogate((np.asarray(w, np.float32), np.asarray(b, np.float32))
                            for w, b in params)
+
+
+def texture_from_numpy(texture, *, texture_filter: str = "bilinear", device="cpu"):
+    """The port's device texture from bhr_tpu's: either its loaded skybox
+    (io.skybox.load_skybox: fp32 (H, W, 3 or 4) of k/255) or its packed
+    uint32 (H, W) plane (ops.sampling.pack_texture_rgba8). Returns the
+    packed int32 (H, W) tensor with the same bits, or for `texture_filter`
+    "luma" the pair of ops/sampling.luma_pack_texture, as
+    BlackHoleRenderer keeps it and render_image, shade_image and
+    render_multires take it."""
+    arr = np.asarray(texture)
+    if arr.ndim == 2:
+        packed = torch.from_numpy(arr.astype(np.uint32).view(np.int32)).to(device)
+    else:
+        packed = pack_texture_rgba8(arr.astype(np.float32), device=device)
+    return luma_pack_texture(packed) if texture_filter == "luma" else packed
+
+
+def trace_result_from_numpy(final_pos, final_vel, status, steps, *, device="cpu") -> TraceResult:
+    """A TraceResult from the four planes of a bhr_tpu TraceResult, so both
+    packages shade the same trace."""
+    return TraceResult(
+        final_pos=_f32(final_pos).to(device),
+        final_vel=_f32(final_vel).to(device),
+        status=torch.from_numpy(np.array(status, dtype=np.int32)).to(device),
+        steps=torch.from_numpy(np.array(steps, dtype=np.int32)).to(device),
+    )

@@ -1,0 +1,115 @@
+"""ctypes bindings for the native OpenEXR codec (native/bhr_exr.cpp, built
+into native/libbhr_native.so by native/Makefile): the port's own copy of
+the EXR entry points of bhr_tpu/io/native.py.
+
+The library is built with `make` at first use. Where the toolchain or the
+system OpenEXR is missing, `exr_available()` is False and io/skybox.py
+decodes with its pure-Python reader (scanline NONE/ZIPS/ZIP); a PIZ file
+then raises that reader's "unsupported EXR compression". BHR_NO_NATIVE=1
+disables the library explicitly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_NATIVE_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libbhr_native.so")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+# OpenEXR's compression enum
+EXR_COMPRESSION = {"none": 0, "rle": 1, "zips": 2, "zip": 3, "piz": 4}
+
+
+def _load():
+    """The loaded library with its EXR signatures declared, or None. Tried
+    once per process."""
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        if os.environ.get("BHR_NO_NATIVE"):
+            return None
+        if not os.path.exists(_LIB_PATH):
+            try:
+                subprocess.run(["make", "-s"], cwd=_NATIVE_DIR, check=True, capture_output=True,
+                               timeout=120)
+            except Exception:
+                return None
+        try:
+            lib = ctypes.CDLL(_LIB_PATH)
+            c_float_p = ctypes.POINTER(ctypes.c_float)
+            c_int_p = ctypes.POINTER(ctypes.c_int)
+            lib.bhr_exr_available.restype = ctypes.c_int
+            lib.bhr_exr_error.restype = ctypes.c_char_p
+            lib.bhr_exr_size.argtypes = [ctypes.c_char_p, c_int_p, c_int_p]
+            lib.bhr_exr_size.restype = ctypes.c_int
+            lib.bhr_exr_read.argtypes = [ctypes.c_char_p, c_float_p]
+            lib.bhr_exr_read.restype = ctypes.c_int
+            lib.bhr_exr_write.argtypes = [ctypes.c_char_p, c_float_p, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int]
+            lib.bhr_exr_write.restype = ctypes.c_int
+            _lib = lib
+        except (OSError, AttributeError):  # no library, or one without the EXR codec
+            _lib = None
+        return _lib
+
+
+def exr_available() -> bool:
+    lib = _load()
+    return bool(lib is not None and lib.bhr_exr_available())
+
+
+def _exr_err(lib) -> str:
+    try:
+        return lib.bhr_exr_error().decode(errors="replace")
+    except Exception:
+        return "unknown native EXR error"
+
+
+def _require():
+    lib = _load()
+    if lib is None or not exr_available():
+        raise RuntimeError("native EXR support unavailable")
+    return lib
+
+
+def read_exr_native(path: str) -> np.ndarray:
+    """Decode any EXR to fp32 (H, W, 4) RGBA via OpenEXR."""
+    lib = _require()
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    if lib.bhr_exr_size(path.encode(), ctypes.byref(w), ctypes.byref(h)):
+        raise IOError(f"EXR open failed for {path}: {_exr_err(lib)}")
+    out = np.empty((h.value, w.value, 4), np.float32)
+    if lib.bhr_exr_read(path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))):
+        raise IOError(f"EXR decode failed for {path}: {_exr_err(lib)}")
+    return out
+
+
+def write_exr_native(path: str, rgba: np.ndarray, compression: str = "piz",
+                     half: bool = True) -> None:
+    """Encode fp32 (H, W, >=3) RGBA to EXR via OpenEXR (PIZ by default, the
+    scheme real star-map assets ship with)."""
+    lib = _require()
+    rgba = np.asarray(rgba, np.float32)
+    if rgba.ndim != 3 or rgba.shape[2] < 3:
+        raise ValueError("expected (H, W, >=3) RGBA array")
+    if rgba.shape[2] == 3:
+        rgba = np.concatenate([rgba, np.ones(rgba.shape[:2] + (1,), np.float32)], axis=-1)
+    rgba = np.ascontiguousarray(rgba[..., :4])
+    hgt, wid = rgba.shape[:2]
+    comp = EXR_COMPRESSION[compression] if isinstance(compression, str) else int(compression)
+    rc = lib.bhr_exr_write(path.encode(), rgba.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                           wid, hgt, comp, int(bool(half)))
+    if rc:
+        raise IOError(f"EXR encode failed for {path}: {_exr_err(lib)}")

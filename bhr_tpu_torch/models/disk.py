@@ -196,16 +196,70 @@ def temperature_to_color(t, lut=None, t_min=LUT_T_MIN, t_max=LUT_T_MAX):
     return lut[i0] * (1.0 - f) + lut[i1] * f
 
 
+SELECT_LUT_STEPS = 64  # temperature_to_color_select's coarse table
+
+
+@functools.lru_cache(maxsize=1)
+def select_lut_np() -> tuple[np.ndarray, np.ndarray]:
+    """The tables of `temperature_to_color_select`: the 512-entry curve
+    resampled to 64 uniform knots (np.interp, as bhr_tpu resamples it),
+    then per segment i its start colour, summed in fp32 in bhr_tpu's order
+    (lut[0] + d_0 + ... + d_{i-1}), and its delta d_i. Both (63, 3) fp32."""
+    lut = blackbody_lut_np()
+    xs = np.linspace(0, LUT_STEPS - 1, SELECT_LUT_STEPS)
+    coarse = np.stack([np.interp(xs, np.arange(LUT_STEPS), lut[:, c]) for c in range(3)],
+                      axis=-1).astype(np.float32)
+    deltas = np.diff(coarse, axis=0)
+    starts = np.empty_like(deltas)
+    acc = coarse[0].copy()
+    for i in range(SELECT_LUT_STEPS - 1):
+        starts[i] = acc
+        acc = acc + deltas[i]  # fp32, one rounding a segment
+    return starts, deltas
+
+
+@functools.lru_cache(maxsize=8)
+def _select_lut_on(device: torch.device):
+    """select_lut_np's tables on `device`, copied there once: a copy from
+    host memory in every frame would make the host wait for the device."""
+    return tuple(torch.from_numpy(a).to(device) for a in select_lut_np())
+
+
+def temperature_to_color_select(t, t_min=LUT_T_MIN, t_max=LUT_T_MAX):
+    """The blackbody colour of bhr_tpu's multires epilogue
+    (bhr_tpu/models/disk.py:temperature_to_color_select, its `lut="select"`):
+    the piecewise-linear curve through 64 knots resampled from the
+    512-entry table, which lies within 1.5 levels of `temperature_to_color`.
+
+    bhr_tpu evaluates it without a gather, as lut[0] + sum_i d_i clamp(x -
+    i, 0, 1) over all 63 segments. Every term before x's segment adds d_i
+    and every one after it adds 0, so the sum is start_i + d_i (x - i) with
+    start_i the fp32 prefix sum: the same value from two indexed reads,
+    which is what a gather costs here."""
+    starts, deltas = _select_lut_on(t.device)
+    steps = SELECT_LUT_STEPS
+    x = (t - t_min) / on_device(t_max - t_min, t.device) * (steps - 1)
+    x = torch.clamp(x, 0.0, steps - 1.0)
+    i0 = torch.clamp_max(torch.floor(x).to(torch.int64), steps - 2)
+    w = torch.clamp(x - i0.to(_F32), 0.0, 1.0)[..., None]
+    return starts[i0] + deltas[i0] * w
+
+
 def disk_emission(hit_pos, ray_direction, observer_r, rs, params: DiskParams, lut=None):
     """Observed disk colour at a hit point (ROADMAP.md:451-459):
     T_obs = T_emit / g, I_obs = I_emit / g^3, with a radial falloff so the
-    outer edge fades. (..., 3) fp32 linear colour."""
+    outer edge fades. (..., 3) fp32 linear colour. `lut` is the (512, 3)
+    table, or the string "select" for the multires epilogue's curve
+    (`temperature_to_color_select`)."""
     r = sqrt_rn(dot(hit_pos, hit_pos))
     g = redshift_factor(hit_pos, ray_direction, observer_r, rs)
     g = torch.clamp_min(g, 1e-3)
     t_emit = disk_temperature(r, params.r_isco, params.t_isco)
     t_obs = t_emit / g
-    color = temperature_to_color(t_obs, lut)
+    if isinstance(lut, str) and lut == "select":
+        color = temperature_to_color_select(t_obs)
+    else:
+        color = temperature_to_color(t_obs, lut)
     beaming = 1.0 / (g * g * g)
     edge = torch.clamp((params.r_outer - r) / (params.r_outer - params.r_isco), 0.0, 1.0)
     rel_t = t_obs / on_device(T_ISCO, t_obs.device)

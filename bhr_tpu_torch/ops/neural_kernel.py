@@ -19,8 +19,12 @@ the nets bhr_tpu sends its kernel (`kernel_takes`: hidden widths that are
 multiples of 128); the kernel holds those of at most 8 layers up to what a
 block's shared memory holds (`kernel_plan`: widths up to 1152 in the
 default tier, 1024 in the highest) and raises for any other.
-The texture variant (N3, item 10) and the row-band variant (N4, item 15)
-are not ported.
+`neural_trace_dirs` is the same kernel's direction-plane output (N3,
+bhr_tpu's emit="dirs"): it stores the unit directions and the capture
+status as a TraceResult instead of shading them, for frames with a texture
+skybox, whose epilogue (renderer.shade_image) samples the texture. Its
+plain version is `neural_trace_dirs_reference`. The row-band variant (N4,
+item 15) is not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..core.camera import Camera
-from ..core.math import rsqrt, sqrt_rn
+from ..core.math import on_device, rsqrt, sqrt_rn
 from ..core.scene import SceneParams
 from ..models.neural import (
     _BC_FACTOR,
@@ -42,7 +46,7 @@ from ..models.neural_kerr import criticality_kerr
 from .sampling import pack_rgba8_planes
 from .starfield import procedural_background, seed_term
 from ..utils.build import MAX_LAYERS, MlpDesc
-from .trace import TraceConfig
+from .trace import STATUS_CAPTURED, STATUS_ESCAPED, TraceConfig, TraceResult
 from .trace_kernel import (
     _P_ASPECT,
     _P_BH,
@@ -63,8 +67,10 @@ from .trace_kernel import (
 )
 
 # Kernel launches so far in this process: incremented by `neural_render_packed`
-# right after a successful launch of csrc/neural_mlp.cu, and nowhere else.
+# (NEURAL_LAUNCHES) and `neural_trace_dirs` (NEURAL_DIRS_LAUNCHES) right after
+# a successful launch of csrc/neural_mlp.cu, and nowhere else.
 NEURAL_LAUNCHES = 0
+NEURAL_DIRS_LAUNCHES = 0
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use (sm_90)
 KERNEL_TIERS = ("default", "highest")
@@ -147,6 +153,16 @@ def kernel_takes(params, scene: SceneParams, *, tonemap: str, precision) -> bool
             and kernel_shapes_ok(params))
 
 
+def dirs_kernel_takes(params, scene: SceneParams, *, dtype: str, precision) -> bool:
+    """True where bhr_tpu sends a neural frame with a texture skybox to its
+    direction-plane kernel (bhr_tpu/renderer.py:210-218): no debug view,
+    neural_dtype float32, the default or highest tier and a net that
+    `kernel_shapes_ok` takes -- whatever the tonemap, which the epilogue
+    applies."""
+    return (scene.debug_mode == 0 and str(dtype) == "float32" and precision in KERNEL_TIERS
+            and kernel_shapes_ok(params))
+
+
 def prep_weights(params, *, precision, device) -> tuple:
     """The kernel's operands (bhr_tpu/ops/neural_pallas.py:85-107 without
     the TPU's pads), contiguous on `device`: per layer the weights with the
@@ -188,15 +204,12 @@ def _mlp_desc(params: NeuralSurrogate, precision: str, device: torch.device, pla
     return held[2]
 
 
-def neural_render_packed_reference(params, camera: Camera, scene: SceneParams, *,
-                                   seed: int = 2020, precision="default",
-                                   device) -> torch.Tensor:
-    """The kernel's plain PyTorch version, on any device -> packed int32
-    (H, W): bhr_tpu/ops/neural_pallas.py:155-362 operation for operation,
-    with the MLP through mlp_apply at `precision`."""
-    params = as_surrogate(params)
-    precision = kernel_tier(precision)
-    device = torch.device(device)
+def _directions_reference(params: NeuralSurrogate, camera: Camera, scene: SceneParams,
+                          precision: str, device: torch.device):
+    """The kernel's per-pixel arithmetic up to the store, plain, on any
+    device: the unit direction planes (vx, vy, vz) and the capture logit
+    (bhr_tpu/ops/neural_pallas.py:155-336 operation for operation, with
+    the MLP through mlp_apply at `precision`)."""
     kerr = params.model == "kerr"
     f32 = torch.float32
     p = build_params(camera, scene, TraceConfig()).to(device)
@@ -257,9 +270,77 @@ def neural_render_packed_reference(params, camera: Camera, scene: SceneParams, *
         vy = cos_phi * uy + sin_phi * why
         vz = cos_phi * uz + sin_phi * whz
     vinv = rsqrt(vx * vx + vy * vy + vz * vz)
-    r_, g_, b_ = procedural_background(vx * vinv, vy * vinv, vz * vinv, seed=seed)
-    live = (out[..., -1] <= 0.0).to(f32)  # a positive logit is captured: black
+    return vx * vinv, vy * vinv, vz * vinv, out[..., -1]
+
+
+def neural_render_packed_reference(params, camera: Camera, scene: SceneParams, *,
+                                   seed: int = 2020, precision="default",
+                                   device) -> torch.Tensor:
+    """The frame kernel's plain PyTorch version, on any device -> packed
+    int32 (H, W): `_directions_reference`, then the star field, captured
+    rays (a positive logit) black, round-half-up
+    (bhr_tpu/ops/neural_pallas.py:345-362)."""
+    vx, vy, vz, logit = _directions_reference(as_surrogate(params), camera, scene,
+                                              kernel_tier(precision), torch.device(device))
+    r_, g_, b_ = procedural_background(vx, vy, vz, seed=seed)
+    live = (logit <= 0.0).to(torch.float32)
     return pack_rgba8_planes(r_ * live, g_ * live, b_ * live, half_up=True)
+
+
+def _trace_result(vel: torch.Tensor, status: torch.Tensor, camera: Camera,
+                  scene: SceneParams) -> TraceResult:
+    """The TraceResult of a neural trace (bhr_tpu/ops/neural_pallas.py:
+    506-516): final_pos the camera position (an expanded view: shading
+    reads it for the disk only, and the surrogate has none), steps
+    max_steps everywhere. Built by fill kernels: no host sync."""
+    h, w = status.shape
+    return TraceResult(
+        final_pos=on_device(camera.position, vel.device).expand(h, w, 3),
+        final_vel=vel,
+        status=status,
+        steps=torch.full((h, w), scene.max_steps, dtype=torch.int32, device=vel.device),
+    )
+
+
+def neural_trace_dirs_reference(params, camera: Camera, scene: SceneParams, *,
+                                precision="default", device) -> TraceResult:
+    """`neural_trace_dirs`'s plain PyTorch version, on any device: the
+    frame kernel's plain version up to the rotation and renormalisation,
+    without the star field; status is STATUS_CAPTURED where the logit is
+    positive, else STATUS_ESCAPED."""
+    vx, vy, vz, logit = _directions_reference(as_surrogate(params), camera, scene,
+                                              kernel_tier(precision), torch.device(device))
+    status = torch.where(logit > 0.0, STATUS_CAPTURED, STATUS_ESCAPED).to(torch.int32)
+    return _trace_result(torch.stack([vx, vy, vz], dim=-1), status, camera, scene)
+
+
+def _launch(params: NeuralSurrogate, camera, scene, precision: str, plan, device: torch.device,
+            seed, out, vel, status) -> None:
+    """Launch csrc/neural_mlp.cu on the current stream into `out` (the
+    packed frame) or into `vel` and `status` (the direction planes)."""
+    from ..utils.build import load_neural_mlp
+
+    lib = load_neural_mlp()
+    desc = _mlp_desc(params, precision, device, plan)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.bhr_neural_render(
+        _kernel_params(camera, scene, TraceConfig()), seed_term(seed),
+        int(params.model == "kerr"), int(precision == "highest"), scene.screen_height,
+        scene.screen_width, desc, device.index, *(None if t is None else t.data_ptr()
+                                                  for t in (out, vel, status)), stream,
+    )
+    _raise_on_error(lib, rc, "neural_render launch")
+
+
+def _plan(params: NeuralSurrogate, precision: str) -> tuple[int, int, int]:
+    """`kernel_plan`, or a ValueError for a net no block holds."""
+    plan = kernel_plan(params, precision)
+    if plan is None:
+        raise ValueError(f"the neural kernel has no block for a net of {len(params)} layers and "
+                         f"hidden widths {params.widths} at precision {precision!r}: it takes up "
+                         f"to {MAX_LAYERS} layers of widths that are multiples of 128, up to "
+                         "1152 (default) or 1024 (highest) (see kernel_plan)")
+    return plan
 
 
 def neural_render_packed(params, camera: Camera, scene: SceneParams, *, seed: int = 2020,
@@ -282,12 +363,7 @@ def neural_render_packed(params, camera: Camera, scene: SceneParams, *, seed: in
     global NEURAL_LAUNCHES
     params = as_surrogate(params)
     precision = kernel_tier(precision)
-    plan = kernel_plan(params, precision)
-    if plan is None:
-        raise ValueError(f"the neural kernel has no block for a net of {len(params)} layers and "
-                         f"hidden widths {params.widths} at precision {precision!r}: it takes up "
-                         f"to {MAX_LAYERS} layers of widths that are multiples of 128, up to "
-                         "1152 (default) or 1024 (highest) (see kernel_plan)")
+    plan = _plan(params, precision)
     device = _kernel_device(device, "neural_render_packed")
     shape = (scene.screen_height, scene.screen_width)
     if out is not None:
@@ -296,18 +372,51 @@ def neural_render_packed(params, camera: Camera, scene: SceneParams, *, seed: in
         frame = neural_render_packed_reference(params, camera, scene, seed=seed,
                                                precision=precision, device=device)
         return frame if out is None else out.copy_(frame)
-    from ..utils.build import load_neural_mlp
-
-    lib = load_neural_mlp()
-    desc = _mlp_desc(params, precision, device, plan)
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.bhr_neural_render(
-        _kernel_params(camera, scene, TraceConfig()), seed_term(seed),
-        int(params.model == "kerr"), int(precision == "highest"), shape[0], shape[1], desc,
-        device.index, out.data_ptr(), stream,
-    )
-    _raise_on_error(lib, rc, "neural_render launch")
+    _launch(params, camera, scene, precision, plan, device, seed, out, None, None)
     NEURAL_LAUNCHES += 1
     return out
+
+
+def neural_trace_dirs(params, camera: Camera, scene: SceneParams, *, precision="default",
+                      device, out: TraceResult | None = None) -> TraceResult:
+    """The neural deflection field of one frame as a single kernel launch
+    -> TraceResult (bhr_tpu/ops/neural_pallas.py:464-516): final_vel the
+    predicted unit directions, status STATUS_CAPTURED where the capture
+    logit is positive and STATUS_ESCAPED elsewhere, final_pos the camera
+    position and steps max_steps (see `_trace_result`). It feeds the
+    shading epilogue of frames with a texture skybox.
+
+    `params` and `precision` as `neural_render_packed` takes them, and it
+    raises for the same nets. On a CPU device this is
+    `neural_trace_dirs_reference`. On a CUDA device it launches
+    csrc/neural_mlp.cu with its direction-plane outputs on the current
+    stream, without a host sync, and raises when CUDA is not available or
+    the launch fails. `out`, if given, is a TraceResult on `device` whose
+    contiguous final_vel fp32 (H, W, 3) and status int32 (H, W) receive
+    the planes; its final_pos and steps are not written.
+    """
+    global NEURAL_DIRS_LAUNCHES
+    params = as_surrogate(params)
+    precision = kernel_tier(precision)
+    plan = _plan(params, precision)
+    device = _kernel_device(device, "neural_trace_dirs")
+    h, w = scene.screen_height, scene.screen_width
+    if out is not None:
+        _check_out(out.final_vel, (h, w, 3), torch.float32, device, "out.final_vel")
+        _check_out(out.status, (h, w), torch.int32, device, "out.status")
+    if device.type == "cpu":
+        result = neural_trace_dirs_reference(params, camera, scene, precision=precision,
+                                             device=device)
+        if out is None:
+            return result
+        out.final_vel.copy_(result.final_vel)
+        out.status.copy_(result.status)
+        return _trace_result(out.final_vel, out.status, camera, scene)
+    vel = torch.empty((h, w, 3), dtype=torch.float32, device=device) if out is None \
+        else out.final_vel
+    status = torch.empty((h, w), dtype=torch.int32, device=device) if out is None else out.status
+    _launch(params, camera, scene, precision, plan, device, 0, None, vel, status)
+    NEURAL_DIRS_LAUNCHES += 1
+    return _trace_result(vel, status, camera, scene)

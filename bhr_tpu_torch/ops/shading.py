@@ -9,13 +9,22 @@ epilogue runs as plain PyTorch on the device after the trace kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.math import dot, on_device, sqrt_rn
 from ..core.scene import DEBUG_STEPS
 from ..models.disk import disk_emission
 from .heatmap import steps_to_color
-from .sampling import pack_rgba8_planes
+from .sampling import (
+    pack_rgba8_planes,
+    sample_equirect_packed,
+    sample_equirect_packed_checkerboard,
+    sample_equirect_packed_luma,
+    sample_equirect_packed_subsampled,
+)
+from .starfield import procedural_background
 from .trace import STATUS_CAPTURED, STATUS_DISK, TraceResult
 
 
@@ -65,3 +74,31 @@ def shade_planes_packed(
     if tonemap is not None:
         r, g, b = tonemap(r), tonemap(g), tonemap(b)
     return pack_rgba8_planes(r, g, b, half_up=half_up)
+
+
+def texture_background(skybox, result: TraceResult, *, texture_filter: str, texture_subsample,
+                       seed: int, approximate: bool = True):
+    """The background callable (dx, dy, dz) -> (r, g, b) of a shading
+    epilogue (bhr_tpu/renderer.py:333-381, bhr_tpu/ops/multires.py:111-146):
+    the analytic star field of `seed` without a skybox; else the packed
+    texture through the luma tier (`skybox` is then luma_pack_texture's
+    pair), the subsampled or checkerboard reconstruction, or the plain
+    sampler. `approximate=False` (the debug views) switches the luma and
+    subsampled tiers off, as bhr_tpu does."""
+    if skybox is None:
+        return functools.partial(procedural_background, seed=seed)
+    vel, status = result.final_vel, result.status
+    planes = (vel[..., 0], vel[..., 1], vel[..., 2], status)
+    if texture_filter == "luma" and approximate:
+        chroma_sub = (texture_subsample
+                      if isinstance(texture_subsample, int) and texture_subsample > 1 else 2)
+        rgb = sample_equirect_packed_luma(skybox, *planes, chroma_sub=chroma_sub)
+        return lambda *_: rgb
+    if texture_subsample != 1 and approximate:
+        if texture_subsample == "checker":
+            rgb = sample_equirect_packed_checkerboard(skybox, *planes, filter=texture_filter)
+        else:
+            rgb = sample_equirect_packed_subsampled(skybox, *planes, texture_subsample,
+                                                    filter=texture_filter)
+        return lambda *_: rgb
+    return functools.partial(sample_equirect_packed, skybox, filter=texture_filter)

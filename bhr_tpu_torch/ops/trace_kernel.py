@@ -11,8 +11,10 @@ port of the monolithic and staged paths of bhr_tpu/ops/pallas_trace.py).
 Both kernels cover the euler, rk4 and leapfrog integrators, fixed or
 adaptive dt, the Schwarzschild, exact Kerr (Kerr-Schild), Lense-Thirring
 Kerr and flat metrics and the accretion disk, in the fast and the exact
-math tier. A wrapper runs its plain version for
-a CPU device; for a CUDA device it launches the kernel or raises -- it
+math tier. `trace_image` also takes K4's strided and masked ray-gen
+(`stride`, `local_shape`, `row0`, `col0`; `mask`), which the multires
+renderer (ops/multires.py) is built on. A wrapper runs its plain version
+for a CPU device; for a CUDA device it launches the kernel or raises -- it
 never falls back.
 """
 
@@ -23,7 +25,7 @@ import functools
 import torch
 
 from ..core.camera import Camera, generate_rays
-from ..core.math import sqrt_rn
+from ..core.math import dot, sqrt_rn
 from ..core.scene import CAPTURE_FACTOR, SceneParams
 from ..models.disk import T_ISCO, kernel_lut_np, shade_disk_planes
 from .geodesic import INTEGRATORS, MODELS, model_capture_radius
@@ -32,6 +34,7 @@ from .starfield import procedural_background, seed_term
 from .trace import (
     STATUS_CAPTURED,
     STATUS_DISK,
+    STATUS_ESCAPED,
     TraceConfig,
     TraceResult,
     check_traceable,
@@ -41,8 +44,12 @@ from .trace import (
 # Kernel launches so far in this process: each is incremented by its
 # wrapper right after a successful launch of its CUDA kernel, and nowhere
 # else (`render_packed` -> render_mono.cu, `trace_image` -> trace_planes.cu).
+# STRIDED_LAUNCHES and MASKED_LAUNCHES count, besides, the trace_planes
+# launches with stride != 1 and with a mask.
 LAUNCHES = 0
 TRACE_LAUNCHES = 0
+STRIDED_LAUNCHES = 0
+MASKED_LAUNCHES = 0
 
 # params vector layout (fp32[32]), as bhr_tpu/ops/pallas_trace.py:181-201
 _P_CAM = 0  # 0:3 camera position
@@ -191,11 +198,11 @@ def _raise_on_error(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({lib.bhr_error_string(rc).decode()})")
 
 
-def _kernel_params(camera, scene, config):
+def _kernel_params(camera, scene, config, row0=0, col0=0, stride=1):
     from ..utils.build import KernelParams
 
     params = KernelParams()
-    params.v[:] = build_params(camera, scene, config).tolist()
+    params.v[:] = build_params(camera, scene, config, row0, col0, stride).tolist()
     return params
 
 
@@ -314,38 +321,97 @@ def empty_trace_result(height: int, width: int, device) -> TraceResult:
     )
 
 
+def _local_shape(scene: SceneParams, stride: int, local_shape) -> tuple[int, int]:
+    """The (height, width) a trace covers: `local_shape`, or the frame."""
+    if int(stride) < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    if stride != 1 and local_shape is None:
+        raise ValueError("a strided trace needs local_shape (ceil(H / stride), "
+                         "ceil(W / stride) for a whole frame)")
+    h, w = local_shape or (scene.screen_height, scene.screen_width)
+    return int(h), int(w)
+
+
+def _check_mask(mask: torch.Tensor, shape, device: torch.device) -> None:
+    ok = (isinstance(mask, torch.Tensor) and tuple(mask.shape) == tuple(shape)
+          and mask.dtype == torch.float32 and mask.device.type == device.type
+          and device.index in (None, mask.device.index) and mask.is_contiguous())
+    if not ok:
+        raise ValueError(f"mask must be a contiguous float32 {tuple(shape)} tensor on {device}")
+
+
 def trace_image_reference(camera: Camera, scene: SceneParams,
                           config: TraceConfig = TraceConfig(), *, fast_math: bool = False,
-                          device) -> TraceResult:
+                          device, mask: torch.Tensor | None = None, stride: int = 1,
+                          local_shape: tuple[int, int] | None = None, row0: int = 0,
+                          col0: int = 0) -> TraceResult:
     """The planes kernel's plain PyTorch version, on any device:
-    generate_rays, then trace_rays in the chosen tier."""
+    generate_rays, then trace_rays in the chosen tier. `mask`, `stride`,
+    `local_shape`, `row0` and `col0` as `trace_image` takes them: only the
+    rays the mask keeps are traced, and the others get the same defined
+    values the kernel writes."""
     check_traceable(config)
     device = torch.device(device)
+    shape = _local_shape(scene, stride, local_shape)
     origins, dirs = generate_rays(
-        camera, scene.screen_width, scene.screen_height, scene.fov, device=device
+        camera, scene.screen_width, scene.screen_height, scene.fov, device=device,
+        stride=stride, row0=row0, col0=col0, local_shape=shape,
     )
-    return trace_rays(
-        origins, dirs, scene.black_hole_position, scene.schwarzschild_radius, scene.spin,
-        scene.max_steps, config, fast_math=fast_math,
+    args = (scene.black_hole_position, scene.schwarzschild_radius, scene.spin, scene.max_steps,
+            config)
+    if mask is None:
+        return trace_rays(origins, dirs, *args, fast_math=fast_math)
+    _check_mask(mask, shape, device)
+    keep = mask > 0.0
+    # a masked-off ray: the camera position, its initial unit direction
+    # (normalised again as trace_rays normalises), escaped, no steps
+    result = TraceResult(
+        final_pos=origins.clone(),
+        final_vel=dirs / sqrt_rn(dot(dirs, dirs))[..., None],
+        status=torch.full(shape, STATUS_ESCAPED, dtype=torch.int32, device=device),
+        steps=torch.zeros(shape, dtype=torch.int32, device=device),
     )
+    kept = trace_rays(origins[keep], dirs[keep], *args, fast_math=fast_math)
+    for name in ("final_pos", "final_vel", "status", "steps"):
+        getattr(result, name)[keep] = getattr(kept, name)
+    return result
 
 
 def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceConfig(), *,
-                fast_math: bool = False, device,
-                out: TraceResult | None = None) -> TraceResult:
+                fast_math: bool = False, device, out: TraceResult | None = None,
+                mask: torch.Tensor | None = None, stride: int = 1,
+                local_shape: tuple[int, int] | None = None, row0: int = 0,
+                col0: int = 0) -> TraceResult:
     """Staged path: trace every pixel -> TraceResult of (H, W) planes
     (final_pos, final_vel fp32 (H, W, 3); status, steps int32 (H, W)), as
     bhr_tpu's pallas_trace_image returns, with `steps` always counted.
+
+    `stride` > 1 with `local_shape` traces every stride-th pixel of the
+    full image: local pixel (i, j) is full-image pixel (i * stride + row0,
+    j * stride + col0), and ray-gen always refers to the scene's full
+    width and height (the multires low pass). `row0` / `col0` with
+    `local_shape` alone trace a band. The planes have the local shape.
+
+    `mask` is a float32 tensor of the local shape on `device`: a ray whose
+    mask is > 0 is traced exactly as without a mask; any other is not
+    integrated and gets defined values -- final_pos the camera position,
+    final_vel its initial unit direction, status STATUS_ESCAPED, steps 0
+    -- which the caller is expected to discard (bhr_tpu leaves such pixels
+    with a sentinel position outside the escape sphere; the kernel and the
+    plain version here write the same values, so they compare on every
+    pixel). The mask is read on the device: no host sync.
 
     On a CPU device this is `trace_image_reference`. On a CUDA device it
     launches csrc/trace_planes.cu on the current stream, without a host
     sync, and raises when CUDA is not available or the launch fails.
     `out`, if given (see `empty_trace_result`), receives the planes.
     """
-    global TRACE_LAUNCHES
+    global TRACE_LAUNCHES, STRIDED_LAUNCHES, MASKED_LAUNCHES
     check_traceable(config)
     device = _kernel_device(device, "trace_image")
-    h, w = scene.screen_height, scene.screen_width
+    h, w = _local_shape(scene, stride, local_shape)
+    if mask is not None:
+        _check_mask(mask, (h, w), device)
     if out is not None:
         for name, shape, dtype in (("final_pos", (h, w, 3), torch.float32),
                                    ("final_vel", (h, w, 3), torch.float32),
@@ -353,7 +419,9 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
                                    ("steps", (h, w), torch.int32)):
             _check_out(getattr(out, name), shape, dtype, device, f"out.{name}")
     if device.type == "cpu":
-        result = trace_image_reference(camera, scene, config, fast_math=fast_math, device=device)
+        result = trace_image_reference(camera, scene, config, fast_math=fast_math, device=device,
+                                       mask=mask, stride=stride, local_shape=local_shape,
+                                       row0=row0, col0=col0)
         if out is None:
             return result
         for name in ("final_pos", "final_vel", "status", "steps"):
@@ -366,11 +434,13 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
         out = empty_trace_result(h, w, device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.bhr_trace_planes(
-        _kernel_params(camera, scene, config), int(bool(fast_math)),
+        _kernel_params(camera, scene, config, row0, col0, stride), int(bool(fast_math)),
         INTEGRATORS.index(config.integrator), trace_flags(config), h, w, int(scene.max_steps),
-        device.index, out.final_pos.data_ptr(), out.final_vel.data_ptr(),
-        out.status.data_ptr(), out.steps.data_ptr(), stream,
+        device.index, None if mask is None else mask.data_ptr(), out.final_pos.data_ptr(),
+        out.final_vel.data_ptr(), out.status.data_ptr(), out.steps.data_ptr(), stream,
     )
     _raise_on_error(lib, rc, "trace_planes launch")
     TRACE_LAUNCHES += 1
+    STRIDED_LAUNCHES += stride != 1
+    MASKED_LAUNCHES += mask is not None
     return out

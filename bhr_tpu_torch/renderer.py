@@ -20,16 +20,26 @@ them. The neural surrogate (integrator "neural", model schwarzschild or
 kerr) renders a frame with the analytic star field, the passthrough
 tonemap and no debug view at the default or highest precision tier in one
 csrc/neural_mlp.cu launch, and every other neural frame through the
-staged route ops/neural_trace and `shade_image`. On the CPU each kernel's
-plain PyTorch version stands in. Plugin physics, texture skyboxes and
-multires raise NotImplementedError naming the ROADMAP item (queue A) that
-brings them. The TPU tuning arguments of bhr_tpu (tile, kernel_knobs,
-use_pallas, interpret) have no counterpart here.
+staged route ops/neural_trace and `shade_image`.
+
+A texture skybox (`skybox=` a path or an array, e.g. io/skybox.load_skybox()
+for the procedural 2048x4096 star map) is packed once and kept on the device;
+a frame with one is never monolithic: the planes kernel traces it (for the
+neural surrogate, the direction-plane output of csrc/neural_mlp.cu,
+ops/neural_kernel.neural_trace_dirs) and `shade_image` samples the texture
+by `texture_filter` ("bilinear", "nearest", "luma") and
+`texture_subsample` (an int, or "checker"). `render_frame_multires`
+integrates at 1/divisor resolution through the planes kernel's strided and
+masked ray-gen (ops/multires.py), and `cache_deflection=True` keeps the
+trace while camera and scene geometry stand still and only shades again.
+On the CPU each kernel's plain PyTorch version stands in. Plugin physics
+raises NotImplementedError naming the ROADMAP item (queue A) that brings
+it. The TPU tuning arguments of bhr_tpu (tile, kernel_knobs, use_pallas,
+interpret) have no counterpart here.
 """
 
 from __future__ import annotations
 
-import functools
 import logging
 
 import numpy as np
@@ -39,14 +49,21 @@ from .core.camera import Camera
 from .core.math import on_device
 from .core.scene import SceneParams
 from .io import image as image_io
+from .io.skybox import load_skybox
 from .models import neural, neural_kerr
 from .models.disk import DiskParams, blackbody_lut
 from .ops.display import TONEMAPS
-from .ops.neural_kernel import as_surrogate, kernel_takes, neural_render_packed
+from .ops.multires import render_multires
+from .ops.neural_kernel import (
+    as_surrogate,
+    dirs_kernel_takes,
+    kernel_takes,
+    neural_render_packed,
+    neural_trace_dirs,
+)
 from .ops.neural_trace import neural_trace_image
-from .ops.sampling import unpack_frame
-from .ops.shading import shade_planes_packed
-from .ops.starfield import procedural_background
+from .ops.sampling import luma_pack_texture, pack_texture_rgba8, unpack_frame
+from .ops.shading import shade_planes_packed, texture_background
 from .ops.trace import TraceConfig, TraceResult
 from .ops.trace_kernel import monolithic_eligible, render_packed, trace_image
 
@@ -131,64 +148,98 @@ def _check_neural(model: str, adaptive: bool, disk: bool, multires: int) -> None
                          "skips integration; there is no low-res geodesic pass to save)")
 
 
+def trace_frame(camera: Camera, scene: SceneParams, *, config: TraceConfig, fast_math: bool,
+                device, planes: TraceResult | None = None, textured: bool = False,
+                neural_params=None, neural_dtype: str = "float32",
+                neural_precision: str = "default") -> TraceResult:
+    """The staged path's trace of one frame on `device`: one trace_planes
+    launch into `planes` (if given), or for config.integrator "neural" the
+    surrogate's deflection field -- one neural_mlp launch with its
+    direction-plane output where the frame is `textured` and
+    `dirs_kernel_takes` it (bhr_tpu/renderer.py:210-239), else the staged
+    route at `neural_dtype` and `neural_precision`."""
+    if config.integrator != "neural":
+        return trace_image(camera, scene, config, fast_math=fast_math, device=device, out=planes)
+    if neural_params is None:
+        raise ValueError("integrator='neural' needs neural_params")
+    if textured and dirs_kernel_takes(neural_params, scene, dtype=neural_dtype,
+                                      precision=neural_precision):
+        return neural_trace_dirs(neural_params, camera, scene, precision=neural_precision,
+                                 device=device, out=planes)
+    return neural_trace_image(neural_params, camera, scene, device=device, dtype=neural_dtype,
+                              precision=neural_precision)
+
+
 def render_image(camera: Camera, scene: SceneParams, *, config: TraceConfig, fast_math: bool,
                  device, tonemap: str = "passthrough", seed: int = 2020, packed: bool = False,
                  skybox=None, disk_params=None, lut=None, out: torch.Tensor | None = None,
-                 planes: TraceResult | None = None, neural_params=None,
-                 neural_dtype: str = "float32", neural_precision: str = "default") -> torch.Tensor:
+                 planes: TraceResult | None = None, texture_filter: str = "bilinear",
+                 texture_subsample=1, neural_params=None, neural_dtype: str = "float32",
+                 neural_precision: str = "default") -> torch.Tensor:
     """One frame on `device`: uint8 (H, W, 4), or the packed int32 (H, W)
     frame when `packed` (bhr_tpu/renderer.py:127-307).
 
     A frame that `monolithic_eligible` admits is one render_mono launch;
     any other is one trace_planes launch followed by `shade_image`. With
     config.disk, `disk_params` (models/disk.DiskParams on `device`) and
-    the (512, 3) `lut` shade the disk in the staged epilogue. `out`, if
-    given, receives the packed frame; `planes` (ops/trace_kernel.
-    empty_trace_result) are reused for the staged path's trace.
+    the (512, 3) `lut` shade the disk in the staged epilogue. `skybox` is
+    None for the analytic star field of `seed`, or the packed int32
+    texture on `device` (ops/sampling.pack_texture_rgba8; for
+    texture_filter "luma", luma_pack_texture's pair), sampled by
+    `texture_filter` and `texture_subsample`; a textured frame is always
+    staged. `out`, if given, receives the packed frame; `planes`
+    (ops/trace_kernel.empty_trace_result) are reused for the staged
+    path's trace.
 
     With config.integrator "neural", `neural_params` (a NeuralSurrogate on
     `device`) predicts the deflection field: one neural_mlp launch where
-    `kernel_takes` the frame, else the staged route at `neural_dtype` and
-    `neural_precision` ("default", "high" or "highest"), then shade_image.
+    `kernel_takes` the frame (no skybox) or `dirs_kernel_takes` it (with
+    one), else the staged route at `neural_dtype` and `neural_precision`
+    ("default", "high" or "highest"), then shade_image.
     """
-    if skybox is not None:
-        raise _not_ported("texture skyboxes", "10")
     if tonemap not in TONEMAPS:
         raise ValueError(f"unknown tonemap {tonemap!r}; have {sorted(TONEMAPS)}")
     if config.integrator == "neural":
         if neural_params is None:
             raise ValueError("integrator='neural' needs neural_params")
-        if kernel_takes(neural_params, scene, tonemap=tonemap, precision=neural_precision):
+        if skybox is None and kernel_takes(neural_params, scene, tonemap=tonemap,
+                                           precision=neural_precision):
             frame = neural_render_packed(neural_params, camera, scene, seed=seed,
                                          precision=neural_precision, device=device, out=out)
             return frame if packed else unpack_frame(frame)
-        result = neural_trace_image(neural_params, camera, scene, device=device,
-                                    dtype=neural_dtype, precision=neural_precision)
-        return shade_image(result, camera, scene, None, None, tonemap=tonemap, seed=seed,
-                           packed=packed, out=out)
-    if monolithic_eligible(config, scene, fast_math=fast_math, skybox=skybox,
-                           disk_params=disk_params, tonemap=tonemap):
+    elif monolithic_eligible(config, scene, fast_math=fast_math, skybox=skybox,
+                             disk_params=disk_params, tonemap=tonemap):
         frame = render_packed(camera, scene, config, seed=seed, fast_math=fast_math,
                               device=device, out=out)
         return frame if packed else unpack_frame(frame)
-    result = trace_image(camera, scene, config, fast_math=fast_math, device=device, out=planes)
+    result = trace_frame(camera, scene, config=config, fast_math=fast_math, device=device,
+                         planes=planes, textured=skybox is not None,
+                         neural_params=neural_params, neural_dtype=neural_dtype,
+                         neural_precision=neural_precision)
     return shade_image(result, camera, scene, disk_params, lut, tonemap=tonemap, seed=seed,
-                       packed=packed, out=out)
+                       packed=packed, out=out, skybox=skybox, texture_filter=texture_filter,
+                       texture_subsample=texture_subsample)
 
 
 def shade_image(result: TraceResult, camera: Camera, scene: SceneParams, disk_params, lut, *,
                 tonemap: str, seed: int = 2020, packed: bool = False,
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None, skybox=None, texture_filter: str = "bilinear",
+                texture_subsample=1) -> torch.Tensor:
     """The staged path's shading epilogue (bhr_tpu/renderer.py:316-395),
-    plain PyTorch on the planes' device: the star field of `seed`, the
-    disk's emission when `disk_params` is given, the tonemap, the step
-    heatmap for scene.debug_mode == 1, and round-half-to-even quantization
-    in both tiers. Returns uint8 (H, W, 4), or packed int32 (H, W) when
-    `packed`; `out`, if given, receives the packed frame."""
+    plain PyTorch on the planes' device: the background -- the star field
+    of `seed`, or the packed `skybox` texture through its filter tier
+    (ops/shading.texture_background; a debug view switches the luma and
+    subsampled tiers off) --, the disk's emission when `disk_params` is
+    given, the tonemap, the step heatmap for scene.debug_mode == 1, and
+    round-half-to-even quantization in both tiers. Returns uint8
+    (H, W, 4), or packed int32 (H, W) when `packed`; `out`, if given,
+    receives the packed frame."""
     tm = TONEMAPS[tonemap]
     frame = shade_planes_packed(
         result,
-        functools.partial(procedural_background, seed=seed),
+        texture_background(skybox, result, texture_filter=texture_filter,
+                           texture_subsample=texture_subsample, seed=seed,
+                           approximate=scene.debug_mode == 0),
         scene.max_steps,
         debug_mode=scene.debug_mode,
         bh_pos=scene.black_hole_position,
@@ -223,7 +274,10 @@ class BlackHoleRenderer:
         adaptive: bool = False,
         disk: bool = False,
         dt: float | None = None,
+        texture_filter: str = "bilinear",
+        texture_subsample=1,
         multires: int = 0,
+        cache_deflection: bool = False,
         neural_params=None,
         neural_dtype: str = "float32",
         neural_precision: str = "auto",
@@ -235,12 +289,21 @@ class BlackHoleRenderer:
             raise _not_ported("plugin physics (model='custom')", "14")
         if model not in ("schwarzschild", "kerr", "kerr_lt", "flat"):
             raise ValueError(f"unknown spacetime model {model!r}")
-        if skybox is not None:
-            raise _not_ported("texture skyboxes", "10")
         if integ == "neural":
             _check_neural(model, adaptive, disk, multires)
-        if multires:
-            raise _not_ported("multires rendering", "12")
+        if texture_filter == "fast":
+            raise ValueError("the 'fast' prefiltered tier was removed (strictly inside the "
+                             "speed/quality frontier); use 'luma' (bilinear-exact luminance at "
+                             "about nearest's cost) instead")
+        if texture_filter not in ("bilinear", "nearest", "luma"):
+            raise ValueError(f"texture_filter must be bilinear/nearest/luma, got "
+                             f"{texture_filter!r}")
+        if texture_subsample != "checker":
+            if int(texture_subsample) < 1:
+                raise ValueError("texture_subsample must be >= 1 or 'checker'")
+            texture_subsample = int(texture_subsample)
+        if multires and int(multires) < 0:
+            raise ValueError("multires divisor must be >= 0")
         if tonemap not in TONEMAPS:
             raise ValueError(f"unknown tonemap {tonemap!r}; have {sorted(TONEMAPS)}")
         if neural_precision not in NEURAL_PRECISIONS:
@@ -258,6 +321,25 @@ class BlackHoleRenderer:
         self.fast_math = bool(fast_math)
         self.tonemap = tonemap
         self.skybox_seed = int(skybox_seed)
+        # int > 1: the texture's colour sampled on a 1/sub grid of the
+        # full-resolution directions and upsampled; "checker": half the
+        # pixels sampled in a checkerboard (ops/sampling.py)
+        self.texture_filter = texture_filter
+        self.texture_subsample = texture_subsample
+        # skybox: None -> the analytic star field; a path or an array ->
+        # decode, pack and keep on the device (bhr_tpu/renderer.py:607-628)
+        self.skybox = None
+        if skybox is not None:
+            packed = pack_texture_rgba8(load_skybox(skybox), device=self.device)
+            self.skybox = luma_pack_texture(packed) if texture_filter == "luma" else packed
+        # the divisor of the animation path (OrbitAnimator): 0 is full
+        # resolution. render_frame stays at full resolution; a single
+        # multires frame comes from render_frame_multires
+        self.multires = int(multires)
+        # trace once per camera and scene geometry, shade every frame
+        self.cache_deflection = bool(cache_deflection)
+        self._deflection_key = None
+        self._deflection_result = None
         # the staged epilogue's blackbody table, on the device once
         # (bhr_tpu/renderer.py:637)
         self._lut = blackbody_lut(device=self.device) if disk else None
@@ -364,6 +446,11 @@ class BlackHoleRenderer:
             return None
         return DiskParams.for_scene(on_device(scene.schwarzschild_radius, self.device))
 
+    def shade_kwargs(self) -> dict:
+        """shade_image's and render_image's texture arguments."""
+        return dict(skybox=self.skybox, texture_filter=self.texture_filter,
+                    texture_subsample=self.texture_subsample)
+
     def render_frame(self, camera: Camera | None = None,
                      scene: SceneParams | None = None) -> torch.Tensor:
         """Render one frame; returns (and retains) the uint8 (H, W, 4) RGBA
@@ -372,15 +459,75 @@ class BlackHoleRenderer:
         scene = self.frame_scene(scene)
         if self.config.integrator == "neural":
             self._warn_outside_domain(camera, scene)
-        frame = render_image(
-            camera, scene, config=self.config, fast_math=self.fast_math,
-            device=self.device, tonemap=self.tonemap, seed=self.skybox_seed,
-            disk_params=self.disk_params(scene), lut=self._lut, **self.neural_kwargs(),
-        )
+        if self.cache_deflection and scene.debug_mode == 0:
+            frame = self._render_cached(camera, scene)
+        else:
+            frame = render_image(
+                camera, scene, config=self.config, fast_math=self.fast_math,
+                device=self.device, tonemap=self.tonemap, seed=self.skybox_seed,
+                disk_params=self.disk_params(scene), lut=self._lut, **self.shade_kwargs(),
+                **self.neural_kwargs(),
+            )
         self.camera = camera
         self.scene = scene
         self._last_frame = frame
         return frame
+
+    def _static_key(self, camera: Camera, scene: SceneParams):
+        """What the traced deflection field depends on: the camera basis,
+        the black hole, fov, steps, image size and the trace configuration
+        (bhr_tpu/renderer.py:790-803)."""
+        arrs = (camera.position, camera.forward, camera.right, camera.up,
+                scene.black_hole_position, scene.schwarzschild_radius, scene.fov, scene.spin)
+        return (tuple(np.asarray(torch.as_tensor(a, dtype=torch.float32).cpu()).tobytes()
+                      for a in arrs),
+                scene.max_steps, scene.screen_width, scene.screen_height, self.config,
+                self.fast_math)
+
+    def _render_cached(self, camera: Camera, scene: SceneParams) -> torch.Tensor:
+        """Trace once per camera and scene geometry, shade every frame
+        (bhr_tpu/renderer.py:805-850; the reference roadmap's Phase 4-4).
+        The frame always takes the staged path, so cached and uncached
+        staged frames are the same: on the card one trace_planes (or
+        neural_mlp direction-plane) launch when the key changes, then none
+        until it changes again."""
+        key = self._static_key(camera, scene)
+        if key != self._deflection_key:
+            self._deflection_result = trace_frame(
+                camera, scene, config=self.config, fast_math=self.fast_math, device=self.device,
+                textured=self.skybox is not None, **self.neural_kwargs())
+            self._deflection_key = key
+        return shade_image(self._deflection_result, camera, scene, self.disk_params(scene),
+                           self._lut, tonemap=self.tonemap, seed=self.skybox_seed,
+                           **self.shade_kwargs())
+
+    def render_frame_multires(self, camera: Camera | None = None,
+                              scene: SceneParams | None = None, *, divisor: int = 3,
+                              **kw) -> torch.Tensor:
+        """An approximate frame from 1/divisor-resolution geodesics and a
+        fix-up of the shadow's edge (ops/multires.render_multires; the
+        reference roadmap's Phase 4-1): the star field or texture shades at
+        full resolution on the interpolated deflection field, so only the
+        lensing geometry is coarse. Two trace_planes launches, strided then
+        masked. A disk interpolates the hit positions the same way; debug
+        views are refused. Extra keywords (edge_fix, edge_threshold,
+        texture_subsample) go to render_multires."""
+        if self.config.integrator == "neural":
+            raise ValueError("multires is not supported with integrator='neural'")
+        camera = camera if camera is not None else self.camera
+        scene = self.frame_scene(scene)
+        frame = render_multires(camera, scene, **{**self.multires_kwargs(scene, divisor), **kw})
+        self.camera = camera
+        self.scene = scene
+        self._last_frame = frame
+        return frame
+
+    def multires_kwargs(self, scene: SceneParams, divisor: int) -> dict:
+        """render_multires's arguments for this renderer."""
+        return dict(skybox=self.skybox, disk_params=self.disk_params(scene), config=self.config,
+                    device=self.device, divisor=divisor, texture_filter=self.texture_filter,
+                    texture_subsample=self.texture_subsample, seed=self.skybox_seed,
+                    fast_math=self.fast_math)
 
     # -- readback & I/O (lib.rs:613-702) ------------------------------------
 

@@ -151,6 +151,7 @@ def load_trace_planes() -> ctypes.CDLL:
         ctypes.c_int,  # width
         ctypes.c_int,  # max_steps
         ctypes.c_int,  # device
+        ctypes.c_void_p,  # mask (null: every ray)
         ctypes.c_void_p,  # pos
         ctypes.c_void_p,  # vel
         ctypes.c_void_p,  # status
@@ -177,7 +178,9 @@ def load_neural_mlp() -> ctypes.CDLL:
         ctypes.c_int,  # width
         MlpDesc,  # the MLP, by value
         ctypes.c_int,  # device
-        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # out: the packed frame, or null
+        ctypes.c_void_p,  # vel: the direction planes (N3), or null
+        ctypes.c_void_p,  # status
         ctypes.c_void_p,  # stream
     ]
     lib.bhr_neural_render.restype = ctypes.c_int

@@ -31,11 +31,33 @@ drives the renderer's paths:
     random nets of widths 384 to 1152 that reach every other block plan
     of the kernel (PLAN_NETS); the main path at
     1920x1080 through render_frame (N1 Schwarzschild and N2 Kerr at spin
-    0.9 in the default tier, N2 at the highest tier), one neural_mlp
+    0.9 in the default tier, N2 and N1 at the highest tier), one neural_mlp
     launch a frame; 8 OrbitAnimator frames with no host sync; the staged
     routes (srgb tonemap; "auto" resolved to "high"), with no kernel
     launch; and each variant's time beside its plain version's, its bound
-    and the staged route's MLP chain through torch.matmul (cuBLAS).
+    and the staged route's MLP chain through torch.matmul (cuBLAS);
+  * texture skyboxes: at 160x96x200 with a 256x512 texture from a seed,
+    every texture tier (TEX_TIERS: filter x subsample) x {euler, rk4 +
+    disk, kerr} x math tier, the kernel's trace and the device epilogue
+    against the all-plain frame; at 1920x1080x500 with the 2048x4096
+    load_skybox(None) texture (32 MB packed on the card) the main path in
+    both tiers with the bilinear, nearest and luma filters (one
+    trace_planes launch a frame, the trace and the texture epilogue timed
+    apart), BASELINE config 4's scene with the skybox, cache_deflection
+    over 8 frames of a camera that stands still (1 launch, 8 shades), and
+    8 OrbitAnimator frames with no host sync;
+  * multires at 1920x1080x500, divisors 2 and 3, euler without and rk4 +
+    adaptive dt with the disk, both tiers: trace_planes' strided and
+    masked ray-gen against their plain versions on every pixel, then
+    render_frame_multires with the star field and with the texture
+    against the full frame at bhr_tpu's budget (2 launches a frame), the
+    strided pass, the masked pass and the whole frame timed beside the
+    full render; and 8 OrbitAnimator frames of a multires renderer;
+  * the neural surrogate with a skybox (the direction-plane output of
+    neural_mlp, N3): at 160x96 the five committed nets and PLAN_NETS, at
+    1920x1080 N1 and N2 at both kernel tiers: directions and status
+    against the plain version, the shaded frame against the all-plain
+    one, and the kernel's time beside the frame kernel's.
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Every frame is held against its plain version on the same
 inputs: exact tier packed words bit-equal on >= 99.9% of pixels, fast tier
@@ -49,6 +71,16 @@ default tier bit-equal on >= 99% of pixels, off by more than 2 levels on
 bit-equal on >= 99.9% -- the matrix sums are taken in another order
 (bf16 operands in the tensor cores against cuBLAS's fp32 products), and
 near the capture fold a last-bit difference in an output moves a pixel.
+The strided and masked traces are held like any trace_planes launch, on
+every pixel (exact tier: every plane bit-equal on >= 99.9%; both tiers:
+status and steps equal on >= 99.5%, directions within 1e-4 on >= 99.5% of
+the matched rays). A multires frame is held to bhr_tpu's budget against
+the full frame (tests/test_multires.py:97-151: mean error under 3 levels,
+pixels off by more than 16 levels under 4%). The direction planes are
+held on status (equal on >= 99.9%) and direction: within 1e-6 on >= 99.9%
+at the highest tier (the fp32 sums are taken in another order than
+cuBLAS's: an ulp, 1.2e-7, on about a tenth of the pixels of a random
+net), within 1e-4 on >= 99.5% at the default tier.
 Each phase prints one line; any failed check raises, so the
 script exits non-zero and prints no result. The line before the last is a
 JSON record of every kernel variant (its launches on the paths driven, its
@@ -70,6 +102,7 @@ import re
 import statistics
 import subprocess
 import tempfile
+import time
 
 import torch
 
@@ -135,7 +168,9 @@ OPS_PER_STEP = {
 # the dt-scaled step sizes the integrator rebuilds every step.
 ADAPTIVE_STEP_SIZES = {"euler": 0, "rk4": 2, "leapfrog": 1}  # dt/2, dt/6
 DISK_OPS = 1  # the crossing test's sign product
-BYTES_PER_PIXEL = {"render_mono": 4, "trace_planes": 32}  # packed word; 6 fp32 + 2 int32 planes
+# packed word; 6 fp32 + 2 int32 planes; the masked launch also reads its fp32 mask
+BYTES_PER_PIXEL = {"render_mono": 4, "trace_planes": 32, "trace_planes[strided]": 32,
+                   "trace_planes[masked]": 36}
 # The neural kernel (csrc/neural_mlp.cu). Its bound is the largest of the
 # MLP's FLOPs (2 in * out a layer a pixel) over the tensor cores' bf16 peak
 # (default tier) or the fp32 peak (highest), the per-pixel fp32 operations
@@ -155,6 +190,7 @@ NEURAL_DEFAULT_BARS = dict(same=0.99, off2=1e-3, black=0.999)
 NEURAL_HIGHEST_SAME = 0.999
 NEURAL_ASSETS = {  # (model, asset)
     "n1": ("schwarzschild", "neural_schwarzschild.npz"),
+    "n1_fp32": ("schwarzschild", "neural_schwarzschild.npz"),  # the same net at "highest"
     "n1_orbit": ("schwarzschild", "neural_schwarzschild_orbit.npz"),
     "n1_xl": ("schwarzschild", "neural_schwarzschild_orbit_xl.npz"),
     "n2": ("kerr", "neural_kerr.npz"),
@@ -171,6 +207,21 @@ PLAN_NETS = (("default", "kerr", 384, 0), ("default", "schwarzschild", 512, 4),
              ("highest", "schwarzschild", 384, 0), ("highest", "kerr", 512, 0),
              ("highest", "schwarzschild", 640, 0), ("highest", "kerr", 768, 0),
              ("highest", "schwarzschild", 1024, 2))
+# Texture tiers (filter, subsample) of the small texture matrix, and the
+# bars of the direction-plane kernel (N3) against its plain version.
+TEX_TIERS = (("bilinear", 1), ("nearest", 1), ("luma", 1), ("bilinear", 2),
+             ("bilinear", "checker"), ("nearest", 3))
+SMALL_TEXTURE = (256, 512)
+DIVISORS = (2, 3)
+MULTIRES_MEAN_MAX, MULTIRES_OFF16_MAX = 3.0, 0.04
+DIRS_STATUS_MIN = 0.999
+DIRS_CLOSE, DIRS_DEFAULT_MIN = 1e-4, 0.995
+DIRS_HIGHEST_CLOSE, DIRS_HIGHEST_MIN = 1e-6, 0.999
+# What the direction-plane output leaves out of the neural kernel's
+# per-pixel operations (the star field and the quantizer), and what it
+# writes: 3 fp32 and 1 int32 a pixel.
+NEURAL_SHADE_OPS = 345 + 18
+DIRS_BYTES_PER_PIXEL = 16
 REPLACES = {
     ("render_mono", "schwarzschild"): "bhr_tpu/ops/pallas_trace.py:1280",
     ("trace_planes", "schwarzschild"): "bhr_tpu/ops/pallas_trace.py:1151 and :1335",
@@ -182,6 +233,12 @@ REPLACES = {
     ("neural_mlp", "schwarzschild"): "bhr_tpu/ops/neural_pallas.py:135 (N1, _build_kernel "
                                      "emit='frame', called at :408)",
     ("neural_mlp", "kerr"): "bhr_tpu/ops/neural_pallas.py:229-267 and :318-330 (N2, in :135)",
+    "strided": "bhr_tpu/ops/pallas_trace.py:745-755 (K4 strided ray-gen, in :1151; "
+               "pallas_trace_image(stride=, local_shape=) :1941)",
+    "masked": "bhr_tpu/ops/pallas_trace.py:769-783 (K4 masked ray-gen, in :1151; "
+              "pallas_trace_image(mask=) :1941)",
+    "dirs": "bhr_tpu/ops/neural_pallas.py:338-343 (N3, _build_kernel emit='dirs', called at "
+            ":408 through neural_trace_dirs :464)",
 }
 
 
@@ -287,6 +344,21 @@ def cuda_ms(fn, n_frames: int, repeats: int = 1) -> float:
     return statistics.median(runs)
 
 
+def host_ms(fn, repeats: int = 1) -> float:
+    """ms the host takes to issue fn(), which returns without waiting for
+    the device: the median over `repeats` calls, each made on a drained
+    device. Where it comes near the frame's time by CUDA events, the frame
+    waits for the host and the device idles between its kernels."""
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
 def neural_compare(kernel_packed: torch.Tensor, plain_packed: torch.Tensor,
                    highest: bool) -> dict:
     """Hold a neural kernel frame against its plain version at the tier's
@@ -334,16 +406,89 @@ def neural_bar(highest: bool) -> str:
             f"black_agree >= {b['black']}")
 
 
-def neural_bound(params, model: str, highest: bool, pixels: int) -> tuple[float, str]:
+def neural_bound(params, model: str, highest: bool, pixels: int,
+                 dirs: bool = False) -> tuple[float, str]:
     """(ms, 'operations' or 'bytes'): the least time the card could take to
-    render `pixels` neural pixels with `params` (see NEURAL_PIXEL_OPS)."""
+    render `pixels` neural pixels with `params` (see NEURAL_PIXEL_OPS), or
+    with `dirs` to write their direction planes unshaded."""
     mlp = 2 * sum(w.shape[0] * w.shape[1] for w, _ in params) * pixels
     hidden = sum(w.shape[1] for w, _ in list(params)[:-1])
     t_mlp = mlp / (PEAK_FP32 if highest else PEAK_BF16_TENSOR) * 1e3
-    t_pix = (NEURAL_PIXEL_OPS[model] + 2 * hidden) * pixels / PEAK_FP32 * 1e3
-    t_bytes = pixels * 4 / PEAK_BYTES * 1e3
+    pixel_ops = NEURAL_PIXEL_OPS[model] - (NEURAL_SHADE_OPS if dirs else 0)
+    t_pix = (pixel_ops + 2 * hidden) * pixels / PEAK_FP32 * 1e3
+    t_bytes = pixels * (DIRS_BYTES_PER_PIXEL if dirs else 4) / PEAK_BYTES * 1e3
     t_ops = max(t_mlp, t_pix)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def trace_compare(k, p, fast: bool) -> dict:
+    """Hold a kernel trace (TraceResult) against its plain version on every
+    pixel; raise if a bar fails."""
+    same = (k.status == p.status) & (k.steps == p.steps)
+    vd = (k.final_vel - p.final_vel).abs().amax(-1)
+    stats = {"status_steps_same": same.float().mean().item(),
+             "vel_close": (vd[same] <= DIRS_CLOSE).float().mean().item(),
+             "max_abs_err": vd[same].max().item(),  # of a direction, on the matched rays
+             "vel_bit_same": (k.final_vel == p.final_vel).all(-1).float().mean().item(),
+             "pos_bit_same": (k.final_pos == p.final_pos).all(-1).float().mean().item()}
+    ok = stats["status_steps_same"] >= STATUS_MIN and stats["vel_close"] >= STATUS_MIN
+    if not fast:
+        ok = ok and min(stats["vel_bit_same"], stats["pos_bit_same"]) >= EXACT_SAME_MIN
+    if not ok:
+        raise AssertionError(f"trace disagrees with its plain version: {stats}")
+    return stats
+
+
+def multires_compare(multi: torch.Tensor, full: torch.Tensor) -> dict:
+    """Hold a multires frame against the full frame at bhr_tpu's budget
+    (uint8 (H, W, 4) frames); raise if it fails."""
+    err = (multi.int() - full.int()).abs()[..., :3].float()
+    stats = {"mean_err": err.mean().item(),
+             "off_by_more_than_16": (err.amax(-1) > 16).float().mean().item()}
+    if stats["mean_err"] >= MULTIRES_MEAN_MAX or stats["off_by_more_than_16"] >= MULTIRES_OFF16_MAX:
+        raise AssertionError(f"multires frame outside the budget: {stats}")
+    return stats
+
+
+def dirs_compare(k, p, highest: bool) -> dict:
+    """Hold the direction planes of the neural kernel (N3) against their
+    plain version; raise if a bar fails."""
+    vd = (k.final_vel - p.final_vel).abs().amax(-1)
+    stats = {"status_agree": (k.status == p.status).float().mean().item(),
+             "vel_close": (vd <= DIRS_CLOSE).float().mean().item(),
+             "vel_within_1e-6": (vd <= DIRS_HIGHEST_CLOSE).float().mean().item(),
+             "vel_bit_same": (vd == 0).float().mean().item(),
+             "max_abs_err": vd.max().item(),
+             "captured_frac": (k.status == STATUS_CAPTURED).float().mean().item()}
+    ok = stats["status_agree"] >= DIRS_STATUS_MIN and (
+        stats["vel_within_1e-6"] >= DIRS_HIGHEST_MIN if highest
+        else stats["vel_close"] >= DIRS_DEFAULT_MIN)
+    if not ok or not bool(torch.isfinite(k.final_vel).all()):
+        raise AssertionError(f"direction planes disagree with their plain version: {stats}")
+    return stats
+
+
+def dirs_bar(highest: bool) -> str:
+    vel = (f"vel within {DIRS_HIGHEST_CLOSE} on >= {DIRS_HIGHEST_MIN}" if highest
+           else f"vel within {DIRS_CLOSE} on >= {DIRS_DEFAULT_MIN}")
+    return f"status_agree >= {DIRS_STATUS_MIN}, {vel}"
+
+
+def textured_neural_compare(frame: torch.Tensor, plain: torch.Tensor, highest: bool) -> dict:
+    """Hold a neural frame shaded from a texture against the all-plain
+    frame (packed words): bit-equal on the tier's share of pixels and off
+    by more than 2 levels on <= 0.1%."""
+    k = frame.contiguous().view(torch.uint8).view(*frame.shape, 4).int()
+    p = plain.contiguous().view(torch.uint8).view(*plain.shape, 4).int()
+    diff = (k[..., :3] - p[..., :3]).abs().amax(-1)
+    stats = {"bit_same": (frame == plain).float().mean().item(),
+             "off_by_more_than_2": (diff > 2).float().mean().item(),
+             "max_abs_err": int(diff.max().item())}
+    b = NEURAL_DEFAULT_BARS
+    if (stats["bit_same"] < (NEURAL_HIGHEST_SAME if highest else b["same"])
+            or stats["off_by_more_than_2"] > b["off2"] or not bool((k[..., 3] == 255).all())):
+        raise AssertionError(f"textured neural frame disagrees with the plain one: {stats}")
+    return stats
 
 
 class Variants:
@@ -382,6 +527,14 @@ class Variants:
              "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
              "config": None})
 
+    def other(self, name: str, kernel: str, replaces: str) -> dict:
+        """The record of a variant named outright (the strided and masked
+        ray-gen of trace_planes; the direction planes of neural_mlp)."""
+        return self.rec.setdefault(
+            name, {"kernel": kernel, "replaces": replaces, "launches": 0, "max_abs_err": 0,
+                   "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+                   "library_ms": None, "config": None})
+
     def timed(self, kernel, fast, integrator, model, *, ms, plain_ms, ray_steps, pixels, config,
               adaptive=False, disk=False):
         r = self.get(kernel, fast, integrator, model)
@@ -409,7 +562,9 @@ def main() -> None:
     from bhr_tpu_torch.models import neural_kerr as tnk
     from bhr_tpu_torch.ops import neural_kernel as nk
     from bhr_tpu_torch.ops import trace_kernel as tk
+    from bhr_tpu_torch.ops.multires import deflection_edges
     from bhr_tpu_torch.ops.neural_trace import neural_trace_image
+    from bhr_tpu_torch.ops.sampling import unpack_frame as unpack
     from bhr_tpu_torch.ops.trace import trace_rays
     from bhr_tpu_torch.renderer import shade_image
     from bhr_tpu_torch.utils import build
@@ -434,10 +589,19 @@ def main() -> None:
     def reset():
         tk.LAUNCHES = 0
         tk.TRACE_LAUNCHES = 0
+        tk.STRIDED_LAUNCHES = 0
+        tk.MASKED_LAUNCHES = 0
         nk.NEURAL_LAUNCHES = 0
+        nk.NEURAL_DIRS_LAUNCHES = 0
 
     def counts():
         return tk.LAUNCHES, tk.TRACE_LAUNCHES, nk.NEURAL_LAUNCHES
+
+    def all_counts():
+        """(render_mono, trace_planes, of which strided, of which masked,
+        neural frame, neural direction planes) launches since reset()."""
+        return (tk.LAUNCHES, tk.TRACE_LAUNCHES, tk.STRIDED_LAUNCHES, tk.MASKED_LAUNCHES,
+                nk.NEURAL_LAUNCHES, nk.NEURAL_DIRS_LAUNCHES)
 
     def plain_trace(cam, scene, config, fast, rows=None):
         """The plain trace of the frame, or of its rows rows[0] .. rows[1] - 1
@@ -943,11 +1107,13 @@ def main() -> None:
 
     # (b) the neural main path at 1920x1080 through render_frame: the
     # default Schwarzschild and Kerr assets (N1, N2 at the default tier) and
-    # the fp32-trained Kerr net at an explicit "highest"
+    # the fp32-trained Kerr net at an explicit "highest"; N1 at "highest"
+    # too (not its weights' operating point), so that each of the kernel's
+    # four instantiations is timed at full width
     full_neural = bt.SceneParams(screen_width=W, screen_height=H)
     main = (("n1", {}, 0.0, bt.Camera.default()), ("n2", {}, SPIN, side),
             ("n2_fp32", dict(neural_params=net_path("n2_fp32"), neural_precision="highest"), SPIN,
-             side))
+             side), ("n1_fp32", dict(neural_precision="highest"), 0.0, bt.Camera.default()))
     kernel_frames = {}
     for key, kw, spin, cam in main:
         model = NEURAL_ASSETS[key][0]
@@ -1040,9 +1206,11 @@ def main() -> None:
     # its plain version, the bound, and the staged route's MLP chain alone
     # (models/neural.mlp_apply: torch.matmul, i.e. cuBLAS, at the tier)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    neural_times = {}
     for key, highest, cam, spin in (("n1", False, bt.Camera.default(), 0.0),
                                     ("n1_xl", False, side, 0.0), ("n2", False, side, SPIN),
-                                    ("n2_fp32", True, side, SPIN)):
+                                    ("n2_fp32", True, side, SPIN),
+                                    ("n1_fp32", True, bt.Camera.default(), 0.0)):
         model = NEURAL_ASSETS[key][0]
         tier = "highest" if highest else "default"
         params = (tnk if model == "kerr" else tn).load_params(net_path(key))[0].to("cuda")
@@ -1062,6 +1230,7 @@ def main() -> None:
         b, by = neural_bound(params, model, highest, W * H)
         desc = (f"{NEURAL_ASSETS[key][1]} (hidden {params.widths}), {tier}, spin {spin}, camera "
                 f"{cam.position.tolist()}, {W}x{H}")
+        neural_times[key] = {"ms": ms, "library_ms": library_ms}
         if key != "n1_xl":  # the main path's nets; the 256-wide orbit net is printed only
             var.neural(model, highest).update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                                               library_ms=library_ms, config=desc)
@@ -1070,7 +1239,414 @@ def main() -> None:
               f"on {smi}")
         del params, feats
 
-    # 12. output
+    # 12. texture skyboxes, small: every texture tier x {euler, rk4 + disk,
+    # kerr} x math tier; the kernel's trace and the device epilogue against
+    # the plain trace and the same epilogue
+    sw, sh, ss = SMALL
+    scene = bt.SceneParams(screen_width=sw, screen_height=sh, max_steps=ss, spin=SPIN)
+    small_tex = bt.load_skybox(None, seed=7, shape=SMALL_TEXTURE)
+    n_cases, worst = 0, {}
+    tex_configs = (dict(), dict(integrator="rk4", disk=True), dict(model="kerr"))
+    for kw in tex_configs:
+        for fast in (True, False):
+            plain_res = None
+            for filt, sub in TEX_TIERS:
+                r = bt.BlackHoleRenderer(sw, sh, fast_math=fast, device="cuda", skybox=small_tex,
+                                         texture_filter=filt, texture_subsample=sub, **kw)
+                if plain_res is None:
+                    plain_res = plain_trace(side, scene, r.config, fast)
+                reset()
+                frame = r.render_frame(side, scene)
+                torch.cuda.synchronize()
+                if all_counts() != (0, 1, 0, 0, 0, 0):
+                    raise AssertionError(f"textured {r.config} frame launched {all_counts()}")
+                var.launched("trace_planes", fast, r.config.integrator, 1, r.config.model)
+                plain = shade_image(plain_res, side, scene, r.disk_params(scene), r._lut,
+                                    tonemap="passthrough", packed=True, **r.shade_kwargs())
+                k_status = tk.trace_image(side, scene, r.config, fast_math=fast,
+                                          device="cuda").status
+                st = compare(frame.view(torch.int32).view(sh, sw), plain, fast, k_status,
+                             plain_res.status)
+                var.err("trace_planes", fast, r.config.integrator, st["max_abs_err"],
+                        r.config.model)
+                n_cases += 1
+                for key in ("bit_same", "within_1", "status_agree", "captured_black"):
+                    worst[key] = min(worst.get(key, 1.0), st[key])
+                worst["max_abs_err"] = max(worst.get("max_abs_err", 0), st["max_abs_err"])
+    phase("textures_small", f"{n_cases} frames at {sw}x{sh}x{ss}, a {SMALL_TEXTURE[0]}x"
+          f"{SMALL_TEXTURE[1]} texture (seed 7): tiers {list(TEX_TIERS)} x (euler, rk4 + disk, "
+          f"kerr spin {SPIN}) x fast/exact, each 1 trace_planes launch and the device epilogue, "
+          f"held to its tier's bar against the plain trace and the same epilogue; worst over "
+          f"the cases: " + json.dumps(worst))
+
+    # 13. texture skyboxes at full width: the 2048x4096 procedural texture
+    # (32 MB packed on the card). (a) The main path with a skybox, both
+    # tiers x bilinear / nearest / luma: one trace_planes launch a frame,
+    # the trace and the texture epilogue timed apart
+    big_tex = bt.load_skybox(None)
+    default_cam = bt.Camera.default()
+    planes = tk.empty_trace_result(H, W, "cuda")
+    textured = {}
+    for filt in ("bilinear", "nearest", "luma"):
+        r = bt.BlackHoleRenderer(W, H, device="cuda", skybox=big_tex, texture_filter=filt)
+        textured[filt] = r
+        words = (r.skybox[0].numel() + r.skybox[1].numel() if filt == "luma"
+                 else r.skybox.numel())
+        for fast in (True, False):
+            tier = "fast" if fast else "exact"
+            r.fast_math = fast
+            reset()
+            frame = r.render_frame(default_cam, full_scene)
+            torch.cuda.synchronize()
+            if all_counts() != (0, 1, 0, 0, 0, 0):
+                raise AssertionError(f"textured main path launched {all_counts()}")
+            var.launched("trace_planes", fast, "euler", 1)
+            plain_res = records[tier].get("plain_res")
+            if plain_res is None:
+                plain_res = records[tier]["plain_res"] = plain_trace(default_cam, full_scene,
+                                                                     r.config, fast)
+            plain = shade_image(plain_res, default_cam, full_scene, None, None,
+                                tonemap="passthrough", packed=True, **r.shade_kwargs())
+            k_res = tk.trace_image(default_cam, full_scene, r.config, fast_math=fast,
+                                   device="cuda", out=planes)
+            st = compare(frame.view(torch.int32).view(H, W), plain, fast, k_res.status,
+                         plain_res.status)
+            var.err("trace_planes", fast, "euler", st["max_abs_err"])
+            trace_ms = cuda_ms(lambda: [tk.trace_image(default_cam, full_scene, r.config,
+                                                       fast_math=fast, device="cuda", out=planes)
+                                        for _ in range(3)], 3, REPEATS)
+            shade = lambda: shade_image(k_res, default_cam, full_scene, None, None,
+                                        tonemap="passthrough", packed=True, **r.shade_kwargs())
+            epilogue_ms = cuda_ms(lambda: [shade() for _ in range(3)], 3, REPEATS)
+            stars_ms = cuda_ms(lambda: [shade_image(k_res, default_cam, full_scene, None, None,
+                                                    tonemap="passthrough", packed=True)
+                                        for _ in range(3)], 3, REPEATS)
+            frame_ms = cuda_ms(lambda: r.render_frame(default_cam, full_scene), 1, REPEATS)
+            issue_ms = host_ms(lambda: r.render_frame(default_cam, full_scene), REPEATS)
+            phase("textures_main", f"{W}x{H}x{STEPS} euler {tier}, skybox 2048x4096 ({words * 4} "
+                  f"bytes packed on the card), filter {filt}: render_frame 1 trace_planes launch "
+                  f"({bar(fast)}): {json.dumps(st)}; trace {trace_ms:.3f} ms, texture epilogue "
+                  f"{epilogue_ms:.3f} ms (the star-field epilogue on the same planes: "
+                  f"{stars_ms:.3f} ms), render_frame {frame_ms:.3f} ms, which the host issues in "
+                  f"{issue_ms:.3f} ms (medians of {REPEATS}) on {smi}")
+
+    # (b) BASELINE config 4's scene with the skybox: staged in both tiers
+    for fast in (True, False):
+        tier = "fast" if fast else "exact"
+        r = bt.BlackHoleRenderer(W, H, fast_math=fast, device="cuda", skybox=big_tex, **cfg4)
+        reset()
+        frame = r.render_frame(side, full_scene)
+        torch.cuda.synchronize()
+        if all_counts() != (0, 1, 0, 0, 0, 0):
+            raise AssertionError(f"textured BASELINE 4 {tier} launched {all_counts()}")
+        var.launched("trace_planes", fast, "rk4", 1)
+        plain_res = plain_trace(side, full_scene, r.config, fast)
+        plain = shade_image(plain_res, side, full_scene, r.disk_params(full_scene), r._lut,
+                            tonemap="passthrough", packed=True, **r.shade_kwargs())
+        k_res = tk.trace_image(side, full_scene, r.config, fast_math=fast, device="cuda",
+                               out=planes)
+        st = compare(frame.view(torch.int32).view(H, W), plain, fast, k_res.status,
+                     plain_res.status)
+        var.err("trace_planes", fast, "rk4", st["max_abs_err"])
+        st.update(shares(plain_res))
+        epilogue_ms = cuda_ms(
+            lambda: shade_image(k_res, side, full_scene, r.disk_params(full_scene), r._lut,
+                                tonemap="passthrough", packed=True, **r.shade_kwargs()),
+            1, REPEATS)
+        frame_ms = cuda_ms(lambda: r.render_frame(side, full_scene), 1, REPEATS)
+        phase("textures_baseline4", f"{W}x{H}x{STEPS} rk4 adaptive disk {tier}, skybox 2048x4096 "
+              f"bilinear: render_frame 1 trace_planes launch ({bar(fast)}): {json.dumps(st)}; "
+              f"epilogue (texture + disk) {epilogue_ms:.3f} ms, render_frame {frame_ms:.3f} ms "
+              f"(medians of {REPEATS}) on {smi}")
+
+    # (c) cache_deflection: N_FRAMES frames of a camera that stands still
+    # are 1 trace launch and N_FRAMES epilogues; (d) N_FRAMES orbit frames
+    # with no host sync, each against the plain trace and the same epilogue
+    r = bt.BlackHoleRenderer(W, H, fast_math=True, device="cuda", skybox=big_tex,
+                             cache_deflection=True)
+    want = textured["bilinear"]
+    want.fast_math = True
+    uncached = want.render_frame(side, full_scene)
+    reset()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    cached = [r.render_frame(side, full_scene)]  # traces
+    t0.record()
+    cached += [r.render_frame(side, full_scene) for _ in range(N_FRAMES - 1)]
+    t1.record()
+    torch.cuda.synchronize()
+    if all_counts() != (0, 1, 0, 0, 0, 0) or not all(torch.equal(c, uncached) for c in cached):
+        raise AssertionError(f"cache_deflection launched {all_counts()} or changed the frame")
+    var.launched("trace_planes", True, "euler", 1)
+    cached_ms = t0.elapsed_time(t1) / (N_FRAMES - 1)
+    r.render_frame(default_cam, full_scene)  # another camera: a new trace
+    if tk.TRACE_LAUNCHES != 2:
+        raise AssertionError(f"a moved camera did not trace again: {all_counts()}")
+    var.launched("trace_planes", True, "euler", 1)
+    phase("textures_cache", f"{W}x{H}x{STEPS} euler fast, skybox bilinear, cache_deflection: "
+          f"{N_FRAMES} frames of one camera = 1 trace_planes launch, every frame equal to the "
+          f"uncached one; a cached frame {cached_ms:.3f} ms (the epilogue alone); a moved "
+          f"camera traces again")
+
+    bt.OrbitAnimator(want).render_frames(1, packed=True)  # warm-up
+    reset()
+    frames, tex_anim_ms, anim = animate(want, N_FRAMES)
+    if all_counts() != (0, N_FRAMES, 0, 0, 0, 0) or frames.shape != (N_FRAMES, H, W):
+        raise AssertionError(f"textured animation launched {all_counts()}")
+    var.launched("trace_planes", True, "euler", N_FRAMES)
+    worst_anim = 1.0
+    for k, t in enumerate(anim.frame_times(N_FRAMES)):
+        cam = bt.orbit_camera(t)
+        plain_res = plain_trace(cam, full_scene, want.config, True)
+        plain = shade_image(plain_res, cam, full_scene, None, None, tonemap="passthrough",
+                            packed=True, **want.shade_kwargs())
+        k_status = tk.trace_image(cam, full_scene, want.config, fast_math=True, device="cuda",
+                                  out=planes).status
+        st = compare(frames[k], plain, True, k_status, plain_res.status)
+        var.err("trace_planes", True, "euler", st["max_abs_err"])
+        worst_anim = min(worst_anim, st["within_1"])
+    phase("textures_animation", f"{N_FRAMES} frames {W}x{H}x{STEPS} euler fast, skybox "
+          f"bilinear: OrbitAnimator {tex_anim_ms:.3f} ms/frame with no host sync (CUDA events, "
+          f"sync debug mode 'error'), {N_FRAMES} trace_planes launches; every frame held to "
+          f"{bar(True)} (worst within_1 {worst_anim:.6f}); the star-field main path in the "
+          f"same run: {records['fast']['anim_ms']:.3f} ms/frame on {smi}")
+    del frames, cached, uncached
+
+    # 14. multires at full width: (a) trace_planes' strided and masked
+    # ray-gen against their plain versions on every pixel, and their times
+    multires_cases = (("euler", {}, default_cam), ("rk4", cfg4, side))
+    pass_ms = {}
+    for integ, kw, cam in multires_cases:
+        config = bt.TraceConfig(**kw)
+        desc = (f"{integ}, {'adaptive' if config.adaptive else 'fixed'} dt, "
+                f"{'disk' if config.disk else 'no disk'}, camera {cam.position.tolist()}, "
+                f"{W}x{H}x{STEPS}")
+        for fast in (True, False):
+            tier = "fast" if fast else "exact"
+            for d in DIVISORS:
+                local = (-(-H // d), -(-W // d))
+                args = dict(stride=d, local_shape=local)
+                k_low = tk.trace_image(cam, full_scene, config, fast_math=fast, device="cuda",
+                                       **args)
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                p_low = tk.trace_image_reference(cam, full_scene, config, fast_math=fast,
+                                                 device="cuda", **args)
+                t1.record()
+                torch.cuda.synchronize()
+                low_plain_ms = t0.elapsed_time(t1)
+                st_low = trace_compare(k_low, p_low, fast)
+                low_planes = tk.empty_trace_result(*local, "cuda")
+                low_ms = cuda_ms(lambda: [tk.trace_image(cam, full_scene, config, fast_math=fast,
+                                                         device="cuda", out=low_planes, **args)
+                                          for _ in range(3)], 3, REPEATS)
+                edge = deflection_edges([k_low.final_vel[..., i] for i in range(3)],
+                                        k_low.status, 0.05)
+                edge = (edge.repeat_interleave(d, dim=0).repeat_interleave(d, dim=1)[:H, :W]
+                        .contiguous())
+                keep = edge.mean().item()
+                k_fix = tk.trace_image(cam, full_scene, config, fast_math=fast, device="cuda",
+                                       mask=edge)
+                t0.record()
+                p_fix = tk.trace_image_reference(cam, full_scene, config, fast_math=fast,
+                                                 device="cuda", mask=edge)
+                t1.record()
+                torch.cuda.synchronize()
+                fix_plain_ms = t0.elapsed_time(t1)
+                st_fix = trace_compare(k_fix, p_fix, fast)
+                fix_ms = cuda_ms(lambda: [tk.trace_image(cam, full_scene, config, fast_math=fast,
+                                                         device="cuda", out=planes, mask=edge)
+                                          for _ in range(3)], 3, REPEATS)
+                pass_ms[(integ, fast, d)] = (low_ms, fix_ms, keep)
+                for what, ms, plain_ms, res, st, pixels, note in (
+                        ("strided", low_ms, low_plain_ms, p_low, st_low, local[0] * local[1],
+                         f"stride {d}, local {local[0]}x{local[1]}"),
+                        ("masked", fix_ms, fix_plain_ms, p_fix, st_fix, W * H,
+                         f"edge mask of the stride-{d} pass, keeps {keep:.4f} of the pixels")):
+                    rec = var.other(f"trace_planes[{what}]<{tier},{integ}>", "trace_planes",
+                                    REPLACES[what])
+                    rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+                    if d != DIVISORS[-1]:
+                        continue  # the kernels line carries the last divisor's times
+                    ray_steps = int(res.steps.sum().item())
+                    b, by = bound(f"trace_planes[{what}]", "schwarzschild", fast, integ,
+                                  ray_steps, pixels, adaptive=config.adaptive, disk=config.disk)
+                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                               config=f"{desc}; {note}", ray_steps=ray_steps)
+                phase("multires_kernels", f"{desc} {tier}, divisor {d}: strided "
+                      f"{local[1]}x{local[0]} against its plain version on every pixel: "
+                      f"{json.dumps(st_low)}, kernel {low_ms:.3f} ms, plain {low_plain_ms:.1f} ms; "
+                      f"masked (the mask keeps {keep:.4f} of the pixels) on every pixel: "
+                      f"{json.dumps(st_fix)}, kernel {fix_ms:.3f} ms, plain {fix_plain_ms:.1f} ms "
+                      f"(kernels: medians of {REPEATS} x 3) on {smi}")
+
+    # (b) render_frame_multires against the full frame: the star field and
+    # the texture, with and without the disk, both tiers, 2 launches a frame
+    for integ, kw, cam in multires_cases:
+        for fast in (True, False):
+            tier = "fast" if fast else "exact"
+            for sky in (None, big_tex):
+                r = bt.BlackHoleRenderer(W, H, fast_math=fast, device="cuda", skybox=sky, **kw)
+                full = r.render_frame(cam, full_scene)
+                full_ms = cuda_ms(lambda: r.render_frame(cam, full_scene), 1, REPEATS)
+                full_issue_ms = host_ms(lambda: r.render_frame(cam, full_scene), REPEATS)
+                for d in DIVISORS:
+                    reset()
+                    multi = r.render_frame_multires(cam, full_scene, divisor=d)
+                    torch.cuda.synchronize()
+                    if all_counts() != (0, 2, 1, 1, 0, 0):
+                        raise AssertionError(f"multires frame launched {all_counts()}")
+                    for what in ("strided", "masked"):
+                        var.other(f"trace_planes[{what}]<{tier},{integ}>", "trace_planes",
+                                  REPLACES[what])["launches"] += 1
+                    st = multires_compare(multi, full)
+                    ms = cuda_ms(lambda: r.render_frame_multires(cam, full_scene, divisor=d), 1,
+                                 REPEATS)
+                    issue_ms = host_ms(
+                        lambda: r.render_frame_multires(cam, full_scene, divisor=d), REPEATS)
+                    low_ms, fix_ms, keep = pass_ms[(integ, fast, d)]
+                    phase("multires", f"{W}x{H}x{STEPS} {integ}{' adaptive disk' if kw else ''} "
+                          f"{tier}, {'skybox bilinear' if sky is not None else 'star field'}, "
+                          f"divisor {d}: 2 trace_planes launches (strided, masked); against the "
+                          f"full frame (mean_err < {MULTIRES_MEAN_MAX}, off_by_more_than_16 < "
+                          f"{MULTIRES_OFF16_MAX}): {json.dumps(st)}; multires frame {ms:.3f} ms "
+                          f"(strided pass {low_ms:.3f}, masked pass {fix_ms:.3f} keeping "
+                          f"{keep:.4f}; the host issues the frame in {issue_ms:.3f} ms), full "
+                          f"render_frame {full_ms:.3f} ms (issued in {full_issue_ms:.3f} ms) "
+                          f"(medians of {REPEATS}) on {smi}")
+
+    # (c) OrbitAnimator with renderer.multires: 2 launches a frame, no host sync
+    r = bt.BlackHoleRenderer(W, H, fast_math=True, device="cuda", skybox=big_tex,
+                             multires=DIVISORS[-1], **cfg4)
+    bt.OrbitAnimator(r).render_frames(1, packed=True)  # warm-up
+    reset()
+    frames, multi_anim_ms, anim = animate(r, N_FRAMES)
+    if all_counts() != (0, 2 * N_FRAMES, N_FRAMES, N_FRAMES, 0, 0):
+        raise AssertionError(f"multires animation launched {all_counts()}")
+    for what in ("strided", "masked"):
+        var.other(f"trace_planes[{what}]<fast,rk4>", "trace_planes",
+                  REPLACES[what])["launches"] += N_FRAMES
+    r.multires = 0
+    full_frames, full_anim_ms, _ = animate(r, N_FRAMES)
+    worst_multi = [multires_compare(unpack(frames[k]), unpack(full_frames[k]))
+                   for k in range(N_FRAMES)]
+    phase("multires_animation", f"{N_FRAMES} frames {W}x{H}x{STEPS} rk4 adaptive disk fast, "
+          f"skybox bilinear, renderer.multires = {DIVISORS[-1]}: OrbitAnimator "
+          f"{multi_anim_ms:.3f} ms/frame with no host sync (sync debug mode 'error'), "
+          f"{2 * N_FRAMES} trace_planes launches; at full resolution {full_anim_ms:.3f} "
+          f"ms/frame; every frame inside the budget (worst mean_err "
+          f"{max(s['mean_err'] for s in worst_multi):.4f}, off_by_more_than_16 "
+          f"{max(s['off_by_more_than_16'] for s in worst_multi):.6f}) on {smi}")
+    del frames, full_frames
+
+    # 15. the neural surrogate with a skybox: the direction-plane output of
+    # neural_mlp (N3) and the texture epilogue. (a) 160x96: the committed
+    # nets at their tiers and PLAN_NETS, both cameras
+    sw, sh = SMALL[:2]
+    small_nets = [(NEURAL_ASSETS[key][1], NEURAL_ASSETS[key][0], tier, spin, net_path(key))
+                  for key, tier, spin in matrix]
+    small_nets += [(f"random net {model} {width}", model, tier, SPIN if model == "kerr" else 0.0,
+                    bt.NeuralSurrogate(random_net(model, width, seed)))
+                   for tier, model, width, seed in PLAN_NETS]
+    worst = {}
+    for name, model, tier, spin, net in small_nets:
+        highest = tier == "highest"
+        r = bt.BlackHoleRenderer(sw, sh, "neural", model=model, neural_params=net,
+                                 neural_precision=tier, device="cuda", skybox=small_tex)
+        rec = var.other(f"neural_dirs<{model},{tier}>", "neural_mlp", REPLACES["dirs"])
+        for cam in (default_cam, side):
+            scene = bt.SceneParams(screen_width=sw, screen_height=sh, spin=spin)
+            reset()
+            frame = r.render_frame(cam, scene)
+            torch.cuda.synchronize()
+            if all_counts() != (0, 0, 0, 0, 0, 1):
+                raise AssertionError(f"neural textured frame ({name}) launched {all_counts()}")
+            rec["launches"] += 1
+            k = nk.neural_trace_dirs(r.neural_params, cam, scene, precision=tier, device="cuda")
+            p = nk.neural_trace_dirs_reference(r.neural_params, cam, scene, precision=tier,
+                                               device="cuda")
+            st = dirs_compare(k, p, highest)
+            plain = shade_image(p, cam, scene, None, None, tonemap="passthrough", packed=True,
+                                **r.shade_kwargs())
+            fs = textured_neural_compare(frame.view(torch.int32).view(sh, sw), plain, highest)
+            rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+            w = worst.setdefault(tier, {})
+            for key in ("status_agree", "vel_close", "vel_within_1e-6", "vel_bit_same"):
+                w[key] = min(w.get(key, 1.0), st[key])
+            w["max_abs_err"] = max(w.get("max_abs_err", 0.0), st["max_abs_err"])
+            w["frame_bit_same"] = min(w.get("frame_bit_same", 1.0), fs["bit_same"])
+    phase("neural_dirs_matrix", f"{2 * len(small_nets)} frames at {sw}x{sh} with the "
+          f"{SMALL_TEXTURE[0]}x{SMALL_TEXTURE[1]} texture: the {len(matrix)} committed-net cases "
+          f"and the {len(PLAN_NETS)} PLAN_NETS, cameras default and [15,5,0], each 1 neural_mlp "
+          f"launch with its direction-plane output, held against the plain version (default: "
+          f"{dirs_bar(False)}; highest: {dirs_bar(True)}) and, shaded, against the all-plain "
+          f"frame; worst by tier: " + json.dumps(worst))
+
+    # the routes that stay staged with a skybox: bf16 operands, a debug view
+    for kw, dbg in ((dict(neural_dtype="bfloat16"), 0), ({}, 1)):
+        r = bt.BlackHoleRenderer(sw, sh, "neural", device="cuda", skybox=small_tex, **kw)
+        reset()
+        r.render_frame(side, bt.SceneParams(debug_mode=dbg))
+        torch.cuda.synchronize()
+        if all_counts() != (0, 0, 0, 0, 0, 0):
+            raise AssertionError(f"staged neural textured frame launched {all_counts()}")
+
+    # (b) 1920x1080: N1, N2 and N2 at the highest tier through render_frame,
+    # the kernel's time beside the frame kernel's, its bound and the cuBLAS
+    # chain timed above
+    for key, kw, spin, cam in main:
+        model = NEURAL_ASSETS[key][0]
+        r = bt.BlackHoleRenderer(W, H, "neural", model=model, device="cuda", skybox=big_tex, **kw)
+        tier = r.neural_precision
+        highest = tier == "highest"
+        scene = full_neural.replace(spin=spin)
+        rec = var.other(f"neural_dirs<{model},{tier}>", "neural_mlp", REPLACES["dirs"])
+        reset()
+        frame = r.render_frame(cam, scene)
+        torch.cuda.synchronize()
+        if all_counts() != (0, 0, 0, 0, 0, 1):
+            raise AssertionError(f"neural textured main path {key} launched {all_counts()}")
+        rec["launches"] += 1
+        out = tk.empty_trace_result(H, W, "cuda")
+        k = nk.neural_trace_dirs(r.neural_params, cam, scene, precision=tier, device="cuda",
+                                 out=out)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        p = nk.neural_trace_dirs_reference(r.neural_params, cam, scene, precision=tier,
+                                           device="cuda")
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        st = dirs_compare(k, p, highest)
+        plain = shade_image(p, cam, scene, None, None, tonemap="passthrough", packed=True,
+                            **r.shade_kwargs())
+        fs = textured_neural_compare(frame.view(torch.int32).view(H, W), plain, highest)
+        ms = cuda_ms(lambda: [nk.neural_trace_dirs(r.neural_params, cam, scene, precision=tier,
+                                                   device="cuda", out=out) for _ in range(3)],
+                     3, REPEATS)
+        epilogue_ms = cuda_ms(lambda: shade_image(k, cam, scene, None, None,
+                                                  tonemap="passthrough", packed=True,
+                                                  **r.shade_kwargs()), 1, REPEATS)
+        frame_ms = cuda_ms(lambda: r.render_frame(cam, scene), 1, REPEATS)
+        b, by = neural_bound(r.neural_params, model, highest, W * H, dirs=True)
+        desc = (f"{NEURAL_ASSETS[key][1]} (hidden {r.neural_params.widths}), {tier}, spin {spin}, "
+                f"camera {cam.position.tolist()}, {W}x{H}")
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, config=desc,
+                   library_ms=neural_times[key]["library_ms"],
+                   max_abs_err=max(rec["max_abs_err"], st["max_abs_err"]))
+        phase("neural_dirs_main", f"neural_dirs<{model},{tier}> ({desc}), skybox 2048x4096 "
+              f"bilinear: render_frame 1 neural_mlp launch; direction planes ({dirs_bar(highest)}"
+              f"): {json.dumps(st)}; shaded frame against the all-plain one: {json.dumps(fs)}; "
+              f"kernel {ms:.3f} ms (the frame kernel on the same net: "
+              f"{neural_times[key]['ms']:.3f} ms), plain {plain_ms:.3f} ms, cuBLAS MLP chain "
+              f"{neural_times[key]['library_ms']:.3f} ms, bound {b:.3f} ms ({by}); texture "
+              f"epilogue {epilogue_ms:.3f} ms, render_frame {frame_ms:.3f} ms (medians of "
+              f"{REPEATS}) on {smi}")
+        del out, k, p, plain
+
+    # 16. output
     renderer = records["exact"]["renderer"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frame.png")
@@ -1084,9 +1660,11 @@ def main() -> None:
     for key, r in sorted(var.rec.items()):
         if r["launches"] == 0:
             raise AssertionError(f"{key} was launched no time on the paths driven")
+        if any(r[k] is None for k in ("ms", "plain_ms", "bound_ms", "bound_by")):
+            raise AssertionError(f"{key} was not timed at full width: {r}")
         kernels.append({"name": key, "route": "cuda",
                         "source": f"bhr_tpu_torch/csrc/{r['kernel']}.cu",
-                        "replaces": REPLACES[(r["kernel"], r["model"])],
+                        "replaces": r.get("replaces") or REPLACES[(r["kernel"], r["model"])],
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

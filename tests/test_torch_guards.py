@@ -2,6 +2,7 @@
 CUDA device was asked for, or quietly render a configuration outside what
 it has ported -- and the configurations it renders now that once raised."""
 
+import functools
 import inspect
 import subprocess
 import sys
@@ -12,7 +13,7 @@ import torch
 
 import bhr_tpu as J
 import bhr_tpu_torch as T
-from bhr_tpu_torch.ops import trace, trace_kernel
+from bhr_tpu_torch.ops import neural_kernel, trace, trace_kernel
 from bhr_tpu_torch.utils import build
 
 MODULES = [
@@ -26,6 +27,8 @@ MODULES = [
     "bhr_tpu_torch.models.kerr", "bhr_tpu_torch.models.kerr_schild",
     "bhr_tpu_torch.models.neural", "bhr_tpu_torch.models.neural_kerr",
     "bhr_tpu_torch.ops.neural_trace", "bhr_tpu_torch.ops.neural_kernel",
+    "bhr_tpu_torch.io.skybox", "bhr_tpu_torch.io.native", "bhr_tpu_torch.ops.resample",
+    "bhr_tpu_torch.ops.multires",
 ]
 
 
@@ -80,7 +83,9 @@ def test_no_fallback_in_the_cuda_path():
     """The wrapper and the build have no `try`: a failed build or launch
     raises where it happened instead of running something else."""
     for fn in (trace_kernel.render_packed, trace_kernel.trace_image, trace_kernel._set_disk_lut,
-               build.build, build.load_render_mono, build.load_trace_planes):
+               neural_kernel.neural_render_packed, neural_kernel.neural_trace_dirs,
+               neural_kernel._launch, T.render_multires, build.build, build.load_render_mono,
+               build.load_trace_planes, build.load_neural_mlp):
         assert "try:" not in inspect.getsource(fn), fn.__name__
 
 
@@ -88,8 +93,8 @@ def test_no_fallback_in_the_cuda_path():
     "args,kw,item",
     [
         (("euler",), dict(model="kerr", skybox="sky.exr"), "item 10"),
-        # the neural surrogate renders since its slice; with a texture
-        # skybox it needs N3, which waits for item 10
+        # the neural surrogate with a texture skybox goes through the
+        # direction-plane kernel's wrapper (N3)
         (("neural_kerr",), dict(skybox="sky.exr"), "item 10"),
         (("src/ray_tracer_kerr.wgsl",), dict(multires=2), "item 12"),
         (("euler",), dict(skybox="sky.exr"), "item 10"),
@@ -100,9 +105,50 @@ def test_no_fallback_in_the_cuda_path():
         (("euler",), dict(custom_physics="plugin.py"), "item 14"),
     ],
 )
-def test_renderer_outside_slice_raises(args, kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
-        T.BlackHoleRenderer(8, 8, *args, device="cpu", **kw)
+def test_renderer_outside_slice_raises(args, kw, item, tmp_path):
+    """Plugin physics (item 14) still raises. The texture-skybox and
+    multires cases (items 10 and 12) raised until their slice and render
+    now: the skybox, an EXR file, is loaded and sampled, and the multires
+    frame comes from the strided and the masked trace."""
+    if item == "item 14":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
+            T.BlackHoleRenderer(8, 8, *args, device="cpu", **kw)
+        return
+    kw = dict(kw)
+    tex = None
+    if "skybox" in kw:
+        rng = np.random.default_rng(10)
+        kw["skybox"] = str(tmp_path / kw["skybox"])
+        T.io.skybox.write_exr(kw["skybox"], rng.random((16, 32, 4), np.float32) * 2.0)
+        tex = T.ops.sampling.pack_texture_rgba8(T.load_skybox(kw["skybox"]))
+    r = T.BlackHoleRenderer(24, 16, *args, device="cpu", **kw)
+    scene = T.SceneParams(screen_width=24, screen_height=16, max_steps=120, spin=0.9)
+    cam = T.Camera.new([0.0, 3.0, 20.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    neural = r.config.integrator == "neural"
+    counts = (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES)
+    if item == "item 12":
+        assert r.multires == kw["multires"]
+        frame = r.render_frame_multires(cam, scene, divisor=r.multires)
+        full = r.render_frame(cam, scene)
+        # the multires frame approximates the full one (bhr_tpu's budget,
+        # tests/test_multires.py:97-151: mean u8 error under 3 levels)
+        assert (frame.int() - full.int()).abs().float().mean() < 3.0
+    else:
+        torch.testing.assert_close(r.skybox, tex, rtol=0, atol=0)
+        frame = r.render_frame(cam, scene)
+        trace_fn = (functools.partial(neural_kernel.neural_trace_dirs, r.neural_params,
+                                      precision=r.neural_precision) if neural
+                    else functools.partial(trace_kernel.trace_image, config=r.config))
+        want = T.shade_image(trace_fn(cam, scene, device="cpu"), cam, scene, None, None,
+                             tonemap="passthrough", skybox=tex)
+        torch.testing.assert_close(frame, want, rtol=0, atol=0)
+        # the texture, not the analytic star field, is what was sampled
+        bare = T.BlackHoleRenderer(24, 16, *args, device="cpu").render_frame(cam, scene)
+        assert not torch.equal(frame, bare)
+    assert frame.shape == (16, 24, 4) and frame.dtype == torch.uint8
+    assert bool((frame[..., 3] == 255).all())
+    # on the CPU every wrapper ran its plain version: nothing was launched
+    assert (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES) == counts
 
 
 @pytest.mark.parametrize(
@@ -229,10 +275,53 @@ def test_trace_and_render_what_once_raised(config):
      ({}, T.TraceConfig(model="custom"))],
     ids=["skybox", "skybox-disk", "custom"])
 def test_render_image_outside_slice_raises(kw, config):
-    scene = T.SceneParams(screen_width=4, screen_height=4, max_steps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.render_image(T.Camera.default(), scene, config=config, fast_math=True,
-                       device="cpu", **kw)
+    """render_image refuses plugin physics; with a skybox (refused until
+    the texture slice) it traces into planes and samples the texture, with
+    the disk's emission over it when the configuration has one."""
+    scene = T.SceneParams(screen_width=12, screen_height=8, max_steps=250)
+    if "skybox" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.render_image(T.Camera.default(), scene, config=config, fast_math=True,
+                           device="cpu", **kw)
+        return
+    tex = T.texture_from_numpy(T.load_skybox(None, seed=1, shape=(16, 32)))
+    cam = T.Camera.new([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    disk = (dict(disk_params=T.models.disk.DiskParams.for_scene(torch.tensor(2.0)),
+                 lut=T.models.disk.blackbody_lut()) if config.disk else {})
+    for fast in (True, False):
+        got = T.render_image(cam, scene, config=config, fast_math=fast, device="cpu",
+                             skybox=tex, **disk)
+        res = trace_kernel.trace_image(cam, scene, config, fast_math=fast, device="cpu")
+        want = T.shade_image(res, cam, scene, disk.get("disk_params"), disk.get("lut"),
+                             tonemap="passthrough", skybox=tex)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert config.disk == bool((res.status == trace.STATUS_DISK).any())
+
+
+@pytest.mark.parametrize("what", ["strided", "masked", "neural_dirs", "renderer-skybox",
+                                  "renderer-multires"])
+def test_texture_and_multires_on_cuda_raise_without_cuda(what):
+    """The strided and masked trace, the direction-plane kernel and the
+    renderer paths built on them never run a plain version when a CUDA
+    device was asked for and there is none."""
+    _need_no_cuda()
+    scene = T.SceneParams(screen_width=8, screen_height=8, max_steps=4)
+    cam = T.Camera.default()
+    counts = (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        if what == "strided":
+            trace_kernel.trace_image(cam, scene, device="cuda", stride=2, local_shape=(4, 4))
+        elif what == "masked":
+            trace_kernel.trace_image(cam, scene, device="cuda", mask=torch.ones(8, 8))
+        elif what == "neural_dirs":
+            params, _ = T.models.neural.load_params(T.models.neural.ASSETS_DIR
+                                                    / "neural_schwarzschild.npz")
+            neural_kernel.neural_trace_dirs(params, cam, scene, device="cuda")
+        elif what == "renderer-skybox":
+            T.BlackHoleRenderer(8, 8, skybox=np.zeros((4, 8, 4), np.float32))
+        else:
+            T.render_multires(cam, scene, device="cuda", divisor=2)
+    assert (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES) == counts
 
 
 def test_render_image_tonemap_and_disk_params_take_the_staged_path():

@@ -2,6 +2,7 @@
 synthetic frames: capture is held on the ray status, not on black pixels,
 so dark sky that differs passes and a captured ray that is lit fails."""
 
+import dataclasses
 import importlib.util
 import os
 
@@ -137,3 +138,82 @@ def test_ptxas_summary_names_every_instantiation():
         "fast,leapfrog,ks: 48 registers | exact,rk4: 8 bytes stack frame, 4 bytes spill "
         "stores, 4 bytes spill loads | exact,rk4: 255 registers")
     assert chip_smoke.ptxas_summary("") == "already built"
+
+
+def _planes(seed=0, shape=(24, 32)):
+    """A TraceResult of seeded unit directions, escaped but for a captured
+    block."""
+    from bhr_tpu_torch.ops.trace import TraceResult
+
+    g = torch.Generator().manual_seed(seed)
+    vel = torch.nn.functional.normalize(torch.randn(*shape, 3, generator=g), dim=-1)
+    status = torch.ones(shape, dtype=torch.int32)
+    status[8:14, 10:18] = chip_smoke.STATUS_CAPTURED
+    return TraceResult(final_pos=torch.randn(*shape, 3, generator=g), final_vel=vel,
+                       status=status, steps=torch.full(shape, 7, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+def test_trace_compare_holds_every_plane(fast):
+    """A strided or masked trace against its plain version: the fast tier
+    takes directions within 1e-4, the exact tier needs them bit-equal; a
+    status or step count that differs on 1% of pixels fails both."""
+    p = _planes()
+    k = dataclasses.replace(p, final_vel=p.final_vel + 2e-5)
+    if fast:
+        assert chip_smoke.trace_compare(k, p, True)["vel_bit_same"] < 0.5
+    else:
+        with pytest.raises(AssertionError, match="plain version"):
+            chip_smoke.trace_compare(k, p, False)
+    assert chip_smoke.trace_compare(p, p, fast)["max_abs_err"] == 0.0
+    steps = p.steps.clone()
+    steps[0, :8] = 9  # 8 of 768 rays
+    with pytest.raises(AssertionError, match="plain version"):
+        chip_smoke.trace_compare(dataclasses.replace(p, steps=steps), p, fast)
+
+
+def test_multires_compare_is_the_reference_budget():
+    full = torch.zeros(20, 20, 4, dtype=torch.uint8)
+    near = full.clone()
+    near[..., :3] = 2  # mean error 2 levels, none above 16
+    assert chip_smoke.multires_compare(near, full)["mean_err"] == 2.0
+    far = full.clone()
+    far[:, :1, 0] = 40  # 5% of the pixels off by more than 16
+    with pytest.raises(AssertionError, match="budget"):
+        chip_smoke.multires_compare(far, full)
+    with pytest.raises(AssertionError, match="budget"):
+        chip_smoke.multires_compare(full + 3, full)
+
+
+@pytest.mark.parametrize("highest", [False, True], ids=["default", "highest"])
+def test_dirs_compare_bars_by_tier(highest):
+    """The direction planes: an ulp passes both tiers, 2e-5 only the
+    default tier's 1e-4, a status flipped on 1% of pixels neither."""
+    p = _planes(1)
+    assert chip_smoke.dirs_compare(dataclasses.replace(p, final_vel=p.final_vel + 1.2e-7), p,
+                                   highest)["status_agree"] == 1.0
+    k = dataclasses.replace(p, final_vel=p.final_vel + 2e-5)
+    if highest:
+        with pytest.raises(AssertionError, match="direction planes"):
+            chip_smoke.dirs_compare(k, p, True)
+    else:
+        assert chip_smoke.dirs_compare(k, p, False)["vel_close"] == 1.0
+    status = p.status.clone()
+    status[0, :8] = chip_smoke.STATUS_CAPTURED
+    with pytest.raises(AssertionError, match="direction planes"):
+        chip_smoke.dirs_compare(dataclasses.replace(p, status=status), p, highest)
+
+
+def test_neural_bound_of_the_direction_planes():
+    """The direction-plane output does the frame's MLP products (the bound
+    of both where the MLP binds) and writes 16 bytes a pixel instead of 4."""
+    params = [(torch.zeros(16, 128), torch.zeros(128)), (torch.zeros(128, 128), torch.zeros(128)),
+              (torch.zeros(128, 2), torch.zeros(2))]
+    frame = chip_smoke.neural_bound(params, "schwarzschild", False, 1920 * 1080)
+    dirs = chip_smoke.neural_bound(params, "schwarzschild", False, 1920 * 1080, dirs=True)
+    assert dirs[1] == "operations" and 0.0 < dirs[0] <= frame[0]
+    tiny = [(torch.zeros(16, 2), torch.zeros(2))]  # no hidden layer: the store binds
+    ops = (chip_smoke.NEURAL_PIXEL_OPS["schwarzschild"] - chip_smoke.NEURAL_SHADE_OPS)
+    want = max(ops / chip_smoke.PEAK_FP32, chip_smoke.DIRS_BYTES_PER_PIXEL / chip_smoke.PEAK_BYTES)
+    got = chip_smoke.neural_bound(tiny, "schwarzschild", False, 1000, dirs=True)
+    assert got[0] == pytest.approx(want * 1000 * 1e3)

@@ -17,8 +17,11 @@ subsampled reconstructions of ops/sampling.py) is sampled by the staged
 epilogue after the planes kernel, or after the neural kernel's
 direction-plane output; multires frames (ops/multires.py) integrate at a
 fraction of the resolution through the planes kernel's strided and masked
-ray-gen. A plain PyTorch version stands beside each kernel. It imports
-torch and never jax; bhr_tpu stays the reference it is tested against.
+ray-gen. Plugin physics (utils/plugin.py: a Python acceleration, recorded
+into the CUDA source of a build of csrc/trace_planes.cu) traces the user's
+metric, and parallel/ renders row bands over a grid of devices. A plain
+PyTorch version stands beside each kernel. It imports torch and never jax;
+bhr_tpu stays the reference it is tested against.
 """
 
 from .animation import OrbitAnimator

@@ -1,5 +1,6 @@
 // Neural-surrogate render kernel for Hopper (sm_90a): N1 (Schwarzschild)
-// and N2 (Kerr) in one source, and N3, their direction-plane output.
+// and N2 (Kerr) in one source, N3, their direction-plane output, and N4,
+// their row band.
 //
 // Replaces bhr_tpu/ops/neural_pallas.py:_build_kernel (the kernel of
 // `_render`, :135-364): emit="frame", reached there through
@@ -22,6 +23,13 @@
 // the launch, not a template parameter: everything before it is shared
 // code, the branch costs one predicate a pixel, and the four instantiations
 // (and their build time) stay four.
+//
+// N4 (bhr_tpu's neural_render_packed_band, neural_pallas.py:519-550, which
+// its mesh calls for a band of rows) is the same launch over a band:
+// `height` is the band's rows and P_ROW0 its first row in the frame, which
+// the ray-gen adds to the local row and divides by the frame's height P_HF,
+// so a band is bit for bit the same rows of the whole frame. A runtime
+// argument again, not an instantiation; the outputs are indexed locally.
 //
 // Layout. A block of `pix` pixels and 256 threads holds two activation
 // buffers and one or two chunks of a layer's weights in shared memory.
@@ -182,10 +190,12 @@ template <bool KERR>
 __device__ __forceinline__ Geo pixel_geometry(const Params& p, const Frame& fr, int row, int col,
                                               float* f) {
   // ray-gen, as core/camera.generate_rays, normalised by a correctly
-  // rounded rsqrt as bhr_tpu's kernel does
+  // rounded rsqrt as bhr_tpu's kernel does; `row` is the band's local row,
+  // P_ROW0 its first row in the frame (N4), P_HF the frame's height
+  const int frame_row = row + static_cast<int>(p.v[P_ROW0]);
   const float u = A::mul(A::mul(A::sub(A::div(static_cast<float>(col), p.v[P_WF]), 0.5f), 2.0f),
                          p.v[P_ASPECT]);
-  const float v = A::mul(A::sub(A::div(static_cast<float>(row), p.v[P_HF]), 0.5f), -2.0f);
+  const float v = A::mul(A::sub(A::div(static_cast<float>(frame_row), p.v[P_HF]), 0.5f), -2.0f);
   const float uf = A::mul(u, p.v[P_FOVF]);
   const float vf = A::mul(v, p.v[P_FOVF]);
   Vec3 d;
@@ -622,7 +632,8 @@ bool shapes_ok(const MlpDesc& m, bool kerr, bool hi) {
 // C entry point, bound with ctypes by bhr_tpu_torch/utils/build.py.
 // Renders one neural frame on `stream` and returns cudaGetLastError() after
 // the launch (0 on success; cudaErrorInvalidValue for shapes the kernel
-// does not take). Exactly one output is given: `out`, a contiguous (height,
+// does not take). (height, width) is the frame, or a band whose first row
+// is params.v[P_ROW0]. Exactly one output is given: `out`, a contiguous (height,
 // width) array of 32-bit words on `device` that receives the packed frame
 // (N1, N2), or `vel` and `status`, contiguous fp32 (height, width, 3) and
 // int32 (height, width), that receive the unit directions and the capture

@@ -32,6 +32,17 @@
 //    direction :1134-1146; oracle models/kerr_schild.py and
 //    ops/trace.py:_trace_rays_kerr_schild), with its own state, step and
 //    after-loop direction, so it is a loop of its own: trace_ray_ks.
+//
+// Plugin physics (model "custom"; K5's generic body, pallas_trace.py
+// :1521-1585 with `accel` :351-361 returning the user's acceleration): a
+// build of trace_planes.cu with BHR_CUSTOM_ACCEL defined, by a header that
+// utils/plugin.py records from the plugin's Python and includes first,
+// whose plugin_acceleration(rel, vel, r, r2, rs, spin) takes the place of
+// accel_exact. The model has no folded form, so both tiers run the exact
+// tier's loop -- termination and adaptive dt on the sqrt'd radius, the
+// oracle's integrators, the exact disk crossing -- and the fast tier
+// differs, as bhr_tpu's generic body does, by its rsqrt renormalisation
+// (and its ray-gen's). Capture is at P_CAP = custom_capture_factor * rs.
 
 #pragma once
 
@@ -103,6 +114,17 @@ __device__ __forceinline__ Vec3 axpy(Vec3 a, Vec3 b, float s) {
 
 // ---- exact tier -------------------------------------------------------------
 
+#ifdef BHR_CUSTOM_ACCEL
+constexpr bool kCustomAccel = true;
+
+// ops/trace.py:custom_accel_arrays: the plugin's acceleration at radius r,
+// with r2 = r * r
+__device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, const Phys& ph) {
+  return plugin_acceleration(rel, vel, r, __fmul_rn(r, r), ph.rs, ph.spin);
+}
+#else
+constexpr bool kCustomAccel = false;
+
 // models/schwarzschild.py:acceleration in its literal order; zero for flat.
 // For kerr_lt, plus models/kerr.py's drag in its literal order:
 // B_g = (j / (r r r)) (3 jdotr r_hat - J_hat), j = (a* M) M, jdotr =
@@ -135,6 +157,7 @@ __device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, const P
   }
   return acc;
 }
+#endif
 
 // geodesic.py _radius_guard: 1.0001 * max(rs, 1e-6)
 __device__ __forceinline__ float radius_guard(float rs) {
@@ -354,11 +377,13 @@ __device__ __forceinline__ void generate_ray(const Params& p, int row, int col, 
 
 // The oracle's loop (ops/trace.py:trace_rays) for one ray: test, then
 // step, until the ray escapes, is captured, hits the disk or runs out of
-// steps. `flags` is a TraceFlags mask.
+// steps. `flags` is a TraceFlags mask. FOLDED is the fast tier's loop;
+// plugin physics has none (see the top of this file).
 template <bool FAST, int INTEG>
 __device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int row, int col,
                                                int max_steps) {
-  using A = Arith<FAST>;
+  constexpr bool FOLDED = FAST && !kCustomAccel;
+  using A = Arith<FOLDED>;
   Ray ray;
   generate_ray<FAST>(p, row, col, ray.rel, ray.vel);
   ray.status = kRunning;
@@ -376,9 +401,9 @@ __device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int r
   const float r_outer = p.v[P_ROUTER];
   for (int i = 0; i < max_steps; ++i) {
     ray.steps = i + 1;
-    const float r2 = dot<FAST>(ray.rel, ray.rel);
+    const float r2 = dot<FOLDED>(ray.rel, ray.rel);
     float r = 0.0f;  // the exact tier's sqrt'd radius
-    if constexpr (FAST) {
+    if constexpr (FOLDED) {
       if (r2 > esc2) { ray.status = kEscaped; break; }
       if (r2 < cap2) { ray.status = kCaptured; break; }
     } else {
@@ -389,19 +414,19 @@ __device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int r
     float dt = base_dt;
     if (adaptive) {
       // geodesic.py:adaptive_dt; the fast tier's radius is r2 * rsqrt(r2)
-      const float rc = FAST ? r2 * rsqrtf(r2) : r;
+      const float rc = FOLDED ? r2 * rsqrtf(r2) : r;
       dt = A::mul(base_dt, fminf(fmaxf(A::mul(A::sub(rc, rs), static_cast<float>(0.1)),
                                        static_cast<float>(0.01)), 1.0f));
     }
     Vec3 new_rel, new_vel;
-    if constexpr (FAST) {
+    if constexpr (FOLDED) {
       step_fast<INTEG>(ray.rel, ray.vel, r2, ph, dt, new_rel, new_vel);
     } else {
       step_exact<INTEG>(ray.rel, ray.vel, r, ph, dt, new_rel, new_vel);
-      new_vel = vnorm<false>(new_vel);
+      new_vel = vnorm<FAST>(new_vel);
     }
     Vec3 hit;
-    if (disk && disk_crossing<FAST>(ray.rel, new_rel, r_isco, r_outer, hit)) {
+    if (disk && disk_crossing<FOLDED>(ray.rel, new_rel, r_isco, r_outer, hit)) {
       ray.rel = {hit.x, 0.0f, hit.z};
       ray.vel = new_vel;
       ray.status = kOnDisk;

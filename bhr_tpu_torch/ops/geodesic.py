@@ -46,15 +46,16 @@ def model_acceleration(model: str):
             "ops/trace.py integrates it on its own path"
         )
     if model == "custom":
-        raise NotImplementedError(
-            "plugin physics (model='custom') is not ported yet (ROADMAP queue A, item 14)"
+        raise ValueError(
+            "plugin physics (model='custom') has no named acceleration: "
+            "ops/trace.custom_accel_arrays adapts TraceConfig.custom_accel"
         )
     raise ValueError(f"unknown spacetime model {model!r}; have {sorted(MODELS)}")
 
 
 def model_capture_radius(model: str, rs, spin):
     if model not in MODELS:
-        model_acceleration(model)  # raises, naming the ROADMAP item for 'custom'
+        model_acceleration(model)  # raises
     return MODELS[model].capture_radius(rs, spin)
 
 

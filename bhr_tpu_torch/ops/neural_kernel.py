@@ -23,8 +23,10 @@ default tier, 1024 in the highest) and raises for any other.
 bhr_tpu's emit="dirs"): it stores the unit directions and the capture
 status as a TraceResult instead of shading them, for frames with a texture
 skybox, whose epilogue (renderer.shade_image) samples the texture. Its
-plain version is `neural_trace_dirs_reference`. The row-band variant (N4,
-item 15) is not ported.
+plain version is `neural_trace_dirs_reference`. Each takes a band of rows
+(`row0`, `local_shape`): `neural_render_packed_band` is bhr_tpu's N4, the
+frame kernel over rows [row0, row0 + band_h), which parallel/mesh.py
+renders on each device of its 'sp' axis.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from .trace_kernel import (
     _check_out,
     _kernel_device,
     _kernel_params,
+    _local_shape,
     _raise_on_error,
     build_params,
 )
@@ -69,8 +72,11 @@ from .trace_kernel import (
 # Kernel launches so far in this process: incremented by `neural_render_packed`
 # (NEURAL_LAUNCHES) and `neural_trace_dirs` (NEURAL_DIRS_LAUNCHES) right after
 # a successful launch of csrc/neural_mlp.cu, and nowhere else.
+# NEURAL_BAND_LAUNCHES counts, besides, the neural_render_packed launches
+# given a band (`local_shape`; N4).
 NEURAL_LAUNCHES = 0
 NEURAL_DIRS_LAUNCHES = 0
+NEURAL_BAND_LAUNCHES = 0
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use (sm_90)
 KERNEL_TIERS = ("default", "highest")
@@ -181,14 +187,18 @@ def prep_weights(params, *, precision, device) -> tuple:
     return tuple(ops)
 
 
+def weights_stamp(params: NeuralSurrogate) -> tuple:
+    """What changes when a weight or bias of `params` changes: another
+    tensor, or an in-place write such as load_state_dict's."""
+    return tuple((t.data_ptr(), 0 if t.is_inference() else t._version) for t in params.buffers())
+
+
 def _mlp_desc(params: NeuralSurrogate, precision: str, device: torch.device, plan):
     """The kernel's MlpDesc for `params`, with its operands, kept on the
     module per tier and device (their pointers are in the descriptor) and
-    prepared again once a weight or bias has changed: another tensor, or
-    an in-place write such as load_state_dict's."""
+    prepared again once `weights_stamp` changes."""
     key = (precision, str(device))
-    stamp = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
-                  for t in params.buffers())
+    stamp = weights_stamp(params)
     held = params._kernel_operands.get(key)
     if held is None or held[0] != stamp:
         ops = prep_weights(params, precision=precision, device=device)
@@ -205,21 +215,25 @@ def _mlp_desc(params: NeuralSurrogate, precision: str, device: torch.device, pla
 
 
 def _directions_reference(params: NeuralSurrogate, camera: Camera, scene: SceneParams,
-                          precision: str, device: torch.device):
+                          precision: str, device: torch.device, row0: int = 0,
+                          local_shape=None):
     """The kernel's per-pixel arithmetic up to the store, plain, on any
     device: the unit direction planes (vx, vy, vz) and the capture logit
     (bhr_tpu/ops/neural_pallas.py:155-336 operation for operation, with
-    the MLP through mlp_apply at `precision`)."""
+    the MLP through mlp_apply at `precision`), over the frame or the band
+    of `local_shape` rows from `row0`."""
     kerr = params.model == "kerr"
     f32 = torch.float32
     p = build_params(camera, scene, TraceConfig()).to(device)
     cam, fwd, right, up, bh = (p[i:i + 3] for i in (_P_CAM, _P_FWD, _P_RIGHT, _P_UP, _P_BH))
     rs, fovf, spin = p[_P_RS], p[_P_FOVF], p[_P_SPIN]
-    h, w = scene.screen_height, scene.screen_width
+    h, w = _local_shape(scene, 1, local_shape)
 
-    # ray-gen (core/camera.generate_rays), normalised by rsqrt
+    # ray-gen (core/camera.generate_rays), normalised by rsqrt; the band's
+    # rows in integers, then converted, against the frame's height
     u = (torch.arange(w, dtype=f32, device=device)[None, :] / p[_P_WF] - 0.5) * 2.0 * p[_P_ASPECT]
-    v = (torch.arange(h, dtype=f32, device=device)[:, None] / p[_P_HF] - 0.5) * -2.0
+    rows = (torch.arange(h, device=device) + int(row0)).to(f32)
+    v = (rows[:, None] / p[_P_HF] - 0.5) * -2.0
     uf, vf = u * fovf, v * fovf
     d = [fwd[i] + right[i] * uf + up[i] * vf for i in range(3)]
     inv = rsqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
@@ -274,14 +288,15 @@ def _directions_reference(params: NeuralSurrogate, camera: Camera, scene: SceneP
 
 
 def neural_render_packed_reference(params, camera: Camera, scene: SceneParams, *,
-                                   seed: int = 2020, precision="default",
-                                   device) -> torch.Tensor:
+                                   seed: int = 2020, precision="default", device,
+                                   row0: int = 0, local_shape=None) -> torch.Tensor:
     """The frame kernel's plain PyTorch version, on any device -> packed
-    int32 (H, W): `_directions_reference`, then the star field, captured
-    rays (a positive logit) black, round-half-up
-    (bhr_tpu/ops/neural_pallas.py:345-362)."""
+    int32 (H, W), or the band `row0` / `local_shape`: `_directions_reference`,
+    then the star field, captured rays (a positive logit) black,
+    round-half-up (bhr_tpu/ops/neural_pallas.py:345-362)."""
     vx, vy, vz, logit = _directions_reference(as_surrogate(params), camera, scene,
-                                              kernel_tier(precision), torch.device(device))
+                                              kernel_tier(precision), torch.device(device),
+                                              row0, local_shape)
     r_, g_, b_ = procedural_background(vx, vy, vz, seed=seed)
     live = (logit <= 0.0).to(torch.float32)
     return pack_rgba8_planes(r_ * live, g_ * live, b_ * live, half_up=True)
@@ -303,31 +318,34 @@ def _trace_result(vel: torch.Tensor, status: torch.Tensor, camera: Camera,
 
 
 def neural_trace_dirs_reference(params, camera: Camera, scene: SceneParams, *,
-                                precision="default", device) -> TraceResult:
+                                precision="default", device, row0: int = 0,
+                                local_shape=None) -> TraceResult:
     """`neural_trace_dirs`'s plain PyTorch version, on any device: the
     frame kernel's plain version up to the rotation and renormalisation,
     without the star field; status is STATUS_CAPTURED where the logit is
     positive, else STATUS_ESCAPED."""
     vx, vy, vz, logit = _directions_reference(as_surrogate(params), camera, scene,
-                                              kernel_tier(precision), torch.device(device))
+                                              kernel_tier(precision), torch.device(device),
+                                              row0, local_shape)
     status = torch.where(logit > 0.0, STATUS_CAPTURED, STATUS_ESCAPED).to(torch.int32)
     return _trace_result(torch.stack([vx, vy, vz], dim=-1), status, camera, scene)
 
 
 def _launch(params: NeuralSurrogate, camera, scene, precision: str, plan, device: torch.device,
-            seed, out, vel, status) -> None:
-    """Launch csrc/neural_mlp.cu on the current stream into `out` (the
-    packed frame) or into `vel` and `status` (the direction planes)."""
+            seed, row0: int, shape, out, vel, status) -> None:
+    """Launch csrc/neural_mlp.cu on the current stream over the `shape`
+    (rows, width) from row `row0` into `out` (the packed frame) or into
+    `vel` and `status` (the direction planes)."""
     from ..utils.build import load_neural_mlp
 
     lib = load_neural_mlp()
     desc = _mlp_desc(params, precision, device, plan)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.bhr_neural_render(
-        _kernel_params(camera, scene, TraceConfig()), seed_term(seed),
-        int(params.model == "kerr"), int(precision == "highest"), scene.screen_height,
-        scene.screen_width, desc, device.index, *(None if t is None else t.data_ptr()
-                                                  for t in (out, vel, status)), stream,
+        _kernel_params(camera, scene, TraceConfig(), row0), seed_term(seed),
+        int(params.model == "kerr"), int(precision == "highest"), shape[0], shape[1], desc,
+        device.index, *(None if t is None else t.data_ptr() for t in (out, vel, status)),
+        stream,
     )
     _raise_on_error(lib, rc, "neural_render launch")
 
@@ -344,10 +362,12 @@ def _plan(params: NeuralSurrogate, precision: str) -> tuple[int, int, int]:
 
 
 def neural_render_packed(params, camera: Camera, scene: SceneParams, *, seed: int = 2020,
-                         precision="default", device,
-                         out: torch.Tensor | None = None) -> torch.Tensor:
+                         precision="default", device, out: torch.Tensor | None = None,
+                         row0: int = 0, local_shape=None) -> torch.Tensor:
     """One neural frame as a single kernel launch -> packed int32 (H, W)
-    (bhr_tpu/ops/neural_pallas.py:421-461).
+    (bhr_tpu/ops/neural_pallas.py:421-461); with `local_shape` (band_h, W),
+    the band of rows [row0, row0 + band_h) of that frame, bit for bit its
+    rows (N4; ray-gen divides by the frame's height).
 
     `params` is a NeuralSurrogate (Schwarzschild or Kerr by its shapes; the
     Kerr spin comes from the scene) or a sequence of (W, b); `precision`
@@ -358,29 +378,44 @@ def neural_render_packed(params, camera: Camera, scene: SceneParams, *, seed: in
     module), and raises when CUDA is not available or the launch fails. On
     either device it raises for a net that `kernel_plan` finds no block
     for. `out`, if given, is a contiguous int32 (H, W) tensor on `device`
-    that receives the frame.
+    that receives the frame or band.
     """
-    global NEURAL_LAUNCHES
+    global NEURAL_LAUNCHES, NEURAL_BAND_LAUNCHES
     params = as_surrogate(params)
     precision = kernel_tier(precision)
     plan = _plan(params, precision)
     device = _kernel_device(device, "neural_render_packed")
-    shape = (scene.screen_height, scene.screen_width)
+    shape = _local_shape(scene, 1, local_shape)
     if out is not None:
         _check_out(out, shape, torch.int32, device, "out")
     if device.type == "cpu":
         frame = neural_render_packed_reference(params, camera, scene, seed=seed,
-                                               precision=precision, device=device)
+                                               precision=precision, device=device, row0=row0,
+                                               local_shape=local_shape)
         return frame if out is None else out.copy_(frame)
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=device)
-    _launch(params, camera, scene, precision, plan, device, seed, out, None, None)
+    _launch(params, camera, scene, precision, plan, device, seed, row0, shape, out, None, None)
     NEURAL_LAUNCHES += 1
+    NEURAL_BAND_LAUNCHES += local_shape is not None
     return out
 
 
+def neural_render_packed_band(params, camera: Camera, scene: SceneParams, row0: int,
+                              band_h: int, *, seed: int = 2020, precision="default",
+                              device) -> torch.Tensor:
+    """Rows [row0, row0 + band_h) of a neural frame -> packed int32
+    (band_h, W) (bhr_tpu/ops/neural_pallas.py:519-550, N4): one
+    neural_mlp launch, as `neural_render_packed` with that band. Unlike
+    bhr_tpu's, it takes the precision tier."""
+    return neural_render_packed(params, camera, scene, seed=seed, precision=precision,
+                                device=device, row0=row0,
+                                local_shape=(band_h, scene.screen_width))
+
+
 def neural_trace_dirs(params, camera: Camera, scene: SceneParams, *, precision="default",
-                      device, out: TraceResult | None = None) -> TraceResult:
+                      device, out: TraceResult | None = None, row0: int = 0,
+                      local_shape=None) -> TraceResult:
     """The neural deflection field of one frame as a single kernel launch
     -> TraceResult (bhr_tpu/ops/neural_pallas.py:464-516): final_vel the
     predicted unit directions, status STATUS_CAPTURED where the capture
@@ -388,8 +423,8 @@ def neural_trace_dirs(params, camera: Camera, scene: SceneParams, *, precision="
     position and steps max_steps (see `_trace_result`). It feeds the
     shading epilogue of frames with a texture skybox.
 
-    `params` and `precision` as `neural_render_packed` takes them, and it
-    raises for the same nets. On a CPU device this is
+    `params`, `precision`, `row0` and `local_shape` as `neural_render_packed`
+    takes them, and it raises for the same nets. On a CPU device this is
     `neural_trace_dirs_reference`. On a CUDA device it launches
     csrc/neural_mlp.cu with its direction-plane outputs on the current
     stream, without a host sync, and raises when CUDA is not available or
@@ -402,13 +437,13 @@ def neural_trace_dirs(params, camera: Camera, scene: SceneParams, *, precision="
     precision = kernel_tier(precision)
     plan = _plan(params, precision)
     device = _kernel_device(device, "neural_trace_dirs")
-    h, w = scene.screen_height, scene.screen_width
+    h, w = _local_shape(scene, 1, local_shape)
     if out is not None:
         _check_out(out.final_vel, (h, w, 3), torch.float32, device, "out.final_vel")
         _check_out(out.status, (h, w), torch.int32, device, "out.status")
     if device.type == "cpu":
         result = neural_trace_dirs_reference(params, camera, scene, precision=precision,
-                                             device=device)
+                                             device=device, row0=row0, local_shape=local_shape)
         if out is None:
             return result
         out.final_vel.copy_(result.final_vel)
@@ -417,6 +452,6 @@ def neural_trace_dirs(params, camera: Camera, scene: SceneParams, *, precision="
     vel = torch.empty((h, w, 3), dtype=torch.float32, device=device) if out is None \
         else out.final_vel
     status = torch.empty((h, w), dtype=torch.int32, device=device) if out is None else out.status
-    _launch(params, camera, scene, precision, plan, device, 0, None, vel, status)
+    _launch(params, camera, scene, precision, plan, device, 0, row0, (h, w), None, vel, status)
     NEURAL_DIRS_LAUNCHES += 1
     return _trace_result(vel, status, camera, scene)

@@ -26,8 +26,12 @@ from .trace import STATUS_CAPTURED, STATUS_ESCAPED, TraceResult
 
 
 def neural_trace_image(params, camera: Camera, scene, *, device, dtype=torch.float32,
-                       precision="default") -> TraceResult:
-    """Predict the (H, W) deflection field of one frame on `device`.
+                       precision="default", row0: int = 0,
+                       local_shape: tuple[int, int] | None = None) -> TraceResult:
+    """Predict the (H, W) deflection field of one frame on `device`, or
+    with `local_shape` (band_h, W) that of its rows [row0, row0 + band_h)
+    (the band route of bhr_tpu/parallel/mesh.py:121-126; ray-gen refers to
+    the frame's size, so a band is the same rows of the whole frame).
 
     `params` is a models/neural.NeuralSurrogate (or a sequence of (W, b))
     on `device`, Schwarzschild or Kerr by its input width (the spin then
@@ -36,8 +40,9 @@ def neural_trace_image(params, camera: Camera, scene, *, device, dtype=torch.flo
     route makes the host wait for nothing.
     """
     device = torch.device(device)
-    h, w = scene.screen_height, scene.screen_width
-    origins, dirs = generate_rays(camera, w, h, scene.fov, device=device)
+    h, w = local_shape or (scene.screen_height, scene.screen_width)
+    origins, dirs = generate_rays(camera, scene.screen_width, scene.screen_height, scene.fov,
+                                  device=device, row0=row0, local_shape=(h, w))
     flat_o = origins.reshape(-1, 3)
     flat_d = dirs.reshape(-1, 3)
     bh = on_device(scene.black_hole_position, device)

@@ -22,7 +22,8 @@ when no ray is still running. This is the plain version the CUDA kernels
 The exact Kerr model ("kerr") integrates the Hamiltonian state (q, p) of
 models/kerr_schild.py on its own loop, `_trace_rays_kerr_schild`
 (bhr_tpu/ops/trace.py:210-320); "kerr_lt" runs the loop above with the
-Lense-Thirring acceleration of models/kerr.py.
+Lense-Thirring acceleration of models/kerr.py; plugin physics ("custom")
+runs it with the user's acceleration (`custom_accel_arrays`).
 """
 
 from __future__ import annotations
@@ -54,19 +55,48 @@ STATUS_DISK = 3  # hit the accretion disk -> disk emission
 @dataclasses.dataclass(frozen=True)
 class TraceConfig:
     """Static trace configuration, with the same fields and defaults as
-    bhr_tpu's TraceConfig (plugin physics aside). The port traces the
-    euler, rk4 and leapfrog integrators with model "schwarzschild",
-    "kerr", "kerr_lt" or "flat"; plugin physics ("custom") raises
-    NotImplementedError when traced."""
+    bhr_tpu's TraceConfig (bhr_tpu/ops/trace.py:40-83). The port traces
+    the euler, rk4 and leapfrog integrators with model "schwarzschild",
+    "kerr", "kerr_lt", "flat" or "custom".
+
+    model="custom" is plugin physics (utils/plugin.py): `custom_accel` is
+    the user's acceleration(rel, vel, r, r2, rs, spin) -> (ax, ay, az) on
+    component planes, and the capture radius is custom_capture_factor *
+    rs. The configuration hashes the callable by identity."""
 
     integrator: str = "euler"  # "euler" | "rk4" | "leapfrog"
-    model: str = "schwarzschild"  # "schwarzschild" | "kerr" | "kerr_lt" | "flat"
+    model: str = "schwarzschild"  # "schwarzschild" | "kerr" | "kerr_lt" | "flat" | "custom"
     adaptive: bool = False  # adaptive step size (docs/ROADMAP.md:195-201)
     dt: float = DEFAULT_DT
     escape_radius: float = ESCAPE_RADIUS
     disk: bool = False  # equatorial thin accretion disk
     disk_r_isco_factor: float = 3.0  # in units of r_s
     disk_r_outer_factor: float = 10.0
+    custom_accel: object = None
+    custom_capture_factor: float = float(CAPTURE_FACTOR)
+
+    def __post_init__(self):
+        if self.model == "custom" and self.custom_accel is None:
+            raise ValueError(
+                "model='custom' needs custom_accel(rel, vel, r, r2, rs, spin)"
+                " -> (ax, ay, az) on component-plane tuples"
+            )
+
+
+def custom_accel_arrays(config: TraceConfig):
+    """The plugin's plane-form acceleration as accel(rel, vel, r, rs, spin)
+    on (..., 3) state (bhr_tpu/ops/trace.py:86-105): r2 is r * r, and each
+    component is broadcast to the rays' shape."""
+    plug = config.custom_accel
+
+    def accel_fn(rel, vel, r, rs, spin):
+        out = plug((rel[..., 0], rel[..., 1], rel[..., 2]),
+                   (vel[..., 0], vel[..., 1], vel[..., 2]), r, r * r, rs, spin)
+        return torch.stack([torch.broadcast_to(torch.as_tensor(a, dtype=torch.float32,
+                                                               device=rel.device),
+                                               rel.shape[:-1]) for a in out], dim=-1)
+
+    return accel_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +117,7 @@ def check_traceable(config: TraceConfig) -> None:
             f"integrator {config.integrator!r} is not ported yet "
             "(ROADMAP queue A, item 11: neural)"
         )
-    if config.model == "custom":
-        raise NotImplementedError(
-            "plugin physics (model='custom') is not ported yet (ROADMAP queue A, item 14)"
-        )
-    if config.model not in MODELS:
+    if config.model not in MODELS and config.model != "custom":
         raise ValueError(f"unknown spacetime model {config.model!r}; have {sorted(MODELS)}")
 
 
@@ -113,7 +139,11 @@ def trace_rays(
     termination tested on r^2 against escape^2 and capture^2, the adaptive
     radius taken as r^2 * rsqrt(r^2), the folded integrators of
     ops/geodesic.py, and the disk crossing tested in r^2 space
-    (models/disk.intersect_equatorial_fast).
+    (models/disk.intersect_equatorial_fast). Plugin physics has no folded
+    form: bhr_tpu's kernel runs it on its generic body, where the fast
+    tier changes the renormalisation alone (v * rsqrt(v.v),
+    pallas_trace.py:318-321), so its fast tier is the exact loop with that
+    renormalisation.
 
     A disk hit's final_pos is the hit point with its y set to the black
     hole's: the exact tier finds the hit as the oracle does
@@ -131,11 +161,17 @@ def trace_rays(
                                        fast_math)
     flat_model = config.model == "flat"
     lt_spin = spin if config.model == "kerr_lt" else None
-    accel_fn = model_acceleration(config.model)
-    if config.model == "schwarzschild":
+    custom = config.model == "custom"
+    if custom:
+        accel_fn = custom_accel_arrays(config)
+        r_capture = rs * torch.tensor(config.custom_capture_factor, dtype=f32, device=device)
+    elif config.model == "schwarzschild":
+        accel_fn = model_acceleration(config.model)
         r_capture = rs * CAPTURE_FACTOR  # the literal wgsl:62 expression
     else:
+        accel_fn = model_acceleration(config.model)
         r_capture = model_capture_radius(config.model, rs, spin)
+    folded = fast_math and not custom  # the fast tier's folded loop
     escape_r = torch.tensor(config.escape_radius, dtype=f32, device=device)
     base_dt = torch.tensor(config.dt, dtype=f32, device=device)
     esc2 = escape_r * escape_r
@@ -158,7 +194,7 @@ def trace_rays(
         dist = sqrt_rn(r2)
         # steps_taken = i + 1 for every ray still in the loop (wgsl:149)
         steps = torch.where(active, i + 1, steps)
-        if fast_math:
+        if folded:
             escaped = active & (r2 > esc2)
             captured = active & ~escaped & (r2 < cap2)
         else:
@@ -168,21 +204,25 @@ def trace_rays(
 
         dt = base_dt
         if config.adaptive:
-            dt = adaptive_dt(r2 * rsqrt(r2) if fast_math else dist, rs, base_dt)
-        if fast_math:
+            dt = adaptive_dt(r2 * rsqrt(r2) if folded else dist, rs, base_dt)
+        if folded:
             new_rel, new_vel_n = FAST_STEP_FNS[config.integrator](rel, vel, rs, dt, flat_model,
                                                                   spin=lt_spin)
         else:
             new_rel, new_vel = STEP_FNS[config.integrator](accel_fn, rel, vel, dist, rs, spin, dt)
-            # torch.sqrt, the one root not taken by sqrt_rn (the same on
-            # CUDA): on the CPU it is an ulp off on some inputs, and sqrt_rn
-            # here moves one more pixel of test_torch_render's 48x32 exact
-            # parity frame off bhr_tpu's, below its bar (ROADMAP queue C)
-            new_vel_n = new_vel / torch.sqrt(dot(new_vel, new_vel))[..., None]
+            if fast_math:  # plugin physics' fast tier
+                new_vel_n = new_vel * rsqrt(dot(new_vel, new_vel))[..., None]
+            else:
+                # torch.sqrt, the one root not taken by sqrt_rn (the same on
+                # CUDA): on the CPU it is an ulp off on some inputs, and
+                # sqrt_rn here moves one more pixel of test_torch_render's
+                # 48x32 exact parity frame off bhr_tpu's, below its bar
+                # (ROADMAP queue C)
+                new_vel_n = new_vel / torch.sqrt(dot(new_vel, new_vel))[..., None]
         new_pos = new_rel + bh_pos
 
         if config.disk:
-            intersect = intersect_equatorial_fast if fast_math else intersect_equatorial
+            intersect = intersect_equatorial_fast if folded else intersect_equatorial
             hit, hit_rel = intersect(rel, new_rel, r_isco, r_outer)
             hit = hit & stepping
             hit_rel = torch.stack(

@@ -11,11 +11,14 @@ port of the monolithic and staged paths of bhr_tpu/ops/pallas_trace.py).
 Both kernels cover the euler, rk4 and leapfrog integrators, fixed or
 adaptive dt, the Schwarzschild, exact Kerr (Kerr-Schild), Lense-Thirring
 Kerr and flat metrics and the accretion disk, in the fast and the exact
-math tier. `trace_image` also takes K4's strided and masked ray-gen
-(`stride`, `local_shape`, `row0`, `col0`; `mask`), which the multires
-renderer (ops/multires.py) is built on. A wrapper runs its plain version
-for a CPU device; for a CUDA device it launches the kernel or raises -- it
-never falls back.
+math tier, and each takes a band of rows (`row0`, `local_shape`; the mesh
+of parallel/mesh.py). `trace_image` also takes K4's strided and masked
+ray-gen (`stride`, `col0`; `mask`), which the multires renderer
+(ops/multires.py) is built on, and plugin physics (model "custom", K5's
+generic body): trace_planes.cu built once per plugin with the plugin's
+acceleration recorded into CUDA source (utils/plugin.py). A wrapper runs
+its plain version for a CPU device; for a CUDA device it launches the
+kernel or raises -- it never falls back.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..core.camera import Camera, generate_rays
 from ..core.math import dot, sqrt_rn
 from ..core.scene import CAPTURE_FACTOR, SceneParams
 from ..models.disk import T_ISCO, kernel_lut_np, shade_disk_planes
+from ..utils.plugin import cuda_source
 from .geodesic import INTEGRATORS, MODELS, model_capture_radius
 from .sampling import pack_rgba8_planes
 from .starfield import procedural_background, seed_term
@@ -44,12 +48,13 @@ from .trace import (
 # Kernel launches so far in this process: each is incremented by its
 # wrapper right after a successful launch of its CUDA kernel, and nowhere
 # else (`render_packed` -> render_mono.cu, `trace_image` -> trace_planes.cu).
-# STRIDED_LAUNCHES and MASKED_LAUNCHES count, besides, the trace_planes
-# launches with stride != 1 and with a mask.
+# STRIDED_LAUNCHES, MASKED_LAUNCHES and CUSTOM_LAUNCHES count, besides, the
+# trace_planes launches with stride != 1, with a mask and with plugin physics.
 LAUNCHES = 0
 TRACE_LAUNCHES = 0
 STRIDED_LAUNCHES = 0
 MASKED_LAUNCHES = 0
+CUSTOM_LAUNCHES = 0
 
 # params vector layout (fp32[32]), as bhr_tpu/ops/pallas_trace.py:181-201
 _P_CAM = 0  # 0:3 camera position
@@ -120,6 +125,8 @@ def build_params(camera: Camera, scene: SceneParams, config: TraceConfig, row0=0
     spin = host(scene.spin)
     if config.model == "schwarzschild":
         capture_r = rs * CAPTURE_FACTOR  # wgsl:62 literal
+    elif config.model == "custom":
+        capture_r = rs * host(config.custom_capture_factor)  # pallas_trace.py:1684-1685
     else:
         capture_r = host(model_capture_radius(config.model, rs, spin))
     w = torch.tensor(float(scene.screen_width), dtype=f32)
@@ -161,9 +168,10 @@ def _check_mono_config(config: TraceConfig, scene: SceneParams, fast_math: bool)
     if not monolithic_eligible(config, scene, fast_math=fast_math, skybox=None,
                                disk_params=None, tonemap="passthrough"):
         raise ValueError(
-            f"the monolithic kernel renders no debug view, and shades the disk and traces "
-            f"kerr_lt in the fast tier only; got {config} with debug_mode={scene.debug_mode}, fast_math="
-            f"{fast_math}: render it through trace_image and the staged epilogue "
+            f"the monolithic kernel renders no debug view and no plugin physics, and shades "
+            f"the disk and traces kerr_lt in the fast tier only; got {config} with debug_mode="
+            f"{scene.debug_mode}, fast_math={fast_math}: render it through trace_image and the "
+            "staged epilogue "
             "(renderer.render_image routes it there)"
         )
 
@@ -211,17 +219,20 @@ def _kernel_params(camera, scene, config, row0=0, col0=0, stride=1):
 
 def render_packed_reference(camera: Camera, scene: SceneParams,
                             config: TraceConfig = TraceConfig(), *, seed: int = 2020,
-                            fast_math: bool = True, device) -> torch.Tensor:
+                            fast_math: bool = True, device, row0: int = 0,
+                            local_shape: tuple[int, int] | None = None) -> torch.Tensor:
     """The monolithic kernel's plain PyTorch version, on any device:
     `trace_image_reference`, then `shade_packed_reference`. Returns the
-    packed int32 (H, W) frame.
+    packed int32 (H, W) frame, or the band `row0` / `local_shape` as
+    `render_packed` takes them.
 
     With `fast_math=True` it computes the fast tier's arithmetic in exact
     operations (see trace_rays) and quantizes round-half-up, so the fast
     kernel differs from it only by its approximate rsqrt and reciprocal.
     """
     _check_mono_config(config, scene, fast_math)
-    result = trace_image_reference(camera, scene, config, fast_math=fast_math, device=device)
+    result = trace_image_reference(camera, scene, config, fast_math=fast_math, device=device,
+                                   row0=row0, local_shape=local_shape)
     return shade_packed_reference(result, camera, scene, config, seed=seed, fast_math=fast_math)
 
 
@@ -267,26 +278,32 @@ def _set_disk_lut(device_index: int) -> None:
 
 def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = TraceConfig(),
                   *, seed: int = 2020, fast_math: bool = True, device,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
+                  out: torch.Tensor | None = None, row0: int = 0,
+                  local_shape: tuple[int, int] | None = None) -> torch.Tensor:
     """Monolithic path: trace + shade in one kernel -> packed int32 (H, W).
+
+    `row0` with `local_shape` (band_h, W) renders the band of rows [row0,
+    row0 + band_h) of the frame (bhr_tpu's pallas_render_packed(row0=,
+    local_shape=), the mesh's band): ray-gen refers to the scene's full
+    width and height, so a band is bit for bit the same rows of the whole
+    frame; rows past the frame's height are traced like any other.
 
     On a CPU device this is `render_packed_reference`. On a CUDA device it
     launches csrc/render_mono.cu on the current stream, without a host
     sync, and raises when CUDA is not available or the launch fails.
     `out`, if given, is a contiguous int32 (H, W) tensor on `device` that
-    receives the frame (the animation path renders into slices of one
-    preallocated tensor).
+    receives the frame or band (the animation path renders into slices of
+    one preallocated tensor).
     """
     global LAUNCHES
     _check_mono_config(config, scene, fast_math)
     device = _kernel_device(device, "render_packed")
-    shape = (scene.screen_height, scene.screen_width)
+    shape = _local_shape(scene, 1, local_shape)
     if out is not None:
         _check_out(out, shape, torch.int32, device, "out")
     if device.type == "cpu":
-        frame = render_packed_reference(
-            camera, scene, config, seed=seed, fast_math=fast_math, device=device
-        )
+        frame = render_packed_reference(camera, scene, config, seed=seed, fast_math=fast_math,
+                                        device=device, row0=row0, local_shape=local_shape)
         return frame if out is None else out.copy_(frame)
     from ..utils.build import load_render_mono
 
@@ -297,7 +314,7 @@ def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = Trac
         out = torch.empty(shape, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.bhr_render_mono(
-        _kernel_params(camera, scene, config), seed_term(seed), int(bool(fast_math)),
+        _kernel_params(camera, scene, config, row0), seed_term(seed), int(bool(fast_math)),
         INTEGRATORS.index(config.integrator), trace_flags(config), shape[0], shape[1],
         int(scene.max_steps), device.index, out.data_ptr(), stream,
     )
@@ -405,8 +422,13 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
     launches csrc/trace_planes.cu on the current stream, without a host
     sync, and raises when CUDA is not available or the launch fails.
     `out`, if given (see `empty_trace_result`), receives the planes.
+
+    With plugin physics (config.model "custom") the kernel is built with
+    the plugin's acceleration (utils/build.load_trace_planes_custom; the
+    recording raises ValueError for a plugin it cannot take) and the launch
+    counts in CUSTOM_LAUNCHES too.
     """
-    global TRACE_LAUNCHES, STRIDED_LAUNCHES, MASKED_LAUNCHES
+    global TRACE_LAUNCHES, STRIDED_LAUNCHES, MASKED_LAUNCHES, CUSTOM_LAUNCHES
     check_traceable(config)
     device = _kernel_device(device, "trace_image")
     h, w = _local_shape(scene, stride, local_shape)
@@ -427,9 +449,13 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
         for name in ("final_pos", "final_vel", "status", "steps"):
             getattr(out, name).copy_(getattr(result, name))
         return out
-    from ..utils.build import load_trace_planes
+    from ..utils.build import load_trace_planes, load_trace_planes_custom
 
-    lib = load_trace_planes()
+    custom = config.model == "custom"
+    if custom:
+        lib = load_trace_planes_custom(cuda_source(config.custom_accel))
+    else:
+        lib = load_trace_planes()
     if out is None:
         out = empty_trace_result(h, w, device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -443,4 +469,5 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
     TRACE_LAUNCHES += 1
     STRIDED_LAUNCHES += stride != 1
     MASKED_LAUNCHES += mask is not None
+    CUSTOM_LAUNCHES += custom
     return out

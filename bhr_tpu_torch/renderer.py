@@ -32,10 +32,12 @@ by `texture_filter` ("bilinear", "nearest", "luma") and
 integrates at 1/divisor resolution through the planes kernel's strided and
 masked ray-gen (ops/multires.py), and `cache_deflection=True` keeps the
 trace while camera and scene geometry stand still and only shades again.
-On the CPU each kernel's plain PyTorch version stands in. Plugin physics
-raises NotImplementedError naming the ROADMAP item (queue A) that brings
-it. The TPU tuning arguments of bhr_tpu (tile, kernel_knobs, use_pallas,
-interpret) have no counterpart here.
+Plugin physics (`custom_physics=`, a Python file, module or callable of
+utils/plugin.py) is traced by the planes kernel built with the plugin's
+acceleration, never monolithic and never multires. On the CPU each
+kernel's plain PyTorch version stands in. The TPU tuning arguments of
+bhr_tpu (tile, kernel_knobs, use_pallas, interpret) have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from .ops.sampling import luma_pack_texture, pack_texture_rgba8, unpack_frame
 from .ops.shading import shade_planes_packed, texture_background
 from .ops.trace import TraceConfig, TraceResult
 from .ops.trace_kernel import monolithic_eligible, render_packed, trace_image
+from .utils.plugin import cuda_source, load_plugin
 
 
 class CudaContext:
@@ -130,10 +133,6 @@ def _integrator_from_path(name: str) -> tuple[str, str]:
     return integrator, model
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A, item {item})")
-
-
 def _check_neural(model: str, adaptive: bool, disk: bool, multires: int) -> None:
     """The ValueErrors of bhr_tpu/renderer.py:481-500 for integrator='neural'."""
     if model not in ("schwarzschild", "kerr"):
@@ -151,23 +150,27 @@ def _check_neural(model: str, adaptive: bool, disk: bool, multires: int) -> None
 def trace_frame(camera: Camera, scene: SceneParams, *, config: TraceConfig, fast_math: bool,
                 device, planes: TraceResult | None = None, textured: bool = False,
                 neural_params=None, neural_dtype: str = "float32",
-                neural_precision: str = "default") -> TraceResult:
+                neural_precision: str = "default", row0: int = 0,
+                local_shape=None) -> TraceResult:
     """The staged path's trace of one frame on `device`: one trace_planes
     launch into `planes` (if given), or for config.integrator "neural" the
     surrogate's deflection field -- one neural_mlp launch with its
     direction-plane output where the frame is `textured` and
     `dirs_kernel_takes` it (bhr_tpu/renderer.py:210-239), else the staged
-    route at `neural_dtype` and `neural_precision`."""
+    route at `neural_dtype` and `neural_precision`. With `local_shape`
+    (band_h, W), the band of rows [row0, row0 + band_h) of that trace."""
+    band = dict(row0=row0, local_shape=local_shape)
     if config.integrator != "neural":
-        return trace_image(camera, scene, config, fast_math=fast_math, device=device, out=planes)
+        return trace_image(camera, scene, config, fast_math=fast_math, device=device, out=planes,
+                           **band)
     if neural_params is None:
         raise ValueError("integrator='neural' needs neural_params")
     if textured and dirs_kernel_takes(neural_params, scene, dtype=neural_dtype,
                                       precision=neural_precision):
         return neural_trace_dirs(neural_params, camera, scene, precision=neural_precision,
-                                 device=device, out=planes)
+                                 device=device, out=planes, **band)
     return neural_trace_image(neural_params, camera, scene, device=device, dtype=neural_dtype,
-                              precision=neural_precision)
+                              precision=neural_precision, **band)
 
 
 def render_image(camera: Camera, scene: SceneParams, *, config: TraceConfig, fast_math: bool,
@@ -175,9 +178,14 @@ def render_image(camera: Camera, scene: SceneParams, *, config: TraceConfig, fas
                  skybox=None, disk_params=None, lut=None, out: torch.Tensor | None = None,
                  planes: TraceResult | None = None, texture_filter: str = "bilinear",
                  texture_subsample=1, neural_params=None, neural_dtype: str = "float32",
-                 neural_precision: str = "default") -> torch.Tensor:
+                 neural_precision: str = "default", row0: int = 0,
+                 local_shape=None) -> torch.Tensor:
     """One frame on `device`: uint8 (H, W, 4), or the packed int32 (H, W)
-    frame when `packed` (bhr_tpu/renderer.py:127-307).
+    frame when `packed` (bhr_tpu/renderer.py:127-307); with `local_shape`
+    (band_h, W), the band of rows [row0, row0 + band_h) of that frame, bit
+    for bit its rows (the band of parallel/mesh.py: every kernel's ray-gen
+    refers to the frame's size; a texture's chroma and subsample grids
+    anchor at the band's first row).
 
     A frame that `monolithic_eligible` admits is one render_mono launch;
     any other is one trace_planes launch followed by `shade_image`. With
@@ -199,23 +207,25 @@ def render_image(camera: Camera, scene: SceneParams, *, config: TraceConfig, fas
     """
     if tonemap not in TONEMAPS:
         raise ValueError(f"unknown tonemap {tonemap!r}; have {sorted(TONEMAPS)}")
+    band = dict(row0=row0, local_shape=local_shape)
     if config.integrator == "neural":
         if neural_params is None:
             raise ValueError("integrator='neural' needs neural_params")
         if skybox is None and kernel_takes(neural_params, scene, tonemap=tonemap,
                                            precision=neural_precision):
             frame = neural_render_packed(neural_params, camera, scene, seed=seed,
-                                         precision=neural_precision, device=device, out=out)
+                                         precision=neural_precision, device=device, out=out,
+                                         **band)
             return frame if packed else unpack_frame(frame)
     elif monolithic_eligible(config, scene, fast_math=fast_math, skybox=skybox,
                              disk_params=disk_params, tonemap=tonemap):
         frame = render_packed(camera, scene, config, seed=seed, fast_math=fast_math,
-                              device=device, out=out)
+                              device=device, out=out, **band)
         return frame if packed else unpack_frame(frame)
     result = trace_frame(camera, scene, config=config, fast_math=fast_math, device=device,
                          planes=planes, textured=skybox is not None,
                          neural_params=neural_params, neural_dtype=neural_dtype,
-                         neural_precision=neural_precision)
+                         neural_precision=neural_precision, **band)
     return shade_image(result, camera, scene, disk_params, lut, tonemap=tonemap, seed=seed,
                        packed=packed, out=out, skybox=skybox, texture_filter=texture_filter,
                        texture_subsample=texture_subsample)
@@ -284,10 +294,25 @@ class BlackHoleRenderer:
         custom_physics=None,
     ):
         integ, path_model = _integrator_from_path(integrator)
+        # runtime-swappable physics (bhr_tpu/renderer.py:433-457): a .py
+        # path, module or callable providing acceleration(rel, vel, r, r2,
+        # rs, spin) on component planes
+        plugin = {}
+        if custom_physics is not None:
+            if model not in (None, "custom"):
+                raise ValueError(f"custom_physics conflicts with model={model!r}; leave model "
+                                 "unset (it becomes 'custom')")
+            accel, capture_factor = load_plugin(custom_physics)
+            plugin = dict(custom_accel=accel, custom_capture_factor=capture_factor)
+            model = "custom"
+            if multires:
+                raise ValueError("custom physics has no multires mode (bhr_tpu runs it on its "
+                                 "scratch-status kernel, which has no strided flavour): use "
+                                 "full resolution")
+        elif model == "custom":
+            raise ValueError("model='custom' needs custom_physics=")
         model = model or path_model
-        if custom_physics is not None or model == "custom":
-            raise _not_ported("plugin physics (model='custom')", "14")
-        if model not in ("schwarzschild", "kerr", "kerr_lt", "flat"):
+        if model not in ("schwarzschild", "kerr", "kerr_lt", "flat", "custom"):
             raise ValueError(f"unknown spacetime model {model!r}")
         if integ == "neural":
             _check_neural(model, adaptive, disk, multires)
@@ -313,11 +338,17 @@ class BlackHoleRenderer:
             raise ValueError(f"neural_dtype must be float32 or bfloat16, got {neural_dtype!r}")
         if context is not None and device is not None:
             raise ValueError("pass either context= or device=, not both")
+        wanted = context.device if context is not None else torch.device(device or "cuda")
+        if plugin and wanted.type == "cuda":
+            # the kernel's build takes the plugin's recorded arithmetic; one
+            # it cannot record raises here, naming what it does
+            cuda_source(plugin["custom_accel"])
         self.context = context if context is not None else CudaContext.new(device)
         self.width = int(width)
         self.height = int(height)
         self.config = TraceConfig(integrator=integ, model=model, adaptive=bool(adaptive),
-                                  disk=bool(disk), **({"dt": dt} if dt is not None else {}))
+                                  disk=bool(disk), **({"dt": dt} if dt is not None else {}),
+                                  **plugin)
         self.fast_math = bool(fast_math)
         self.tonemap = tonemap
         self.skybox_seed = int(skybox_seed)
@@ -514,6 +545,8 @@ class BlackHoleRenderer:
         texture_subsample) go to render_multires."""
         if self.config.integrator == "neural":
             raise ValueError("multires is not supported with integrator='neural'")
+        if self.config.model == "custom":
+            raise ValueError("custom physics has no multires mode: use render_frame")
         camera = camera if camera is not None else self.camera
         scene = self.frame_scene(scene)
         frame = render_multires(camera, scene, **{**self.multires_kwargs(scene, divisor), **kw})

@@ -4,7 +4,10 @@ The sources under bhr_tpu_torch/csrc/ have a plain C interface, so a build
 is one nvcc call (seconds, no PyTorch headers). The shared library lands in
 build/bhr_tpu_torch/ at the root of the checkout, named by a hash of the
 sources and flags: it is built at first use and rebuilt whenever a source
-changes. Nothing is built when the module is imported.
+changes. Nothing is built when the module is imported. Plugin physics
+builds trace_planes.cu once more per plugin, with the plugin's recorded
+acceleration (utils/plugin.py) written into build/ as a header and
+included first; its text is part of the hash.
 """
 
 from __future__ import annotations
@@ -80,25 +83,35 @@ def nvcc_path() -> str:
     raise FileNotFoundError(f"nvcc not found (looked at {candidates}); set CUDA_HOME")
 
 
-def _source_hash(sources) -> str:
+def _source_hash(sources, include: str = "") -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(sources).encode())
+    h.update(include.encode())
     return h.hexdigest()[:16]
 
 
-def build(name: str, sources=RENDER_MONO_SOURCES) -> BuildInfo:
+def build(name: str, sources=RENDER_MONO_SOURCES, include: str = "") -> BuildInfo:
     """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so,
-    unless that library already exists. Raises CalledProcessError with
-    nvcc's output when the build fails."""
+    unless that library already exists; `include`, if given, is the text
+    of a header included before each source (-include; its own #include
+    lines find csrc/). Raises CalledProcessError with nvcc's output when
+    the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"lib{name}-{_source_hash(sources)}.so"
+    digest = _source_hash(sources, include)
+    lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return BuildInfo(lib, 0.0, "")
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
+    extra = []
+    if include:
+        header = BUILD_DIR / f"{name}-{digest}.cuh"
+        header.write_text(include)
+        extra = ["-I", str(CSRC_DIR), "-include", str(header)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+           *(str(CSRC_DIR / s) for s in sources)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -141,7 +154,20 @@ def load_render_mono() -> ctypes.CDLL:
 def load_trace_planes() -> ctypes.CDLL:
     """Build (at first use) and load the staged trace kernel's library,
     with the C signatures of csrc/trace_planes.cu declared."""
-    lib = ctypes.CDLL(str(build("trace_planes", TRACE_PLANES_SOURCES).path))
+    return _declare_trace_planes(ctypes.CDLL(str(build("trace_planes",
+                                                       TRACE_PLANES_SOURCES).path)))
+
+
+@functools.cache
+def load_trace_planes_custom(plugin_source: str) -> ctypes.CDLL:
+    """Build (at first use, once per plugin) and load trace_planes.cu with
+    the plugin's acceleration: `plugin_source` is the header of
+    utils/plugin.Program.cuda_source, which defines BHR_CUSTOM_ACCEL."""
+    info = build("trace_planes_custom", TRACE_PLANES_SOURCES, include=plugin_source)
+    return _declare_trace_planes(ctypes.CDLL(str(info.path)))
+
+
+def _declare_trace_planes(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bhr_trace_planes.argtypes = [
         KernelParams,  # params, by value
         ctypes.c_int,  # fast

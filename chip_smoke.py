@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's three kernels from this checkout with nvcc, one nvcc
-per source started together (bhr_tpu_torch/csrc/render_mono.cu, the
+Builds the port's kernels from this checkout with nvcc, one nvcc per
+library started together (bhr_tpu_torch/csrc/render_mono.cu, the
 monolithic trace + shade kernel, csrc/trace_planes.cu, the staged trace
-kernel, and csrc/neural_mlp.cu, the neural surrogate's kernel), holds
-every kernel variant against its plain PyTorch version on the card, and
-drives the renderer's paths:
+kernel, csrc/neural_mlp.cu, the neural surrogate's kernel, and
+trace_planes.cu once more with the acceleration that utils/plugin.py
+records from examples/plugins/paczynski_wiita.py), holds every kernel
+variant against its plain PyTorch version on the card, and drives the
+renderer's paths:
   * the main path at 1920x1080x500, Euler on the Schwarzschild metric
     through BlackHoleRenderer.render_frame and OrbitAnimator.render_frames,
     both math tiers (one render_mono launch per frame);
@@ -57,7 +59,25 @@ drives the renderer's paths:
     neural_mlp, N3): at 160x96 the five committed nets and PLAN_NETS, at
     1920x1080 N1 and N2 at both kernel tiers: directions and status
     against the plain version, the shaded frame against the all-plain
-    one, and the kernel's time beside the frame kernel's.
+    one, and the kernel's time beside the frame kernel's;
+  * row bands and the mesh (bhr_tpu_torch/parallel/mesh.py) at
+    1920x1080x500 on a mesh of the one card named 4 times: the main path
+    in both tiers and BASELINE config 4's exact (staged) frame through
+    render_frame_sharded at (1, 4), a height that does not divide over
+    sp = 7, and 4 orbit frames of render_animation_sharded at (2, 2), each
+    bit-equal to the whole frame on every pixel; N4 (the neural kernel's
+    band) for N1 and N2 in both kernel tiers at sp = 4, bit-equal to
+    neural_render_packed's whole frame, one band against its plain version
+    and its time beside the whole frame's, and with the texture (the
+    direction planes' band, N3) bit-equal to render_frame's; multires
+    bands at divisor 3
+    (Euler fast, config 4 exact; star field and texture), each bit-equal to
+    render_frame_multires;
+  * plugin physics: paczynski_wiita.py through
+    BlackHoleRenderer(custom_physics=) at 1920x1080x500, euler, rk4 and
+    leapfrog in both tiers, one trace_planes launch a frame: the planes
+    against the plain trace and the frame against the all-plain frame at
+    the trace bars, and the kernel's time beside the plain version's.
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Every frame is held against its plain version on the same
 inputs: exact tier packed words bit-equal on >= 99.9% of pixels, fast tier
@@ -80,7 +100,9 @@ pixels off by more than 16 levels under 4%). The direction planes are
 held on status (equal on >= 99.9%) and direction: within 1e-6 on >= 99.9%
 at the highest tier (the fp32 sums are taken in another order than
 cuBLAS's: an ulp, 1.2e-7, on about a tenth of the pixels of a random
-net), within 1e-4 on >= 99.5% at the default tier.
+net), within 1e-4 on >= 99.5% at the default tier. Bands are held
+bit-equal to the whole frame's rows on 100% of pixels; the plugin's
+kernel as any trace_planes trace and frame.
 Each phase prints one line; any failed check raises, so the
 script exits non-zero and prints no result. The line before the last is a
 JSON record of every kernel variant (its launches on the paths driven, its
@@ -222,6 +244,24 @@ DIRS_HIGHEST_CLOSE, DIRS_HIGHEST_MIN = 1e-6, 0.999
 # writes: 3 fp32 and 1 int32 a pixel.
 NEURAL_SHADE_OPS = 345 + 18
 DIRS_BYTES_PER_PIXEL = 16
+# Bands and the mesh: the bands of a frame (sp), the height that does not
+# divide over sp = 7, the (dp, sp) of the orbit frames, and the multires
+# bands' divisor.
+SP, SP_ODD, ANIM_MESH, BAND_DIVISOR = 4, 7, (2, 2), 3
+# Plugin physics: the plugin, and the fp32 operations of a ray-step of the
+# exact loop it runs in both tiers besides its accelerations, (others,
+# calls): Schwarzschild's exact count less SCHW_ACCEL_OPS a call, where
+# leapfrog's last call counted only its 20 ray-varying operations past the
+# LEAPFROG_SHARED_OPS position terms it shares with the call before (the
+# plugin's call is recorded whole). Each call adds the recorded plugin's
+# ray-varying operations (utils/plugin.Program.varying_ops).
+PLUGIN = "examples/plugins/paczynski_wiita.py"
+SCHW_ACCEL_OPS, LEAPFROG_SHARED_OPS = 30, 10
+ACCEL_CALLS = {"euler": 1, "rk4": 4, "leapfrog": 3}
+CUSTOM_STEP_OPS = {
+    integ: (OPS_PER_STEP[("schwarzschild", "exact", integ)] - calls * SCHW_ACCEL_OPS
+            + (LEAPFROG_SHARED_OPS if integ == "leapfrog" else 0), calls)
+    for integ, calls in ACCEL_CALLS.items()}
 REPLACES = {
     ("render_mono", "schwarzschild"): "bhr_tpu/ops/pallas_trace.py:1280",
     ("trace_planes", "schwarzschild"): "bhr_tpu/ops/pallas_trace.py:1151 and :1335",
@@ -239,6 +279,10 @@ REPLACES = {
               "pallas_trace_image(mask=) :1941)",
     "dirs": "bhr_tpu/ops/neural_pallas.py:338-343 (N3, _build_kernel emit='dirs', called at "
             ":408 through neural_trace_dirs :464)",
+    "band": "bhr_tpu/ops/neural_pallas.py:519-550 (N4, neural_render_packed_band, via _render "
+            ":372 and pallas_call :408; called by bhr_tpu/parallel/mesh.py:116-120)",
+    "custom": "bhr_tpu/ops/pallas_trace.py:351-361 and :1521-1650 (K5 with model='custom': "
+              "kernel :1335's generic body, via _pallas_trace :1746 and pallas_call :1800)",
 }
 
 
@@ -311,8 +355,14 @@ def ptxas_summary(log: str) -> str:
     return " | ".join(out) or "already built"
 
 
-def step_ops(model: str, fast: bool, integrator: str, *, adaptive: bool, disk: bool) -> int:
-    """fp32 operations of one ray-step of a configuration (OPS_PER_STEP)."""
+def step_ops(model: str, fast: bool, integrator: str, *, adaptive: bool, disk: bool,
+             accel_ops: int = 0) -> int:
+    """fp32 operations of one ray-step of a configuration (OPS_PER_STEP;
+    for model "custom", CUSTOM_STEP_OPS with `accel_ops` a call)."""
+    if model == "custom":  # the exact loop in both tiers
+        others, calls = CUSTOM_STEP_OPS[integrator]
+        n = others + calls * accel_ops + (5 + ADAPTIVE_STEP_SIZES[integrator] if adaptive else 0)
+        return n + (DISK_OPS if disk else 0)
     n = OPS_PER_STEP[(model, "fast" if fast else "exact", integrator)]
     if adaptive:
         n += 5 + ADAPTIVE_STEP_SIZES[integrator] + (0 if not fast else 2 if model == "kerr" else 1)
@@ -320,10 +370,11 @@ def step_ops(model: str, fast: bool, integrator: str, *, adaptive: bool, disk: b
 
 
 def bound(kernel: str, model: str, fast: bool, integrator: str, ray_steps: int, pixels: int, *,
-          adaptive: bool, disk: bool) -> tuple[float, str]:
+          adaptive: bool, disk: bool, accel_ops: int = 0) -> tuple[float, str]:
     """(ms, 'operations' or 'bytes'): the least time the card could take
     to integrate `ray_steps` ray-steps and write `pixels` outputs."""
-    ops = ray_steps * step_ops(model, fast, integrator, adaptive=adaptive, disk=disk)
+    ops = ray_steps * step_ops(model, fast, integrator, adaptive=adaptive, disk=disk,
+                               accel_ops=accel_ops)
     t_ops = ops / PEAK_FP32 * 1e3
     t_bytes = pixels * BYTES_PER_PIXEL[kernel] / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -566,15 +617,21 @@ def main() -> None:
     from bhr_tpu_torch.ops.neural_trace import neural_trace_image
     from bhr_tpu_torch.ops.sampling import unpack_frame as unpack
     from bhr_tpu_torch.ops.trace import trace_rays
+    from bhr_tpu_torch.parallel import mesh as pm
     from bhr_tpu_torch.renderer import shade_image
-    from bhr_tpu_torch.utils import build
+    from bhr_tpu_torch.utils import build, plugin
 
-    # 2. build: one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        jobs = {name: pool.submit(build.build, name, sources) for name, sources in
+    # 2. build: one nvcc per library, started together; the plugin's
+    # trace_planes is built from the header its recording gives
+    plugin_accel, plugin_cap = plugin.load_plugin(PLUGIN)
+    plugin_program = plugin.record(plugin_accel)
+    plugin_source = plugin.cuda_source(plugin_accel)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        jobs = {name: pool.submit(build.build, name, sources, *extra) for name, sources, *extra in
                 (("render_mono", build.RENDER_MONO_SOURCES),
                  ("trace_planes", build.TRACE_PLANES_SOURCES),
-                 ("neural_mlp", build.NEURAL_MLP_SOURCES))}
+                 ("neural_mlp", build.NEURAL_MLP_SOURCES),
+                 ("trace_planes_custom", build.TRACE_PLANES_SOURCES, plugin_source))}
         for name, job in jobs.items():
             info = job.result()
             phase("build", f"{info.path.name} in {info.seconds:.1f} s; ptxas: "
@@ -582,6 +639,7 @@ def main() -> None:
     build.load_render_mono()
     build.load_trace_planes()
     build.load_neural_mlp()
+    build.load_trace_planes_custom(plugin_source)
 
     var = Variants()
     side = bt.Camera.new(*SIDE)
@@ -591,8 +649,10 @@ def main() -> None:
         tk.TRACE_LAUNCHES = 0
         tk.STRIDED_LAUNCHES = 0
         tk.MASKED_LAUNCHES = 0
+        tk.CUSTOM_LAUNCHES = 0
         nk.NEURAL_LAUNCHES = 0
         nk.NEURAL_DIRS_LAUNCHES = 0
+        nk.NEURAL_BAND_LAUNCHES = 0
 
     def counts():
         return tk.LAUNCHES, tk.TRACE_LAUNCHES, nk.NEURAL_LAUNCHES
@@ -1646,7 +1706,251 @@ def main() -> None:
               f"{REPEATS}) on {smi}")
         del out, k, p, plain
 
-    # 16. output
+    # 16. row bands and the mesh (parallel/mesh.py) on the one card named
+    # SP times: (a) the main path in both tiers and BASELINE config 4's exact
+    # (staged) frame, each band one launch, the frame bit-equal to the
+    # whole frame's kernel frame on every pixel
+    band_mesh = pm.make_mesh(devices=["cuda:0"] * SP, shape=(1, SP))
+    for name, kw, cam, fast in (("main path", {}, default_cam, True),
+                                ("main path", {}, default_cam, False),
+                                ("BASELINE config 4", cfg4, side, False)):
+        tier = "fast" if fast else "exact"
+        r = bt.BlackHoleRenderer(W, H, fast_math=fast, device="cuda", **kw)
+        mono = tk.monolithic_eligible(r.config, full_scene, fast_math=fast, skybox=None,
+                                      disk_params=r.disk_params(full_scene), tonemap="passthrough")
+        whole = r.render_frame(cam, full_scene)
+        shard = lambda: pm.render_frame_sharded(
+            cam, full_scene, None, band_mesh, config=r.config, fast_math=fast,
+            disk_params=r.disk_params(full_scene), lut=r._lut)
+        reset()
+        frame = shard()
+        torch.cuda.synchronize()
+        want = (SP, 0) if mono else (0, SP)
+        if (tk.LAUNCHES, tk.TRACE_LAUNCHES) != want:
+            raise AssertionError(f"{name} {tier} bands launched {tk.LAUNCHES}, {tk.TRACE_LAUNCHES}")
+        kernel = "render_mono" if mono else "trace_planes"
+        var.launched(kernel, fast, r.config.integrator, SP)
+        same = (frame == whole).all(-1).float().mean().item()
+        if same != 1.0:
+            raise AssertionError(f"{name} {tier}: the bands equal the whole frame on {same}")
+        sharded_ms = cuda_ms(shard, 1, REPEATS)
+        whole_ms = cuda_ms(lambda: r.render_frame(cam, full_scene), 1, REPEATS)
+        phase("bands", f"{W}x{H}x{STEPS} {name} {tier}: render_frame_sharded on {SP} bands of "
+              f"{H // SP} rows of the one card, {SP} {kernel} launches, bit-equal to the whole "
+              f"frame on {same:.6f} of the pixels; sharded frame {sharded_ms:.3f} ms, whole "
+              f"frame {whole_ms:.3f} ms (medians of {REPEATS}) on {smi}")
+
+    # (b) a height that does not divide over SP_ODD bands: the last band is
+    # padded past the image and its padded rows sliced off
+    odd_mesh = pm.make_mesh(devices=["cuda:0"] * SP_ODD, shape=(1, SP_ODD))
+    r = records["fast"]["renderer"]
+    whole = r.render_frame(default_cam, full_scene)
+    reset()
+    frame = pm.render_frame_sharded(default_cam, full_scene, None, odd_mesh, fast_math=True)
+    torch.cuda.synchronize()
+    band_h = -(-H // SP_ODD)
+    if tk.LAUNCHES != SP_ODD or frame.shape != (H, W, 4) or not torch.equal(frame, whole):
+        raise AssertionError(f"{SP_ODD} bands of {band_h} rows: {tk.LAUNCHES} launches, "
+                             f"{tuple(frame.shape)}, equal {torch.equal(frame, whole)}")
+    var.launched("render_mono", True, "euler", SP_ODD)
+    phase("bands_padded", f"{W}x{H}x{STEPS} main path fast on {SP_ODD} bands of {band_h} rows "
+          f"({SP_ODD * band_h - H} padded rows sliced off): {SP_ODD} render_mono launches, the "
+          f"frame bit-equal to the whole frame")
+
+    # (c) render_animation_sharded: 4 orbit frames on a (2, 2) mesh of the
+    # card, frames equal to OrbitAnimator's and the luminance their mean green
+    anim_mesh = pm.make_mesh(devices=["cuda:0"] * 4, shape=ANIM_MESH)
+    n_anim = 2 * ANIM_MESH[0]
+    anim = bt.OrbitAnimator(r)
+    times = anim.frame_times(n_anim)
+    reset()
+    frames, lums = pm.render_animation_sharded(times, full_scene, None, anim_mesh, fast_math=True)
+    torch.cuda.synchronize()
+    n = n_anim * ANIM_MESH[1]
+    if tk.LAUNCHES != n:
+        raise AssertionError(f"sharded animation launched {tk.LAUNCHES}, not {n}")
+    var.launched("render_mono", True, "euler", n)
+    want = anim.render_frames(n_anim)
+    g_mean = want[..., 1].float().mean(dim=(1, 2))
+    lum_err = ((lums - g_mean).abs() / g_mean).max().item()
+    if not torch.equal(frames, want) or lum_err > 1e-5:
+        raise AssertionError(f"sharded animation differs: equal {torch.equal(frames, want)}, "
+                             f"luminance rel. error {lum_err}")
+    phase("bands_animation", f"{n_anim} orbit frames {W}x{H}x{STEPS} fast on a "
+          f"{ANIM_MESH[0]}x{ANIM_MESH[1]} (dp x sp) mesh of the card: {n} render_mono launches, "
+          f"every frame equal to OrbitAnimator's, luminance (the bands' partial sums) "
+          f"{[round(x, 6) for x in lums.tolist()]} within {lum_err:.2e} of the frames' mean green")
+    del frames, want
+
+    # 17. N4: the neural kernel's band, N1 and N2 (spin 0.9) in both kernel
+    # tiers at sp = SP through render_frame_sharded, bit-equal to
+    # neural_render_packed's whole frame; one band against its plain
+    # version; the band's time beside the whole frame's; then the same
+    # frames with the texture, bit-equal to render_frame's
+    band_rows = H // SP
+    for key, kw, spin, cam in main:
+        model = NEURAL_ASSETS[key][0]
+        r = bt.BlackHoleRenderer(W, H, "neural", model=model, device="cuda", **kw)
+        tier = r.neural_precision
+        highest = tier == "highest"
+        scene = full_neural.replace(spin=spin)
+        whole = nk.neural_render_packed(r.neural_params, cam, scene, precision=tier, device="cuda")
+        rec = var.other(f"neural_band<{model},{tier}>", "neural_mlp", REPLACES["band"])
+        reset()
+        frame = pm.render_frame_sharded(cam, scene, None, band_mesh, config=r.config,
+                                        neural_params=r.neural_params, neural_precision=tier)
+        torch.cuda.synchronize()
+        if (nk.NEURAL_LAUNCHES, nk.NEURAL_BAND_LAUNCHES) != (SP, SP):
+            raise AssertionError(f"neural bands {key} launched {nk.NEURAL_LAUNCHES}, "
+                                 f"{nk.NEURAL_BAND_LAUNCHES}")
+        rec["launches"] += SP
+        same = (frame.view(torch.int32).view(H, W) == whole).float().mean().item()
+        if same != 1.0:
+            raise AssertionError(f"neural bands {key}: equal to the whole frame on {same}")
+        row0 = band_rows  # the second band
+        out = torch.empty((band_rows, W), dtype=torch.int32, device="cuda")
+        band = nk.neural_render_packed_band(r.neural_params, cam, scene, row0, band_rows,
+                                            precision=tier, device="cuda")
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain = nk.neural_render_packed_reference(r.neural_params, cam, scene, precision=tier,
+                                                  device="cuda", row0=row0,
+                                                  local_shape=(band_rows, W))
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        st = neural_compare(band, plain, highest)
+        ms = cuda_ms(lambda: [nk.neural_render_packed(r.neural_params, cam, scene, precision=tier,
+                                                      device="cuda", out=out, row0=row0,
+                                                      local_shape=(band_rows, W))
+                              for _ in range(3)], 3, REPEATS)
+        feats = torch.randn((W * band_rows, r.neural_params[0][0].shape[0]), generator=gen,
+                            device="cuda")
+        tn.mlp_apply(r.neural_params, feats, precision=tier)  # warm-up
+        library_ms = cuda_ms(lambda: tn.mlp_apply(r.neural_params, feats, precision=tier), 1,
+                             REPEATS)
+        b, by = neural_bound(r.neural_params, model, highest, W * band_rows)
+        desc = (f"{NEURAL_ASSETS[key][1]} (hidden {r.neural_params.widths}), {tier}, spin {spin}, "
+                f"camera {cam.position.tolist()}, rows {row0}-{row0 + band_rows - 1} of {W}x{H}")
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=library_ms,
+                   config=desc, max_abs_err=max(rec["max_abs_err"], st["max_abs_err"]))
+        phase("neural_band", f"neural_band<{model},{tier}> ({desc}): render_frame_sharded {SP} "
+              f"neural_mlp band launches, bit-equal to the whole frame on {same:.6f}; one band "
+              f"against its plain version ({neural_bar(highest)}): {json.dumps(st)}; band kernel "
+              f"{ms:.3f} ms (the whole frame's kernel {neural_times[key]['ms']:.3f} ms), plain "
+              f"{plain_ms:.3f} ms, cuBLAS MLP chain {library_ms:.3f} ms, bound {b:.3f} ms ({by}) "
+              f"on {smi}")
+        del feats, out, band, plain, whole, frame
+        # with the texture a band takes the route its whole frame takes: the
+        # direction planes of its rows (N3's band) and the texture epilogue
+        r = bt.BlackHoleRenderer(W, H, "neural", model=model, device="cuda", skybox=big_tex,
+                                 **kw)
+        whole = r.render_frame(cam, scene)
+        reset()
+        frame = pm.render_frame_sharded(cam, scene, r.skybox, band_mesh, config=r.config,
+                                        neural_params=r.neural_params, neural_precision=tier,
+                                        texture_filter=r.texture_filter)
+        torch.cuda.synchronize()
+        if all_counts() != (0, 0, 0, 0, 0, SP):
+            raise AssertionError(f"textured neural bands {key} launched {all_counts()}")
+        var.other(f"neural_dirs<{model},{tier}>", "neural_mlp", REPLACES["dirs"])["launches"] += SP
+        same = (frame == whole).all(-1).float().mean().item()
+        if same != 1.0:
+            raise AssertionError(f"textured neural bands {key}: equal to the whole frame on {same}")
+        phase("neural_band", f"neural_dirs<{model},{tier}> with the 2048x4096 texture, bilinear: "
+              f"render_frame_sharded {SP} neural_mlp direction-plane band launches, the frame "
+              f"bit-equal to render_frame's on {same:.6f} of the pixels")
+        del whole, frame
+
+    # 18. multires bands at divisor BAND_DIVISOR: Euler fast and config 4
+    # exact, star field and texture, through render_frame_sharded(multires=)
+    # at sp = SP (2 launches a band), each frame bit-equal to
+    # render_frame_multires on every pixel
+    for integ, kw, cam, fast in (("euler", {}, default_cam, True), ("rk4", cfg4, side, False)):
+        tier = "fast" if fast else "exact"
+        for sky in (None, big_tex):
+            r = bt.BlackHoleRenderer(W, H, fast_math=fast, device="cuda", skybox=sky, **kw)
+            whole = r.render_frame_multires(cam, full_scene, divisor=BAND_DIVISOR)
+            reset()
+            frame = pm.render_frame_sharded(cam, full_scene, r.skybox, band_mesh, config=r.config,
+                                            fast_math=fast, disk_params=r.disk_params(full_scene),
+                                            multires=BAND_DIVISOR)
+            torch.cuda.synchronize()
+            if all_counts() != (0, 2 * SP, SP, SP, 0, 0):
+                raise AssertionError(f"multires bands launched {all_counts()}")
+            for what in ("strided", "masked"):
+                var.other(f"trace_planes[{what}]<{tier},{integ}>", "trace_planes",
+                          REPLACES[what])["launches"] += SP
+            same = (frame == whole).all(-1).float().mean().item()
+            if same != 1.0:
+                raise AssertionError(f"multires bands {integ} {tier}: equal on {same}")
+            phase("multires_band", f"{W}x{H}x{STEPS} {integ}{' adaptive disk' if kw else ''} "
+                  f"{tier}, {'skybox bilinear' if sky is not None else 'star field'}, divisor "
+                  f"{BAND_DIVISOR}: {SP} bands of render_multires_band (a strided and a masked "
+                  f"trace_planes launch each), the frame bit-equal to render_frame_multires on "
+                  f"{same:.6f} of the pixels")
+
+    # 19. plugin physics: paczynski_wiita.py through
+    # BlackHoleRenderer(custom_physics=) at full width, every integrator and
+    # tier: one trace_planes launch a frame with the plugin's build; the
+    # planes against the plain trace, the frame against the all-plain frame,
+    # and the kernel's time beside the plain version's
+    accel_ops = plugin_program.varying_ops
+    for integ in ("euler", "rk4", "leapfrog"):
+        for fast in (True, False):
+            tier = "fast" if fast else "exact"
+            r = bt.BlackHoleRenderer(W, H, integ, custom_physics=PLUGIN, fast_math=fast,
+                                     device="cuda")
+            if r.config.custom_accel is not plugin_accel:
+                raise AssertionError("the renderer loaded another plugin function")
+            reset()
+            frame = r.render_frame(default_cam, full_scene)
+            torch.cuda.synchronize()
+            if (tk.LAUNCHES, tk.TRACE_LAUNCHES, tk.CUSTOM_LAUNCHES) != (0, 1, 1):
+                raise AssertionError(f"custom {integ} {tier} launched {tk.LAUNCHES}, "
+                                     f"{tk.TRACE_LAUNCHES}, {tk.CUSTOM_LAUNCHES}")
+            rec = var.other(f"trace_planes[custom]<{tier},{integ}>", "trace_planes",
+                            REPLACES["custom"])
+            rec["launches"] += 1
+            k_res = tk.trace_image(default_cam, full_scene, r.config, fast_math=fast,
+                                   device="cuda", out=planes)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            p_res = tk.trace_image_reference(default_cam, full_scene, r.config, fast_math=fast,
+                                             device="cuda")
+            t1.record()
+            torch.cuda.synchronize()
+            plain_ms = t0.elapsed_time(t1)
+            st = trace_compare(k_res, p_res, fast)
+            plain = shade_image(p_res, default_cam, full_scene, None, None,
+                                tonemap="passthrough", packed=True)
+            fs = compare(frame.view(torch.int32).view(H, W), plain, fast, k_res.status,
+                         p_res.status)
+            ms = cuda_ms(lambda: [tk.trace_image(default_cam, full_scene, r.config,
+                                                 fast_math=fast, device="cuda", out=planes)
+                                  for _ in range(3)], 3, REPEATS)
+            ray_steps = int(p_res.steps.sum().item())
+            b, by = bound("trace_planes", "custom", fast, integ, ray_steps, W * H, adaptive=False,
+                          disk=False, accel_ops=accel_ops)
+            desc = (f"{PLUGIN} (capture {plugin_cap} rs; {accel_ops} ray-varying operations a "
+                    f"call), {integ}, fixed dt, no disk, camera {default_cam.position.tolist()}, "
+                    f"{W}x{H}x{STEPS}")
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, config=desc,
+                       ray_steps=ray_steps,
+                       max_abs_err=max(rec["max_abs_err"], st["max_abs_err"]))
+            builtin = (f" (the built-in Schwarzschild trace of the same rays, timed above: "
+                       f"{var.get('trace_planes', fast, 'euler')['ms']:.3f} ms)"
+                       if integ == "euler" else "")
+            phase("custom", f"trace_planes[custom]<{tier},{integ}> ({desc}): render_frame 1 "
+                  f"trace_planes launch with the plugin's build; planes against the plain trace "
+                  f"{json.dumps(st)}; frame against the all-plain frame ({bar(fast)}): "
+                  f"{json.dumps(fs)}; kernel {ms:.3f} ms{builtin}, plain {plain_ms:.3f} ms, "
+                  f"{ray_steps} ray-steps, bound {b:.3f} ms ({by}) on {smi}")
+            del k_res, p_res, plain
+
+    # 20. output
     renderer = records["exact"]["renderer"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frame.png")

@@ -1,6 +1,8 @@
 """What bhr_tpu_torch refuses to do: import JAX, render on the CPU when a
 CUDA device was asked for, or quietly render a configuration outside what
-it has ported -- and the configurations it renders now that once raised."""
+it has ported -- and the configurations it renders now that once raised,
+plugin physics among them (a plugin the kernel cannot record raises when
+a CUDA device is asked for)."""
 
 import functools
 import inspect
@@ -14,7 +16,22 @@ import torch
 import bhr_tpu as J
 import bhr_tpu_torch as T
 from bhr_tpu_torch.ops import neural_kernel, trace, trace_kernel
+from bhr_tpu_torch.parallel import mesh
 from bhr_tpu_torch.utils import build
+
+
+def _no_force(rel, vel, r, r2, rs, spin):
+    """A plugin with zero acceleration: the flat model's trace."""
+    return (0.0, 0.0, 0.0)
+
+
+def _torch_plugin(rel, vel, r, r2, rs, spin):
+    """A plugin the kernel cannot record: it calls a torch function."""
+    z = torch.zeros_like(rel[0])
+    return (z, z, z)
+
+
+PLUGIN = dict(model="custom", custom_accel=_no_force, custom_capture_factor=1.05)
 
 MODULES = [
     "bhr_tpu_torch", "bhr_tpu_torch.animation", "bhr_tpu_torch.renderer",
@@ -28,7 +45,8 @@ MODULES = [
     "bhr_tpu_torch.models.neural", "bhr_tpu_torch.models.neural_kerr",
     "bhr_tpu_torch.ops.neural_trace", "bhr_tpu_torch.ops.neural_kernel",
     "bhr_tpu_torch.io.skybox", "bhr_tpu_torch.io.native", "bhr_tpu_torch.ops.resample",
-    "bhr_tpu_torch.ops.multires",
+    "bhr_tpu_torch.ops.multires", "bhr_tpu_torch.parallel", "bhr_tpu_torch.parallel.mesh",
+    "bhr_tpu_torch.utils.plugin",
 ]
 
 
@@ -84,8 +102,11 @@ def test_no_fallback_in_the_cuda_path():
     raises where it happened instead of running something else."""
     for fn in (trace_kernel.render_packed, trace_kernel.trace_image, trace_kernel._set_disk_lut,
                neural_kernel.neural_render_packed, neural_kernel.neural_trace_dirs,
-               neural_kernel._launch, T.render_multires, build.build, build.load_render_mono,
-               build.load_trace_planes, build.load_neural_mlp):
+               neural_kernel._launch, neural_kernel.neural_render_packed_band, T.render_multires,
+               T.ops.multires.render_multires_band, mesh._render_band,
+               mesh.render_frame_sharded, mesh.render_animation_sharded, build.build,
+               build.load_render_mono, build.load_trace_planes, build.load_trace_planes_custom,
+               build.load_neural_mlp):
         assert "try:" not in inspect.getsource(fn), fn.__name__
 
 
@@ -106,13 +127,29 @@ def test_no_fallback_in_the_cuda_path():
     ],
 )
 def test_renderer_outside_slice_raises(args, kw, item, tmp_path):
-    """Plugin physics (item 14) still raises. The texture-skybox and
-    multires cases (items 10 and 12) raised until their slice and render
-    now: the skybox, an EXR file, is loaded and sampled, and the multires
-    frame comes from the strided and the masked trace."""
+    """Each case raised until its slice. The texture-skybox and multires
+    cases (items 10 and 12) render: the skybox, an EXR file, is loaded and
+    sampled, and the multires frame comes from the strided and the masked
+    trace. Plugin physics (item 14) renders a plugin file through the
+    staged path, as bhr_tpu does; model="custom" without one raises
+    bhr_tpu's ValueError."""
     if item == "item 14":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
-            T.BlackHoleRenderer(8, 8, *args, device="cpu", **kw)
+        if "model" in kw:
+            with pytest.raises(ValueError, match="custom_physics"):
+                T.BlackHoleRenderer(8, 8, *args, device="cpu", **kw)
+            return
+        path = tmp_path / kw["custom_physics"]
+        path.write_text("def acceleration(rel, vel, r, r2, rs, spin):\n"
+                        "    f = -0.5 * rs / (r * r * r)\n"
+                        "    return (rel[0] * f, rel[1] * f, rel[2] * f)\n")
+        r = T.BlackHoleRenderer(24, 16, *args, device="cpu", custom_physics=str(path))
+        scene = T.SceneParams(screen_width=24, screen_height=16, max_steps=120)
+        cam = T.Camera.new([0.0, 3.0, 11.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+        frame = r.render_frame(cam, scene)
+        res = trace_kernel.trace_image(cam, scene, r.config, device="cpu")
+        assert r.config.model == "custom" and bool((res.status == trace.STATUS_CAPTURED).any())
+        want = T.shade_image(res, cam, scene, None, None, tonemap="passthrough")
+        torch.testing.assert_close(frame, want, rtol=0, atol=0)
         return
     kw = dict(kw)
     tex = None
@@ -210,16 +247,34 @@ def test_debug_heatmap_raises():
 
 @pytest.mark.parametrize(
     "config",
-    [T.TraceConfig(model="custom"), T.TraceConfig(integrator="leapfrog", model="custom"),
+    [T.TraceConfig(**PLUGIN), T.TraceConfig(integrator="leapfrog", **PLUGIN),
      T.TraceConfig(integrator="neural")],
     ids=["custom", "custom-leapfrog", "neural"],
 )
 def test_trace_and_render_outside_slice_raise(config):
     """The geodesic tracer and kernels refuse what they do not integrate,
     the neural surrogate included; render_image renders a neural frame
-    with its weights (the surrogate's own route) and refuses one without."""
+    with its weights (the surrogate's own route) and refuses one without.
+    Plugin physics raised until its slice: now it traces (a plugin of zero
+    force is the flat model) and renders staged, and only the monolithic
+    kernel refuses it."""
     scene = T.SceneParams(screen_width=4, screen_height=4, max_steps=2)
     origins, dirs = T.generate_rays(T.Camera.default(), 4, 4, scene.fov)
+    if config.model == "custom":
+        res = trace.trace_rays(origins, dirs, torch.zeros(3), 2.0, 0.0, 2, config)
+        flat = trace.trace_rays(origins, dirs, torch.zeros(3), 2.0, 0.0, 2,
+                                T.TraceConfig(integrator=config.integrator, model="flat"))
+        for name in ("final_pos", "final_vel", "status", "steps"):
+            assert torch.equal(getattr(res, name), getattr(flat, name)), name
+        with pytest.raises(ValueError, match="plugin physics"):
+            trace_kernel.render_packed(T.Camera.default(), scene, config, device="cpu")
+        planes = trace_kernel.trace_image(T.Camera.default(), scene, config, device="cpu")
+        frame = T.render_image(T.Camera.default(), scene, config=config, fast_math=False,
+                               device="cpu")
+        torch.testing.assert_close(frame, T.shade_image(planes, T.Camera.default(), scene, None,
+                                                        None, tonemap="passthrough"),
+                                   rtol=0, atol=0)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trace.trace_rays(origins, dirs, torch.zeros(3), 2.0, 0.0, 2, config)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -272,17 +327,23 @@ def test_trace_and_render_what_once_raised(config):
     "kw,config",
     [(dict(skybox=object()), T.TraceConfig()),
      (dict(skybox=object()), T.TraceConfig(disk=True)),
-     ({}, T.TraceConfig(model="custom"))],
+     ({}, T.TraceConfig(**PLUGIN))],
     ids=["skybox", "skybox-disk", "custom"])
 def test_render_image_outside_slice_raises(kw, config):
-    """render_image refuses plugin physics; with a skybox (refused until
-    the texture slice) it traces into planes and samples the texture, with
-    the disk's emission over it when the configuration has one."""
+    """Each case raised until its slice. With a skybox render_image traces
+    into planes and samples the texture, with the disk's emission over it
+    when the configuration has one; plugin physics is the planes and the
+    star-field epilogue, in both tiers."""
     scene = T.SceneParams(screen_width=12, screen_height=8, max_steps=250)
     if "skybox" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.render_image(T.Camera.default(), scene, config=config, fast_math=True,
-                           device="cpu", **kw)
+        for fast in (True, False):
+            got = T.render_image(T.Camera.default(), scene, config=config, fast_math=fast,
+                                 device="cpu")
+            res = trace_kernel.trace_image(T.Camera.default(), scene, config, fast_math=fast,
+                                           device="cpu")
+            torch.testing.assert_close(got, T.shade_image(res, T.Camera.default(), scene, None,
+                                                          None, tonemap="passthrough"),
+                                       rtol=0, atol=0)
         return
     tex = T.texture_from_numpy(T.load_skybox(None, seed=1, shape=(16, 32)))
     cam = T.Camera.new([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
@@ -322,6 +383,39 @@ def test_texture_and_multires_on_cuda_raise_without_cuda(what):
         else:
             T.render_multires(cam, scene, device="cuda", divisor=2)
     assert (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES) == counts
+
+
+def test_plugin_and_mesh_guards_without_cuda():
+    """A plugin that calls a torch function renders with the plain version
+    on a CPU device and raises ValueError, naming the call, when a CUDA
+    device is asked for; the band, mesh and plugin paths never run a plain
+    version on a CUDA device that is not there."""
+    r = T.BlackHoleRenderer(8, 8, custom_physics=_torch_plugin, device="cpu")
+    assert r.render_frame().shape == (8, 8, 4)
+    for kw in ({}, dict(device="cuda")):
+        with pytest.raises(ValueError, match="torch function zeros_like"):
+            T.BlackHoleRenderer(8, 8, custom_physics=_torch_plugin, **kw)
+    _need_no_cuda()
+    scene = T.SceneParams(screen_width=8, screen_height=8, max_steps=4)
+    cam = T.Camera.default()
+    counts = (trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES, trace_kernel.CUSTOM_LAUNCHES,
+              neural_kernel.NEURAL_BAND_LAUNCHES)
+    params, _ = T.models.neural.load_params(T.models.neural.ASSETS_DIR
+                                            / "neural_schwarzschild.npz")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh()
+    for call in (
+            lambda: trace_kernel.trace_image(cam, scene, T.TraceConfig(**PLUGIN), device="cuda"),
+            lambda: trace_kernel.render_packed(cam, scene, device="cuda", row0=4,
+                                               local_shape=(4, 8)),
+            lambda: neural_kernel.neural_render_packed_band(params, cam, scene, 4, 4,
+                                                            device="cuda"),
+            lambda: mesh.render_frame_sharded(cam, scene, None, mesh.make_mesh(
+                devices=["cuda"] * 2))):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+    assert (trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES, trace_kernel.CUSTOM_LAUNCHES,
+            neural_kernel.NEURAL_BAND_LAUNCHES) == counts
 
 
 def test_render_image_tonemap_and_disk_params_take_the_staged_path():

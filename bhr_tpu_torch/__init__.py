@@ -20,11 +20,16 @@ fraction of the resolution through the planes kernel's strided and masked
 ray-gen. Plugin physics (utils/plugin.py: a Python acceleration, recorded
 into the CUDA source of a build of csrc/trace_planes.cu) traces the user's
 metric, and parallel/ renders row bands over a grid of devices. A plain
-PyTorch version stands beside each kernel. It imports torch and never jax;
+PyTorch version stands beside each kernel. The front end follows bhr_tpu's:
+PathAnimator (any camera path; render_to_dir, save_video, save_gif),
+PerformanceStats and PerfLogger, and TimestampQuery on CUDA events
+(render_frame(timestamp_query=)). tools/hopper_probe.py answers, with the
+kernels of csrc/probes.cu, what bhr_tpu's probe scripts asked of the TPU.
+It imports torch and never jax;
 bhr_tpu stays the reference it is tested against.
 """
 
-from .animation import OrbitAnimator
+from .animation import OrbitAnimator, PathAnimator
 from .core.camera import Camera, generate_rays, orbit_camera
 from .core.math import cross, direction_to_equirectangular_uv, normalize
 from .core.scene import (
@@ -44,6 +49,7 @@ from .from_numpy import (
 )
 from .io.skybox import load_skybox
 from .models.neural import NeuralSurrogate
+from .ops.display import QUAD_VERTICES, Vertex
 from .ops.multires import render_multires
 from .ops.trace import TraceConfig, TraceResult, trace_rays
 from .ops.trace_kernel import trace_image
@@ -52,9 +58,12 @@ from .renderer import (
     CudaContext,
     GpuContext,
     TpuContext,
+    block_on,
     render_image,
     shade_image,
 )
+from .utils.perf import PerfLogger, PerformanceStats
+from .utils.timing import TimestampQuery
 
 __version__ = "0.1.0"
 
@@ -70,10 +79,17 @@ __all__ = [
     "GpuContext",
     "NeuralSurrogate",
     "OrbitAnimator",
+    "PathAnimator",
+    "PerfLogger",
+    "PerformanceStats",
+    "QUAD_VERTICES",
     "SceneParams",
+    "TimestampQuery",
     "TpuContext",
     "TraceConfig",
     "TraceResult",
+    "Vertex",
+    "block_on",
     "camera_from_numpy",
     "cross",
     "direction_to_equirectangular_uv",

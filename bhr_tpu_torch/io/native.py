@@ -1,8 +1,12 @@
-"""ctypes bindings for the native OpenEXR codec (native/bhr_exr.cpp, built
-into native/libbhr_native.so by native/Makefile): the port's own copy of
-the EXR entry points of bhr_tpu/io/native.py.
+"""ctypes bindings for the native C++ I/O runtime (native/bhr_native.cpp
+and native/bhr_exr.cpp, built into native/libbhr_native.so by
+native/Makefile): the port's own copy of bhr_tpu/io/native.py.
 
-The library is built with `make` at first use. Where the toolchain or the
+The library is built with `make` at first use. The PNG writer and its
+frame queue (`write_png`, `submit_frame`, `drain`, `pending`) write frames
+on the library's worker threads; where the library is missing,
+`submit_frame` writes through the pure-Python PNG codec of io/image.py
+(`write_png_fallback`) and `write_png` raises. Where the toolchain or the
 system OpenEXR is missing, `exr_available()` is False and io/skybox.py
 decodes with its pure-Python reader (scanline NONE/ZIPS/ZIP); a PIZ file
 then raises that reader's "unsupported EXR compression". BHR_NO_NATIVE=1
@@ -30,8 +34,8 @@ EXR_COMPRESSION = {"none": 0, "rle": 1, "zips": 2, "zip": 3, "piz": 4}
 
 
 def _load():
-    """The loaded library with its EXR signatures declared, or None. Tried
-    once per process."""
+    """The loaded library with its signatures declared, or None. Tried once
+    per process."""
     global _lib, _tried
     with _lock:
         if _tried:
@@ -47,6 +51,17 @@ def _load():
                 return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
+            png_args = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+                        ctypes.c_int]
+            lib.bhr_write_png.argtypes = png_args
+            lib.bhr_write_png.restype = ctypes.c_int
+            lib.bhr_submit_frame.argtypes = png_args
+            lib.bhr_submit_frame.restype = ctypes.c_int
+            lib.bhr_drain.restype = ctypes.c_int
+            lib.bhr_pending.restype = ctypes.c_int
+        except (OSError, AttributeError):
+            return None
+        try:
             c_float_p = ctypes.POINTER(ctypes.c_float)
             c_int_p = ctypes.POINTER(ctypes.c_int)
             lib.bhr_exr_available.restype = ctypes.c_int
@@ -58,15 +73,68 @@ def _load():
             lib.bhr_exr_write.argtypes = [ctypes.c_char_p, c_float_p, ctypes.c_int, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_int]
             lib.bhr_exr_write.restype = ctypes.c_int
-            _lib = lib
-        except (OSError, AttributeError):  # no library, or one without the EXR codec
-            _lib = None
+        except AttributeError:  # a library built without the EXR codec
+            pass
+        _lib = lib
         return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _as_ptr(rgba: np.ndarray):
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    return rgba, rgba.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def write_png(path: str, rgba: np.ndarray) -> None:
+    """Synchronous native PNG write of uint8 (H, W, 4) RGBA."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    h, w = rgba.shape[:2]
+    arr, ptr = _as_ptr(rgba)
+    rc = lib.bhr_write_png(path.encode(), ptr, w, h)
+    if rc != 0:
+        raise IOError(f"bhr_write_png failed with code {rc} for {path}")
+
+
+def submit_frame(path: str, rgba: np.ndarray) -> None:
+    """Asynchronous PNG write on the native worker pool (the library copies
+    the buffer); without the library, a synchronous pure-Python write."""
+    lib = _load()
+    if lib is None:
+        write_png_fallback(path, rgba)
+        return
+    h, w = rgba.shape[:2]
+    arr, ptr = _as_ptr(rgba)
+    lib.bhr_submit_frame(path.encode(), ptr, w, h)
+
+
+def drain() -> int:
+    """Wait for all queued native writes; returns the number of failures."""
+    lib = _load()
+    return lib.bhr_drain() if lib is not None else 0
+
+
+def pending() -> int:
+    """Frames queued and not yet written."""
+    lib = _load()
+    return lib.bhr_pending() if lib is not None else 0
+
+
+def write_png_fallback(path: str, rgba: np.ndarray) -> None:
+    """The pure-Python PNG codec of io/image.py."""
+    from .image import write_png as py_write_png
+
+    py_write_png(path, np.ascontiguousarray(rgba, np.uint8))
 
 
 def exr_available() -> bool:
     lib = _load()
-    return bool(lib is not None and lib.bhr_exr_available())
+    return bool(lib is not None and hasattr(lib, "bhr_exr_available")
+                and lib.bhr_exr_available())
 
 
 def _exr_err(lib) -> str:

@@ -42,6 +42,8 @@ here.
 
 from __future__ import annotations
 
+import asyncio
+import inspect
 import logging
 
 import numpy as np
@@ -482,14 +484,22 @@ class BlackHoleRenderer:
         return dict(skybox=self.skybox, texture_filter=self.texture_filter,
                     texture_subsample=self.texture_subsample)
 
-    def render_frame(self, camera: Camera | None = None,
-                     scene: SceneParams | None = None) -> torch.Tensor:
+    def render_frame(self, camera: Camera | None = None, scene: SceneParams | None = None,
+                     timestamp_query=None) -> torch.Tensor:
         """Render one frame; returns (and retains) the uint8 (H, W, 4) RGBA
-        tensor on the renderer's device. Does not wait for the device."""
+        tensor on the renderer's device. Does not wait for the device.
+
+        `timestamp_query` (utils/timing.TimestampQuery) brackets the frame's
+        work (bhr_tpu/renderer.py:751-757, 782-784; the reference's
+        timestamp queries, lib.rs:569-577): on CUDA two events on the
+        current stream, so the frame still makes no host sync; its
+        gpu_time_ms waits for the device only when it is read."""
         camera = camera if camera is not None else self.camera
         scene = self.frame_scene(scene)
         if self.config.integrator == "neural":
             self._warn_outside_domain(camera, scene)
+        if timestamp_query is not None:
+            timestamp_query.begin(self.device)
         if self.cache_deflection and scene.debug_mode == 0:
             frame = self._render_cached(camera, scene)
         else:
@@ -499,6 +509,8 @@ class BlackHoleRenderer:
                 disk_params=self.disk_params(scene), lut=self._lut, **self.shade_kwargs(),
                 **self.neural_kwargs(),
             )
+        if timestamp_query is not None:
+            timestamp_query.end()
         self.camera = camera
         self.scene = scene
         self._last_frame = frame
@@ -582,3 +594,13 @@ class BlackHoleRenderer:
     @property
     def device(self) -> torch.device:
         return self.context.device
+
+
+def block_on(value):
+    """Run an awaitable to completion, or pass a plain value through
+    (bhr_tpu/renderer.py:1037-1046; the reference's Jupyter helper,
+    src/lib.rs:712-716). The renderer is synchronous from Python, so a
+    notebook cell like `block_on(GpuContext.new())` works unchanged."""
+    if inspect.isawaitable(value):
+        return asyncio.new_event_loop().run_until_complete(value)
+    return value

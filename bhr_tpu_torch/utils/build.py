@@ -4,7 +4,8 @@ The sources under bhr_tpu_torch/csrc/ have a plain C interface, so a build
 is one nvcc call (seconds, no PyTorch headers). The shared library lands in
 build/bhr_tpu_torch/ at the root of the checkout, named by a hash of the
 sources and flags: it is built at first use and rebuilt whenever a source
-changes. Nothing is built when the module is imported. Plugin physics
+changes. Nothing is built when the module is imported. probes.cu, the
+kernels of tools/hopper_probe.py, is a library of its own. Plugin physics
 builds trace_planes.cu once more per plugin, with the plugin's recorded
 acceleration (utils/plugin.py) written into build/ as a header and
 included first; its text is part of the hash.
@@ -32,6 +33,7 @@ NVCC_FLAGS = (
 RENDER_MONO_SOURCES = ("render_mono.cu",)
 TRACE_PLANES_SOURCES = ("trace_planes.cu",)
 NEURAL_MLP_SOURCES = ("neural_mlp.cu",)
+PROBE_SOURCES = ("probes.cu",)
 MAX_LAYERS = 8  # kMaxLayers of csrc/neural_mlp.cu
 
 
@@ -211,5 +213,33 @@ def load_neural_mlp() -> ctypes.CDLL:
     ]
     lib.bhr_neural_render.restype = ctypes.c_int
     lib.bhr_error_string.argtypes = [ctypes.c_int]
+    lib.bhr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_probes() -> ctypes.CDLL:
+    """Build (at first use) and load the probe kernels' library, with the C
+    signatures of csrc/probes.cu declared."""
+    lib = ctypes.CDLL(str(build("probes", PROBE_SOURCES).path))
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    lib.bhr_probe_ieee.argtypes = [c_int, ptr, ptr, ptr, ctypes.c_int64, c_int, c_int, c_int,
+                                   c_int, ptr]
+    lib.bhr_probe_ieee.restype = c_int
+    # src, tbl, th, tw, idx, pattern, seed, height, width, out, device, stream
+    lib.bhr_probe_gather.argtypes = [c_int, ptr, c_int, c_int, ptr, c_int, ctypes.c_uint32, c_int,
+                                     c_int, ptr, c_int, ptr]
+    lib.bhr_probe_gather.restype = c_int
+    # tbl, n_tbl, device, stream
+    lib.bhr_probe_const_upload.argtypes = [ptr, c_int, c_int, ptr]
+    lib.bhr_probe_const_upload.restype = c_int
+    # prec, tanh, round_bf16, a, b, bias, out, m, k, n, device, stream
+    lib.bhr_probe_dot.argtypes = [c_int, c_int, c_int, ptr, ptr, ptr, ptr, c_int, c_int, c_int,
+                                  c_int, ptr]
+    lib.bhr_probe_dot.restype = c_int
+    # bf16_out, plane, out, n_rows, p, period, device, stream
+    lib.bhr_probe_concat.argtypes = [c_int, ptr, ptr, c_int, c_int, c_int, c_int, ptr]
+    lib.bhr_probe_concat.restype = c_int
+    lib.bhr_error_string.argtypes = [c_int]
     lib.bhr_error_string.restype = ctypes.c_char_p
     return lib

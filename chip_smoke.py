@@ -5,14 +5,19 @@
 Builds the port's kernels from this checkout with nvcc, one nvcc per
 library started together (bhr_tpu_torch/csrc/render_mono.cu, the
 monolithic trace + shade kernel, csrc/trace_planes.cu, the staged trace
-kernel, csrc/neural_mlp.cu, the neural surrogate's kernel, and
+kernel, csrc/neural_mlp.cu, the neural surrogate's kernel,
 trace_planes.cu once more with the acceleration that utils/plugin.py
-records from examples/plugins/paczynski_wiita.py), holds every kernel
+records from examples/plugins/paczynski_wiita.py, and csrc/probes.cu, the
+probe kernels of tools/hopper_probe.py), holds every kernel
 variant against its plain PyTorch version on the card, and drives the
 renderer's paths:
   * the main path at 1920x1080x500, Euler on the Schwarzschild metric
     through BlackHoleRenderer.render_frame and OrbitAnimator.render_frames,
-    both math tiers (one render_mono launch per frame);
+    both math tiers (one render_mono launch per frame); then its front
+    end: frames issued back to back with a TimestampQuery each (no host
+    sync; the queries' median within 10% of the kernel's time by CUDA
+    events), 4 PathAnimator frames along the orbit (bit-equal to
+    OrbitAnimator's), and render_to_dir of 2 frames read back;
   * BASELINE config 4 at 1920x1080x500 (rk4, adaptive dt, accretion disk,
     camera [15,5,0]): the fast tier one render_mono launch, the exact tier
     one trace_planes launch and the plain PyTorch epilogue, frame by frame
@@ -77,7 +82,19 @@ renderer's paths:
     BlackHoleRenderer(custom_physics=) at 1920x1080x500, euler, rk4 and
     leapfrog in both tiers, one trace_planes launch a frame: the planes
     against the plain trace and the frame against the all-plain frame at
-    the trace bars, and the kernel's time beside the plain version's.
+    the trace bars, and the kernel's time beside the plain version's;
+  * the probes (python -m bhr_tpu_torch.tools.hopper_probe, the questions
+    of bhr_tpu's six probe scripts): probe_ieee over 4M inputs (every
+    divide and root against the correctly rounded result, the Markstein
+    and rsqrt sequences bit-equal to their plain versions), probe_gather
+    from __constant__, shared and device memory and by warp shuffles
+    (exact on the probes' shapes and on 1920x1080 lookups, and ns a
+    lookup), probe_dot at the bf16, bf16x3 and fp32 tiers against a
+    float64 product (within 1e-2, 1e-5 and 1e-5 of max |C|) and at the
+    neural probes' shapes (the bf16 chain with its sums rounded to bf16),
+    probe_concat's sublane concatenations bit-equal to their plain
+    versions, and the Kerr net through neural_mlp; it prints every check
+    and every answer line.
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Every frame is held against its plain version on the same
 inputs: exact tier packed words bit-equal on >= 99.9% of pixels, fast tier
@@ -110,7 +127,10 @@ time and its plain version's, and its bound: the larger of the operations
 it must do over the card's peak for their type -- fp32 at 67 TFLOP/s, the
 neural default tier's products at 989 TFLOP/s bf16 -- and the bytes it
 must write over 3.35 TB/s; for the neural kernel also the cuBLAS MLP
-chain's time); the last line is {"ok": true, "device": {...}}.
+chain's time; for a probe kernel, its bytes or its products at the bf16
+or fp32 peak, its device time with the host's issue hidden, and the one
+PyTorch call of the same function where there is one); the last line is
+{"ok": true, "device": {...}}.
 
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -283,6 +303,15 @@ REPLACES = {
             ":372 and pallas_call :408; called by bhr_tpu/parallel/mesh.py:116-120)",
     "custom": "bhr_tpu/ops/pallas_trace.py:351-361 and :1521-1650 (K5 with model='custom': "
               "kernel :1335's generic body, via _pallas_trace :1746 and pallas_call :1800)",
+    "probe_ieee": "scripts/ieee_probe.py:70 (run_kernel: k_div :80, k_sqrt :84, k_rsqrt :88, "
+                  "k_recip_approx :92, k_mark :109, k_sqrt_seq :124)",
+    "probe_gather": "scripts/gather_probe2.py:30, scripts/lut_butterfly_probe.py:31 and :152, "
+                    "scripts/pallas_gather_bench.py:32 and :149",
+    "probe_dot": "scripts/neural_precision_probe.py:53 (kernel_for :25), "
+                 "scripts/neural_kernel_probe.py:52, :92, :111, :133, :155 (probe_k16_dot, "
+                 "probe_hidden_chain, probe_head, probe_bf16_chain, probe_kerr_dot)",
+    "probe_concat": "scripts/neural_kernel_probe.py:70 (probe_sublane_concat :60) and :177 "
+                    "(probe_kerr_concat :163)",
 }
 
 
@@ -619,19 +648,22 @@ def main() -> None:
     from bhr_tpu_torch.ops.trace import trace_rays
     from bhr_tpu_torch.parallel import mesh as pm
     from bhr_tpu_torch.renderer import shade_image
+    from bhr_tpu_torch.tools import hopper_probe as hp
     from bhr_tpu_torch.utils import build, plugin
+    from bhr_tpu_torch.utils.timing import device_time_ms
 
     # 2. build: one nvcc per library, started together; the plugin's
     # trace_planes is built from the header its recording gives
     plugin_accel, plugin_cap = plugin.load_plugin(PLUGIN)
     plugin_program = plugin.record(plugin_accel)
     plugin_source = plugin.cuda_source(plugin_accel)
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         jobs = {name: pool.submit(build.build, name, sources, *extra) for name, sources, *extra in
                 (("render_mono", build.RENDER_MONO_SOURCES),
                  ("trace_planes", build.TRACE_PLANES_SOURCES),
                  ("neural_mlp", build.NEURAL_MLP_SOURCES),
-                 ("trace_planes_custom", build.TRACE_PLANES_SOURCES, plugin_source))}
+                 ("trace_planes_custom", build.TRACE_PLANES_SOURCES, plugin_source),
+                 ("probes", build.PROBE_SOURCES))}
         for name, job in jobs.items():
             info = job.result()
             phase("build", f"{info.path.name} in {info.seconds:.1f} s; ptxas: "
@@ -640,6 +672,7 @@ def main() -> None:
     build.load_trace_planes()
     build.load_neural_mlp()
     build.load_trace_planes_custom(plugin_source)
+    build.load_probes()
 
     var = Variants()
     side = bt.Camera.new(*SIDE)
@@ -849,6 +882,67 @@ def main() -> None:
               f"plain {plain_ms:.3f} ms/frame, {ray_steps} ray-steps/frame, launches={launches}, "
               f"frames agree with the plain version ({bar(fast)}; max_abs_err {max(errs)}) "
               f"on {smi}")
+
+    # 5b. the front end on the main path, fast tier. (a) render_frame with a
+    # TimestampQuery: frames issued back to back, so that each query's
+    # begin event waits on the frame before it and brackets its own
+    # frame's kernel, not the host's issue; recording makes no host sync
+    renderer = records["fast"]["renderer"]
+    cam = bt.Camera.default()
+    n_q = 1 + REPEATS
+    renderer.render_frame(cam, full_scene)  # warm-up
+    torch.cuda.synchronize()
+    queries = [bt.TimestampQuery() for _ in range(n_q)]
+    reset()
+    torch.cuda.set_sync_debug_mode("error")
+    for q in queries:
+        renderer.render_frame(cam, full_scene, timestamp_query=q)
+    torch.cuda.set_sync_debug_mode("default")
+    if (tk.LAUNCHES, tk.TRACE_LAUNCHES) != (n_q, 0):
+        raise AssertionError(f"{n_q} frames with a query launched {tk.LAUNCHES}, "
+                             f"{tk.TRACE_LAUNCHES}, not one render_mono each")
+    var.launched("render_mono", True, "euler", n_q)
+    q_ms = statistics.median(q.gpu_time_ms for q in queries[1:])
+    scratch = torch.empty((H, W), dtype=torch.int32, device="cuda")
+    kernel_ms = device_time_ms(lambda: tk.render_packed(cam, full_scene, fast_math=True,
+                                                        device="cuda", out=scratch),
+                               iters=REPEATS, repeats=3)
+    if abs(q_ms - kernel_ms) > 0.10 * kernel_ms:
+        raise AssertionError(f"TimestampQuery {q_ms:.3f} ms against the kernel's "
+                             f"{kernel_ms:.3f} ms by CUDA events")
+    phase("timestamp_query", f"{W}x{H}x{STEPS} euler fast: {n_q} render_frame calls with a "
+          f"TimestampQuery, 1 render_mono launch each, no host sync; gpu_time_ms median "
+          f"{q_ms:.3f} ms (frames 2-{n_q}) against the kernel's {kernel_ms:.3f} ms by CUDA "
+          f"events, issued behind a spin kernel ({100 * (q_ms / kernel_ms - 1):+.2f}%) on {smi}")
+    # (b) PathAnimator along the orbit: bit-equal to OrbitAnimator's frames,
+    # one launch a frame, no host sync; (c) render_to_dir of 2 frames
+    path_anim = bt.PathAnimator(renderer, lambda t: bt.orbit_camera(t))
+    want = bt.OrbitAnimator(renderer).render_frames(4, packed=True)
+    reset()
+    torch.cuda.set_sync_debug_mode("error")
+    got = path_anim.render_frames(4, packed=True)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if tk.LAUNCHES != 4 or not torch.equal(got, want):
+        raise AssertionError(f"PathAnimator: {tk.LAUNCHES} launches, bit-equal to "
+                             f"OrbitAnimator: {torch.equal(got, want)}")
+    var.launched("render_mono", True, "euler", 4)
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = path_anim.render_to_dir(tmp, 2, chunk_size=2)
+        back = [bt.io.image.read_png(p) for p in paths]
+        with open(os.path.join(tmp, "manifest.json")) as fh:
+            manifest = json.load(fh)
+    if tk.LAUNCHES != 2:
+        raise AssertionError(f"render_to_dir of 2 frames launched {tk.LAUNCHES}")
+    var.launched("render_mono", True, "euler", 2)
+    for k in range(2):
+        if not (torch.from_numpy(back[k]) == unpack(want[k].cpu())).all():
+            raise AssertionError(f"render_to_dir frame {k} differs from the rendered frame")
+    phase("path_animator", f"4 PathAnimator frames {W}x{H}x{STEPS} euler fast along "
+          f"orbit_camera: 4 launches, no host sync, bit-equal to OrbitAnimator's; "
+          f"render_to_dir 2 frames: 2 launches, PNGs read back equal, manifest camera_path "
+          f"{manifest['camera_path']!r}")
 
     # 6. (a) BASELINE config 4: rk4, adaptive dt, the disk, camera [15,5,0]
     cfg4 = dict(integrator="rk4", adaptive=True, disk=True)
@@ -1950,7 +2044,21 @@ def main() -> None:
                   f"{ray_steps} ray-steps, bound {b:.3f} ms ({by}) on {smi}")
             del k_res, p_res, plain
 
-    # 20. output
+    # 20. the probes (tools/hopper_probe.py): every check and answer line,
+    # each probe kernel's launches, time, plain and library time and bound
+    hp.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    run = hp.run_probes("cuda", texture=textured["nearest"].skybox,
+                        emit=lambda line: phase("probes", line))
+    if run.failed:
+        raise AssertionError(f"probe checks failed: {run.failed}")
+    for name, rec in sorted(run.kernels.items()):
+        r = var.other(name, "probes", REPLACES[name.split("<")[0]])
+        r.update(rec, launches=hp.LAUNCHES[name])
+    phase("probes", f"{len(run.checks)} checks passed, {len(run.answers)} answers, in "
+          f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(dict(hp.LAUNCHES))} on {smi}")
+
+    # 21. output
     renderer = records["exact"]["renderer"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frame.png")

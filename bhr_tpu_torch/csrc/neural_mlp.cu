@@ -31,19 +31,6 @@
 // so a band is bit for bit the same rows of the whole frame. A runtime
 // argument again, not an instantiation; the outputs are indexed locally.
 //
-// Layout. A block of `pix` pixels and 256 threads holds two activation
-// buffers and one or two chunks of a layer's weights in shared memory.
-// A layer streams its weights through the chunks, n_chunk output channels
-// at a time, from device memory (L2-resident: the largest net's weights
-// are 0.27 MB in bf16) by cp.async, so a copy needs no register round trip;
-// with two chunk buffers the next chunk's copy overlaps this chunk's
-// products, and the first chunk's copy overlaps the features. The 256-wide
-// nets' two 256 x 256 matrices do not fit in the 227 KB a block may use
-// whole, so they stream. The host picks pix, n_chunk and the buffers so
-// that the block fits (ops/neural_kernel.kernel_plan: any hidden width that
-// is a multiple of 128, up to 1152 in the default tier and 1024 in the
-// fp32 one).
-//
 // Tiers (template parameter HI), the arithmetic of models/neural.py:
 //  * default (HI = false): bf16 operands, fp32 accumulation, by
 //    mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on the tensor
@@ -53,25 +40,68 @@
 //    fragments come by ldmatrix; each warp computes 16 pixels x 64
 //    channels at a time; the bias and tanhf are fp32 and the result is
 //    rounded to bf16 for the next layer.
-//  * highest (HI = true): fp32 operands and fmaf on the CUDA cores.
-//    Activations are channel-major and the weights W (in, out), so each
-//    thread reads a float4 of 4 pixels and a float2 of 2 channels a k and
-//    does 8 fmaf; no TF32.
-// The head (2 or 3 outputs) is a per-pixel fmaf loop in both tiers; its
-// output stays fp32. The per-pixel arithmetic around the MLP is written
-// with correctly rounded, uncontracted operations (Arith<false>) and the
-// full-precision tanhf, logf, log1pf, expf, sinf and cosf, in the order of
-// the plain version ops/neural_kernel.neural_render_packed_reference, so
-// that kernel and plain version differ only where the matrix sums are
-// taken in another order. No --use_fast_math.
+//  * highest (HI = true): fp32 operands and fmaf on the CUDA cores, over k
+//    in order for every output, then the bias, then tanhf; no TF32.
+// The per-pixel arithmetic around the MLP is written with correctly
+// rounded, uncontracted operations (Arith<false>) and the full-precision
+// tanhf, logf, log1pf, expf, sinf and cosf, in the order of the plain
+// version ops/neural_kernel.neural_render_packed_reference, so that kernel
+// and plain version differ only where the matrix sums are taken in another
+// order. No --use_fast_math.
+//
+// Layout, default tier. A block of `pix` pixels and 256 threads holds two
+// activation buffers and one or two chunks of a layer's weights in shared
+// memory. A layer streams its weights through the chunks, n_chunk output
+// channels at a time, from device memory (L2-resident: the largest net's
+// weights are 0.27 MB in bf16) by cp.async, so a copy needs no register
+// round trip; with two chunk buffers the next chunk's copy overlaps this
+// chunk's products, and the first chunk's copy overlaps the features. The
+// head (2 or 3 outputs) is a per-pixel fmaf loop. The host picks pix,
+// n_chunk and the buffers so that the block fits
+// (ops/neural_kernel.kernel_plan: any hidden width that is a multiple of
+// 128, up to 1152). Still simple: mma.sync rather than wgmma, no TMA, no
+// persistent blocks, every block streams every layer's weights again.
+//
+// Layout, fp32 tier. What bounds it is the FMA pipe: 2 x (22 x 256 +
+// 2 x 256 x 256 + 256 x 3) FLOPs a pixel of the 256-wide Kerr net against
+// the fp32 peak, beside which a pixel's few hundred other operations and
+// its 4 bytes are small. So the design keeps the FMA pipes fed:
+//  * register tiles. A thread holds 8 pixels x 16 output channels, 128
+//    accumulators, of a warp tile of 32 pixels x 128 channels. A k-step
+//    reads two float4 of activations (4 distinct in the warp, broadcast)
+//    and four of weights (8 distinct, one 128-byte row each) for 128 fmaf:
+//    0.75 bytes of shared memory a FMA, without bank conflicts.
+//  * a layer's whole output in registers. The block's 8 warps cover
+//    pix x n_out <= 32768 outputs (pix = 256 for the 128-wide nets, 128 for
+//    the 256-wide ones, 64 up to 512, 32 up to 1024; a layer narrower than
+//    the widest leaves warps idle), so one activation buffer, hmax rows of
+//    pix + 4 floats, channel-major, is enough: after a layer's last product
+//    a barrier, then tanh(acc + b) overwrites it in place. A block of 128
+//    pixels reads the 256-wide nets' weights from L2 half as often as one
+//    of 64.
+//  * weights in k-slabs: n_chunk rows of W (in, out) by all of the layer's
+//    outputs, contiguous in device memory, copied by cp.async into one of
+//    two slab buffers while the other one's products run, so a slab costs
+//    one barrier and a layer one more. Slabs are 32 rows, or 16 where two of
+//    32 do not fit; a single 16-row buffer, and a barrier more a slab, where
+//    two do not fit either (896 and 1024 wide); the first slab's copy
+//    overlaps the features.
+//  * the head on every thread: its pix x (2 or 3) sums are fmaf chains
+//    over k in order, spread over the 256 threads, and their outputs go
+//    over the first slab buffer. The chains are not split over k: the
+//    hidden layers' sums and cuBLAS's run in k order, so the frames stay
+//    bit-equal to the plain version, where a split head's partial sums
+//    would round otherwise and move directions near the capture fold.
+// The per-pixel phases (features, envelope, rotation, star field, store)
+// run one pixel a thread: on every thread for the 128-wide nets, on half
+// of them for the 256-wide ones, whose 137,472 FMAs a pixel outweigh its
+// 543 other operations 250 to 1.
 //
 // Bound, at 1920x1080 (chip_smoke.py counts it): the MLP's FLOPs over the
 // tensor cores' bf16 peak (default) or the fp32 peak (highest), the
 // per-pixel fp32 operations over the fp32 peak, or the 4 bytes a pixel
 // written over the memory rate, whichever is largest -- the FLOPs, for
-// every committed net. This kernel is still simple: mma.sync rather than
-// wgmma, no TMA, no persistent blocks, every block streams every layer's
-// weights again, and the per-pixel work runs on one thread a pixel.
+// every committed net.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +120,7 @@ struct MlpDesc {
   int n_layers;
   int dims[kMaxLayers + 1];  // dims[0]: padded inputs; dims[l + 1]: layer l's outputs
   int pix;                   // pixels per block
-  int n_chunk;               // output channels per staged weight chunk
+  int n_chunk;               // default: output channels a weight chunk; fp32: W rows a slab
   int nbuf;                  // weight-chunk buffers: 2 overlaps copy and products
   const void* w[kMaxLayers];   // layer l: W^T (dims[l + 1], dims[l]) bf16, or W fp32
   const float* b[kMaxLayers];  // layer l: bias (dims[l + 1],), fp32
@@ -130,11 +160,13 @@ __host__ __device__ __forceinline__ int widest(const MlpDesc& m) {
   return h;
 }
 
-// Shared-memory layout. Default tier: activations pixel-major, pix rows of
-// hmax + 8 bf16 (16 bytes of padding: ldmatrix rows land in distinct
-// banks), and each weight chunk n_chunk rows of W^T at the same stride.
-// fp32 tier: activations channel-major, hmax rows of pix + 4 floats (a
-// float4 of 4 pixels a read), and each chunk hmax rows of n_chunk floats.
+// Shared-memory layout. Default tier: two activation buffers, pixel-major,
+// pix rows of hmax + 8 bf16 (16 bytes of padding: ldmatrix rows land in
+// distinct banks), and each weight chunk n_chunk rows of W^T at the same
+// stride. fp32 tier: one activation buffer, channel-major, hmax rows of
+// pix + 4 floats (a float4 of 4 pixels a read; the 4 floats of padding put
+// a warp's write-back rows in alternate halves of the banks), and each slab
+// n_chunk rows of a layer's outputs, at most hmax floats.
 template <bool HI>
 __host__ __device__ __forceinline__ int act_stride(int hmax, int pix) {
   return HI ? pix + 4 : hmax + 8;
@@ -146,22 +178,16 @@ __host__ __device__ __forceinline__ int act_rows(int hmax, int pix) {
 }
 
 template <bool HI>
-__host__ __device__ __forceinline__ int chunk_stride(int hmax, int n_chunk) {
-  return HI ? n_chunk : hmax + 8;
+__host__ __device__ __forceinline__ int chunk_stride(int hmax) {
+  return HI ? hmax : hmax + 8;
 }
 
-template <bool HI>
-__host__ __device__ __forceinline__ int chunk_rows(int hmax, int n_chunk) {
-  return HI ? hmax : n_chunk;
-}
-
-// Two activation buffers and nbuf weight chunks, in bytes.
+// The activation buffers and nbuf weight chunks (slabs), in bytes.
 template <bool HI>
 __host__ __device__ __forceinline__ int64_t smem_bytes(const MlpDesc& m) {
   const int h = widest(m);
-  return (2 * static_cast<int64_t>(act_rows<HI>(h, m.pix)) * act_stride<HI>(h, m.pix) +
-          static_cast<int64_t>(m.nbuf) * chunk_rows<HI>(h, m.n_chunk) *
-              chunk_stride<HI>(h, m.n_chunk)) *
+  return ((HI ? 1 : 2) * static_cast<int64_t>(act_rows<HI>(h, m.pix)) * act_stride<HI>(h, m.pix) +
+          static_cast<int64_t>(m.nbuf) * m.n_chunk * chunk_stride<HI>(h)) *
          static_cast<int64_t>(sizeof(typename Elem<HI>::T));
 }
 
@@ -370,66 +396,18 @@ __device__ __forceinline__ void hidden_chunk_mma(const __nv_bfloat16* __restrict
   }
 }
 
-// The fp32 tier's chunk, channel-major: in (k_in x ld), the chunk's rows of
-// W (k_in x n_chunk) in `wsm`, out (n x ld). Each thread computes 4 pixels
-// x 2 channels from one float4 and one float2 a k, with fmaf over k in order.
-__device__ __forceinline__ void hidden_chunk_fp32(const float* __restrict__ in,
-                                                  const float* __restrict__ wsm,
-                                                  float* __restrict__ out,
-                                                  const float* __restrict__ bias, int ld, int k_in,
-                                                  int n0, int n_chunk, int pix) {
-  const int nc2 = n_chunk / 2, p4 = pix / 4;
-  for (int item = threadIdx.x; item < p4 * nc2; item += kThreads) {
-    const int tx = item % nc2, ty = item / nc2;
-    float acc[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.0f;
-    const float* a_col = in + 4 * ty;
-    const float* w_col = wsm + 2 * tx;
-#pragma unroll 8
-    for (int k = 0; k < k_in; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(a_col + k * ld);
-      const float2 w = *reinterpret_cast<const float2*>(w_col + k * n_chunk);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(av[i], w.x, acc[i][0]);
-        acc[i][1] = fmaf(av[i], w.y, acc[i][1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = n0 + 2 * tx + j;
-      const float b = bias[n];
-      *reinterpret_cast<float4*>(out + n * ld + 4 * ty) =
-          make_float4(tanhf(acc[0][j] + b), tanhf(acc[1][j] + b), tanhf(acc[2][j] + b),
-                      tanhf(acc[3][j] + b));
-    }
-  }
-}
-
-// Start the copy of one weight chunk (output channels [n0, n0 + n_chunk) of
-// layer l) into `wsm`: the default tier's W^T rows (n_chunk x k_in, row
-// stride ld), the fp32 tier's W columns (k_in x n_chunk).
-template <bool HI>
+// Start the copy of the default tier's weight chunk, output channels
+// [n0, n0 + n_chunk) of layer l: n_chunk rows of W^T (k_in each, row stride
+// ld) into `wsm`.
 __device__ __forceinline__ void stage_chunk(const MlpDesc& m, int l, int n0,
-                                            typename Elem<HI>::T* __restrict__ wsm, int ld) {
-  using T = typename Elem<HI>::T;
-  constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte copy moves
+                                            __nv_bfloat16* __restrict__ wsm, int ld) {
+  constexpr int kVec = 8;  // bf16 a 16-byte copy moves
   const int k_in = m.dims[l];
-  const T* w = static_cast<const T*>(m.w[l]);
-  if constexpr (HI) {
-    const int n_out = m.dims[l + 1], vecs = m.n_chunk / kVec;
-    for (int i = threadIdx.x; i < k_in * vecs; i += kThreads) {
-      const int k = i / vecs, v = i % vecs;
-      cp_async16(wsm + k * m.n_chunk + v * kVec, w + static_cast<int64_t>(k) * n_out + n0 + v * kVec);
-    }
-  } else {
-    const int vecs = k_in / kVec;
-    for (int i = threadIdx.x; i < m.n_chunk * vecs; i += kThreads) {
-      const int r = i / vecs, v = i % vecs;
-      cp_async16(wsm + r * ld + v * kVec, w + static_cast<int64_t>(n0 + r) * k_in + v * kVec);
-    }
+  const auto* w = static_cast<const __nv_bfloat16*>(m.w[l]);
+  const int vecs = k_in / kVec;
+  for (int i = threadIdx.x; i < m.n_chunk * vecs; i += kThreads) {
+    const int r = i / vecs, v = i % vecs;
+    cp_async16(wsm + r * ld + v * kVec, w + static_cast<int64_t>(n0 + r) * k_in + v * kVec);
   }
   cp_async_commit();
 }
@@ -444,6 +422,220 @@ __device__ __forceinline__ void chunk_of(const MlpDesc& m, int s, int& l, int& n
   n0 = s * m.n_chunk;
 }
 
+// ---- the fp32 tier --------------------------------------------------------
+
+constexpr int kTileP = 8, kTileC = 16;     // a thread's pixels and channels
+constexpr int kWarpP = 32, kWarpC = 128;   // a warp's
+constexpr int kMaxOutputs = kThreads * kTileP * kTileC;  // a layer's, per block
+
+// This thread's part of a layer of n_out outputs: warp w takes warp tile
+// (w % (pix / 32), w / (pix / 32)) if there is one; lane (lp, lc) =
+// (lane % 4, lane / 4) of it holds pixels p0 + 16 (i / 4) + i % 4 (i < 8)
+// and channels c0 + 32 (j / 4) + j % 4 (j < 16), so that a k-step's loads
+// are 4 consecutive float4 of pixels and 8 of channels across the warp.
+struct TileFp32 {
+  bool active;
+  int p0, c0;
+};
+
+__device__ __forceinline__ TileFp32 tile_fp32(int pix, int n_out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles_p = pix / kWarpP;
+  const int wp = warp % tiles_p, wc = warp / tiles_p;
+  return TileFp32{warp < tiles_p * (n_out / kWarpC), kWarpP * wp + 4 * (lane % 4),
+                  kWarpC * wc + 4 * (lane / 4)};
+}
+
+__device__ __forceinline__ int tile_channel(const TileFp32& t, int j) {
+  return t.c0 + 32 * (j / 4) + j % 4;
+}
+
+__device__ __forceinline__ void load4(float* dst, const float* src) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
+
+__device__ __forceinline__ void store4(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// W rows a slab of layer l: n_chunk, or the whole (16- or 32-wide) input.
+__device__ __forceinline__ int slab_rows(const MlpDesc& m, int l) {
+  return min(m.n_chunk, m.dims[l]);
+}
+
+// Start the copy of the slab of layer l's W (in, out) from row k0 into
+// `wsm`: slab_rows x n_out floats, contiguous in device memory.
+__device__ __forceinline__ void stage_slab(const MlpDesc& m, int l, int k0,
+                                           float* __restrict__ wsm) {
+  const int n_out = m.dims[l + 1];
+  const float* w = static_cast<const float*>(m.w[l]) + static_cast<int64_t>(k0) * n_out;
+  const int vecs = slab_rows(m, l) * n_out / 4;
+  for (int i = threadIdx.x; i < vecs; i += kThreads) cp_async16(wsm + 4 * i, w + 4 * i);
+  cp_async_commit();
+}
+
+// acc += act[k0 : k0 + rows, the tile's pixels]^T x slab[:, the tile's
+// channels], one fmaf a product in order of k.
+__device__ __forceinline__ void slab_fp32(const float* __restrict__ act, int ld,
+                                          const float* __restrict__ ws, int n_out, int k0,
+                                          int rows, const TileFp32& t,
+                                          float (&acc)[kTileP][kTileC]) {
+  const float* a = act + k0 * ld + t.p0;
+  const float* w = ws + t.c0;
+#pragma unroll 2
+  for (int r = 0; r < rows; ++r) {
+    float av[kTileP], wv[kTileC];
+    load4(av, a + r * ld);
+    load4(av + 4, a + r * ld + 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) load4(wv + 4 * q, w + r * n_out + 32 * q);
+#pragma unroll
+    for (int i = 0; i < kTileP; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTileC; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kTileP][kTileC]) {
+#pragma unroll
+  for (int i = 0; i < kTileP; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTileC; ++j) acc[i][j] = 0.0f;
+  }
+}
+
+// A layer's end: tanh(acc + b) over the tile's place in the activations.
+__device__ __forceinline__ void store_tanh(float* __restrict__ act, int ld,
+                                           const float* __restrict__ bias, const TileFp32& t,
+                                           const float (&acc)[kTileP][kTileC]) {
+#pragma unroll
+  for (int j = 0; j < kTileC; ++j) {
+    const int c = tile_channel(t, j);
+    const float b = bias[c];
+    float v[kTileP];
+#pragma unroll
+    for (int i = 0; i < kTileP; ++i) v[i] = tanhf(acc[i][j] + b);
+    store4(act + c * ld + t.p0, v);
+    store4(act + c * ld + t.p0 + 16, v + 4);
+  }
+}
+
+// The fp32 tier's hidden layers over the features in `act` (ld floats a
+// row), with the first slab already staged into slab buffer 0; leaves the
+// last hidden layer's outputs in `act`, visible to every thread.
+__device__ __forceinline__ void mlp_fp32(const MlpDesc& m, float* __restrict__ act, int ld,
+                                         float* __restrict__ slabs, int slab_elems) {
+  const int last = m.n_layers - 2;  // the last hidden layer
+  float acc[kTileP][kTileC];
+  zero(acc);
+  TileFp32 t = tile_fp32(m.pix, m.dims[1]);
+  int l = 0, k0 = 0;
+  for (int s = 0;; ++s) {
+    const int rows = slab_rows(m, l);
+    int l1 = l, k1 = k0 + rows;  // the next slab
+    if (k1 == m.dims[l]) {
+      ++l1;
+      k1 = 0;
+    }
+    const bool more = l1 <= last, layer_end = l1 != l;
+    cp_async_wait(0);
+    __syncthreads();  // this slab is in place, and every thread is done with the last one
+    if (m.nbuf == 2 && more) stage_slab(m, l1, k1, slabs + ((s + 1) % 2) * slab_elems);
+    if (t.active) {
+      slab_fp32(act, ld, slabs + (s % m.nbuf) * slab_elems, m.dims[l + 1], k0, rows, t, acc);
+    }
+    if (layer_end || m.nbuf == 1) __syncthreads();  // done with the activations / the slab
+    if (m.nbuf == 1 && more) stage_slab(m, l1, k1, slabs);
+    if (layer_end) {
+      if (t.active) store_tanh(act, ld, m.b[l], t, acc);
+      if (l == last) break;
+      zero(acc);
+      t = tile_fp32(m.pix, m.dims[l1 + 1]);
+    }
+    l = l1;
+    k0 = k1;
+  }
+  __syncthreads();
+}
+
+// The head over the last hidden layer's outputs in `act`: one fmaf chain
+// over k in order for each pixel and output, the order of the hidden
+// layers' sums (and of cuBLAS's), spread over every thread -- chain
+// c = o * pix + p for output o of pixel p, so that a warp reads 32
+// consecutive pixels and one weight -- then the bias, into out[c].
+template <int kOut>
+__device__ __forceinline__ void head_fp32(const MlpDesc& m, const float* __restrict__ act, int ld,
+                                          float* __restrict__ out) {
+  const int lh = m.n_layers - 1, k_head = m.dims[lh];
+  const float* wh = static_cast<const float*>(m.w[lh]);
+  for (int c = threadIdx.x; c < kOut * m.pix; c += kThreads) {
+    const int o = c / m.pix, px = c % m.pix;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < k_head; ++k) acc = fmaf(act[k * ld + px], wh[k * kOut + o], acc);
+    out[c] = acc + m.b[lh][o];
+  }
+  __syncthreads();
+}
+
+// One pixel's end, from its head outputs: the envelope, the rotation, and
+// the packed word of the star field (N1, N2) or the direction and the
+// capture status (N3).
+template <bool KERR>
+__device__ __forceinline__ void shade_pixel(const Params& p, const Frame& fr, int64_t id,
+                                            int width, const float* head, uint32_t seed_term,
+                                            uint32_t* __restrict__ frame, float* __restrict__ vel,
+                                            int32_t* __restrict__ status) {
+  constexpr int kOut = KERR ? 3 : 2;
+  float f[KERR ? 22 : 16];
+  const Geo g =
+      pixel_geometry<KERR>(p, fr, static_cast<int>(id / width), static_cast<int>(id % width), f);
+  const float c = g.c, s = g.s;
+  // envelope (neural_pallas.py:306-311): (rs/r0) s (1/4 + log1p(1 / (|t| + 0.02)) sigmoid(-8c))
+  const float sig = A::div(1.0f, A::add(1.0f, expf(-A::mul(-8.0f, c))));
+  const float spike = A::mul(log1pf(A::div(1.0f, A::add(fabsf(g.t_env), 2e-2f))), sig);
+  const float e_d = A::mul(A::mul(A::div(fr.rs, fr.r0), s), A::add(0.25f, spike));
+  const float delta = A::mul(head[0], e_d);
+  const float cd = cosf(delta), sd = sinf(delta);
+  const float cos_phi = A::sub(A::mul(c, cd), A::mul(s, sd));
+  const float sin_phi = A::add(A::mul(s, cd), A::mul(c, sd));
+  Vec3 v;
+  if constexpr (KERR) {
+    // the frame-dragging tilt out of the plane (neural_pallas.py:318-330)
+    const float chi = A::mul(head[1], A::mul(e_d, A::add(fabsf(fr.spin), 1e-3f)));
+    const float cc = cosf(chi), sc = sinf(chi);
+    const float nxp = A::sub(A::mul(fr.uy, g.whz), A::mul(fr.uz, g.why));
+    const float nzp = A::sub(A::mul(fr.ux, g.why), A::mul(fr.uy, g.whx));
+    const float a = A::mul(cc, cos_phi), b = A::mul(cc, sin_phi);
+    v.x = A::add(A::add(A::mul(a, fr.ux), A::mul(b, g.whx)), A::mul(sc, nxp));
+    v.y = A::add(A::add(A::mul(a, fr.uy), A::mul(b, g.why)), A::mul(sc, g.nyp));
+    v.z = A::add(A::add(A::mul(a, fr.uz), A::mul(b, g.whz)), A::mul(sc, nzp));
+  } else {
+    v.x = A::add(A::mul(cos_phi, fr.ux), A::mul(sin_phi, g.whx));
+    v.y = A::add(A::mul(cos_phi, fr.uy), A::mul(sin_phi, g.why));
+    v.z = A::add(A::mul(cos_phi, fr.uz), A::mul(sin_phi, g.whz));
+  }
+  const float vinv = A::rsqrt(dot<false>(v, v));
+  v = Vec3{A::mul(v.x, vinv), A::mul(v.y, vinv), A::mul(v.z, vinv)};
+  if (vel != nullptr) {  // N3: the direction and the capture status, unshaded
+    vel[3 * id + 0] = v.x;
+    vel[3 * id + 1] = v.y;
+    vel[3 * id + 2] = v.z;
+    status[id] = head[kOut - 1] > 0.0f ? kStatusCaptured : kStatusEscaped;
+    return;
+  }
+  float r, gg, b;
+  procedural_background<false>(v, seed_term, r, gg, b);
+  const float live = head[kOut - 1] <= 0.0f ? 1.0f : 0.0f;  // logit > 0: captured, black
+  frame[id] = quantize_half_up_rn(r, live) | (quantize_half_up_rn(gg, live) << 8) |
+              (quantize_half_up_rn(b, live) << 16) | 0xFF000000u;
+}
+
 template <bool KERR, bool HI>
 __global__ void __launch_bounds__(kThreads)
     neural_render_kernel(const Params p, const uint32_t seed_term, const int height,
@@ -455,23 +647,24 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kOut = KERR ? 3 : 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int pix = mlp.pix;
-  // activations: pixel-major (pix x ld) in the default tier, channel-major
-  // (H x ld) in the fp32 one; weight chunks after them
+  // activations: two pixel-major buffers (pix x ld) in the default tier,
+  // one channel-major (hmax x ld) in the fp32 one; weight chunks after them
   const int hmax = widest(mlp);
   const int ld = act_stride<HI>(hmax, pix);
   const int act_elems = act_rows<HI>(hmax, pix) * ld;
-  const int chunk_elems = chunk_rows<HI>(hmax, mlp.n_chunk) * chunk_stride<HI>(hmax, mlp.n_chunk);
+  const int chunk_elems = mlp.n_chunk * chunk_stride<HI>(hmax);
   T* act = reinterpret_cast<T*>(smem);
-  T* act2 = act + act_elems;
-  T* wbuf = act2 + act_elems;
+  T* wbuf = act + (HI ? 1 : 2) * act_elems;
   const int64_t n_pixels = static_cast<int64_t>(height) * width;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * pix;
   const Frame fr = frame_constants(p);
-  int steps = 0;
-  for (int l = 0; l + 1 < mlp.n_layers; ++l) steps += mlp.dims[l + 1] / mlp.n_chunk;
 
   // the first weight chunk streams in while the features are computed
-  stage_chunk<HI>(mlp, 0, 0, wbuf, ld);
+  if constexpr (HI) {
+    stage_slab(mlp, 0, 0, wbuf);
+  } else {
+    stage_chunk(mlp, 0, 0, wbuf, ld);
+  }
 
   // 1. features, rounded to the tier's operand type; padding and pixels
   // past the frame's end are zeros
@@ -491,101 +684,72 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = kFeats; k < mlp.dims[0]; ++k) x[k * step] = E::from(0.0f);
   }
 
-  // 2. the hidden layers, weights streamed n_chunk output channels at a
-  // time; with two chunk buffers the next chunk's copy overlaps this one's
-  // products
-  for (int s = 0; s < steps; ++s) {
-    int l, n0;
-    chunk_of(mlp, s, l, n0);
-    T* wsm = wbuf + (mlp.nbuf == 2 ? (s % 2) * chunk_elems : 0);
-    if (mlp.nbuf == 2 && s + 1 < steps) {
-      int l1, n1;
-      chunk_of(mlp, s + 1, l1, n1);
-      stage_chunk<HI>(mlp, l1, n1, wbuf + ((s + 1) % 2) * chunk_elems, ld);
-      cp_async_wait(1);
-    } else {
-      cp_async_wait(0);
-    }
-    __syncthreads();  // this chunk, and the layer's input, are in place
-    if constexpr (HI) {
-      hidden_chunk_fp32(act, wsm, act2, mlp.b[l], ld, mlp.dims[l], n0, mlp.n_chunk, pix);
-    } else {
-      hidden_chunk_mma(act, wsm, act2, mlp.b[l], ld, mlp.dims[l], n0, mlp.n_chunk, pix);
-    }
-    __syncthreads();  // every warp is done with this chunk and this input
-    if (n0 + mlp.n_chunk == mlp.dims[l + 1]) {
-      T* tmp = act;
-      act = act2;
-      act2 = tmp;
-    }
-    if (mlp.nbuf == 1 && s + 1 < steps) {
-      int l1, n1;
-      chunk_of(mlp, s + 1, l1, n1);
-      stage_chunk<HI>(mlp, l1, n1, wbuf, ld);
-    }
-  }
-
-  // 3. the head, the envelope, the rotation, the star field, the packed word
-  const int lh = mlp.n_layers - 1;
-  const int k_head = mlp.dims[lh];
-  const T* wh = static_cast<const T*>(mlp.w[lh]);
-  for (int i = threadIdx.x; i < pix; i += kThreads) {
-    const int64_t id = first + i;
-    if (id >= n_pixels) continue;
-    const int step = HI ? ld : 1;
-    const T* h = HI ? act + i : act + i * ld;
-    float head[kOut];
+  if constexpr (HI) {
+    // 2. the hidden layers; 3. the head, its outputs over the first slab
+    // buffer, which no copy needs any more
+    mlp_fp32(mlp, act, ld, wbuf, chunk_elems);
+    head_fp32<kOut>(mlp, act, ld, wbuf);
+    // 4. the pixel's end
+    for (int i = threadIdx.x; i < pix; i += kThreads) {
+      const int64_t id = first + i;
+      if (id >= n_pixels) continue;
+      float head[kOut];
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) {
-      // W^T (n_out, K) in the default tier, W (K, n_out) in the fp32 one
-      const T* w = HI ? wh + o : wh + o * k_head;
-      const int w_step = HI ? kOut : 1;
-      float acc = 0.0f;
-      for (int k = 0; k < k_head; ++k) acc = fmaf(E::to(h[k * step]), E::to(w[k * w_step]), acc);
-      head[o] = acc + mlp.b[lh][o];
+      for (int o = 0; o < kOut; ++o) head[o] = wbuf[o * pix + i];
+      shade_pixel<KERR>(p, fr, id, width, head, seed_term, frame, vel, status);
     }
-    float f[kFeats];
-    const Geo g =
-        pixel_geometry<KERR>(p, fr, static_cast<int>(id / width), static_cast<int>(id % width), f);
-    const float c = g.c, s = g.s;
-    // envelope (neural_pallas.py:306-311): (rs/r0) s (1/4 + log1p(1 / (|t| + 0.02)) sigmoid(-8c))
-    const float sig = A::div(1.0f, A::add(1.0f, expf(-A::mul(-8.0f, c))));
-    const float spike = A::mul(log1pf(A::div(1.0f, A::add(fabsf(g.t_env), 2e-2f))), sig);
-    const float e_d = A::mul(A::mul(A::div(fr.rs, fr.r0), s), A::add(0.25f, spike));
-    const float delta = A::mul(head[0], e_d);
-    const float cd = cosf(delta), sd = sinf(delta);
-    const float cos_phi = A::sub(A::mul(c, cd), A::mul(s, sd));
-    const float sin_phi = A::add(A::mul(s, cd), A::mul(c, sd));
-    Vec3 v;
-    if constexpr (KERR) {
-      // the frame-dragging tilt out of the plane (neural_pallas.py:318-330)
-      const float chi = A::mul(head[1], A::mul(e_d, A::add(fabsf(fr.spin), 1e-3f)));
-      const float cc = cosf(chi), sc = sinf(chi);
-      const float nxp = A::sub(A::mul(fr.uy, g.whz), A::mul(fr.uz, g.why));
-      const float nzp = A::sub(A::mul(fr.ux, g.why), A::mul(fr.uy, g.whx));
-      const float a = A::mul(cc, cos_phi), b = A::mul(cc, sin_phi);
-      v.x = A::add(A::add(A::mul(a, fr.ux), A::mul(b, g.whx)), A::mul(sc, nxp));
-      v.y = A::add(A::add(A::mul(a, fr.uy), A::mul(b, g.why)), A::mul(sc, g.nyp));
-      v.z = A::add(A::add(A::mul(a, fr.uz), A::mul(b, g.whz)), A::mul(sc, nzp));
-    } else {
-      v.x = A::add(A::mul(cos_phi, fr.ux), A::mul(sin_phi, g.whx));
-      v.y = A::add(A::mul(cos_phi, fr.uy), A::mul(sin_phi, g.why));
-      v.z = A::add(A::mul(cos_phi, fr.uz), A::mul(sin_phi, g.whz));
+  } else {
+    // 2. the hidden layers, weights streamed n_chunk output channels at a
+    // time; with two chunk buffers the next chunk's copy overlaps this one's
+    // products
+    T* act2 = act + act_elems;
+    const int lh = mlp.n_layers - 1;
+    int steps = 0;
+    for (int l = 0; l < lh; ++l) steps += mlp.dims[l + 1] / mlp.n_chunk;
+    for (int s = 0; s < steps; ++s) {
+      int l, n0;
+      chunk_of(mlp, s, l, n0);
+      T* wsm = wbuf + (mlp.nbuf == 2 ? (s % 2) * chunk_elems : 0);
+      if (mlp.nbuf == 2 && s + 1 < steps) {
+        int l1, n1;
+        chunk_of(mlp, s + 1, l1, n1);
+        stage_chunk(mlp, l1, n1, wbuf + ((s + 1) % 2) * chunk_elems, ld);
+        cp_async_wait(1);
+      } else {
+        cp_async_wait(0);
+      }
+      __syncthreads();  // this chunk, and the layer's input, are in place
+      hidden_chunk_mma(act, wsm, act2, mlp.b[l], ld, mlp.dims[l], n0, mlp.n_chunk, pix);
+      __syncthreads();  // every warp is done with this chunk and this input
+      if (n0 + mlp.n_chunk == mlp.dims[l + 1]) {
+        T* tmp = act;
+        act = act2;
+        act2 = tmp;
+      }
+      if (mlp.nbuf == 1 && s + 1 < steps) {
+        int l1, n1;
+        chunk_of(mlp, s + 1, l1, n1);
+        stage_chunk(mlp, l1, n1, wbuf, ld);
+      }
     }
-    const float vinv = A::rsqrt(dot<false>(v, v));
-    v = Vec3{A::mul(v.x, vinv), A::mul(v.y, vinv), A::mul(v.z, vinv)};
-    if (vel != nullptr) {  // N3: the direction and the capture status, unshaded
-      vel[3 * id + 0] = v.x;
-      vel[3 * id + 1] = v.y;
-      vel[3 * id + 2] = v.z;
-      status[id] = head[kOut - 1] > 0.0f ? kStatusCaptured : kStatusEscaped;
-      continue;
+
+    // 3. the head (W^T (n_out, K)), a per-pixel fmaf loop, then the pixel's end
+    const int k_head = mlp.dims[lh];
+    const T* wh = static_cast<const T*>(mlp.w[lh]);
+    for (int i = threadIdx.x; i < pix; i += kThreads) {
+      const int64_t id = first + i;
+      if (id >= n_pixels) continue;
+      const T* h = act + i * ld;
+      float head[kOut];
+#pragma unroll
+      for (int o = 0; o < kOut; ++o) {
+        const T* w = wh + o * k_head;
+        float acc = 0.0f;
+        for (int k = 0; k < k_head; ++k) acc = fmaf(E::to(h[k]), E::to(w[k]), acc);
+        head[o] = acc + mlp.b[lh][o];
+      }
+      shade_pixel<KERR>(p, fr, id, width, head, seed_term, frame, vel, status);
     }
-    float r, gg, b;
-    procedural_background<false>(v, seed_term, r, gg, b);
-    const float live = head[kOut - 1] <= 0.0f ? 1.0f : 0.0f;  // logit > 0: captured, black
-    frame[id] = quantize_half_up_rn(r, live) | (quantize_half_up_rn(gg, live) << 8) |
-                (quantize_half_up_rn(b, live) << 16) | 0xFF000000u;
   }
 }
 
@@ -606,19 +770,31 @@ int launch(const Params& p, uint32_t seed_term, int height, int width, const Mlp
 }
 
 // The shapes the kernel takes: 2..kMaxLayers layers; inputs padded to a
-// multiple of 16 that holds the model's features; hidden widths that
-// n_chunk divides (a multiple of 64 in the default tier, of 4 in the fp32
-// one); the model's head; pix a multiple of 16 (default) or 4 (fp32); one
-// or two weight-chunk buffers.
+// multiple of 16 that holds the model's features; the model's head; one or
+// two weight-chunk buffers. Default tier: hidden widths that n_chunk (a
+// multiple of 64) divides, and pix a multiple of 16. fp32 tier: hidden
+// widths that are multiples of the warp tile's 128 channels, pix a multiple
+// of its 32 pixels, at most kMaxOutputs of a layer's outputs a block, and
+// slabs of a multiple of 8 rows that divide every layer's input.
 bool shapes_ok(const MlpDesc& m, bool kerr, bool hi) {
   if (m.n_layers < 2 || m.n_layers > kMaxLayers) return false;
   if (m.dims[0] % 16 != 0 || m.dims[0] < (kerr ? 22 : 16)) return false;
   if (m.dims[m.n_layers] != (kerr ? 3 : 2)) return false;
-  if (m.pix <= 0 || m.pix % (hi ? 4 : 16) != 0) return false;
-  if (m.n_chunk <= 0 || m.n_chunk % (hi ? 4 : 64) != 0) return false;
-  if (m.nbuf != 1 && m.nbuf != 2) return false;
-  for (int l = 1; l < m.n_layers; ++l) {
-    if (m.dims[l] % m.n_chunk != 0 || m.dims[l] % 16 != 0) return false;
+  if ((m.nbuf != 1 && m.nbuf != 2) || m.pix <= 0 || m.n_chunk <= 0) return false;
+  if (hi) {
+    if (m.pix % kWarpP != 0 || m.n_chunk % 8 != 0) return false;
+    for (int l = 0; l + 1 < m.n_layers; ++l) {
+      const int rows = m.n_chunk < m.dims[l] ? m.n_chunk : m.dims[l];
+      if (m.dims[l] % rows != 0 || m.dims[l + 1] % kWarpC != 0 ||
+          static_cast<int64_t>(m.pix) * m.dims[l + 1] > kMaxOutputs) {
+        return false;
+      }
+    }
+  } else {
+    if (m.pix % 16 != 0 || m.n_chunk % 64 != 0) return false;
+    for (int l = 1; l < m.n_layers; ++l) {
+      if (m.dims[l] % m.n_chunk != 0 || m.dims[l] % 16 != 0) return false;
+    }
   }
   for (int l = 0; l < m.n_layers; ++l) {
     if (m.w[l] == nullptr || m.b[l] == nullptr) return false;

@@ -80,11 +80,17 @@ NEURAL_BAND_LAUNCHES = 0
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use (sm_90)
 KERNEL_TIERS = ("default", "highest")
-# Pixels per block and output channels per staged weight chunk, tried
-# largest first, with two chunk buffers before one: the default tier's mma
-# items are 16 pixels x 64 channels, the fp32 tier's thread tiles 4 x 2.
-_PIX = {"default": (128, 64, 32, 16), "highest": (64, 32, 16)}
+# The block plans, tried largest first. Default tier: pixels a block and
+# output channels a weight chunk (mma items are 16 pixels x 64 channels).
+# fp32 tier: pixels a block and W rows a weight slab. There a thread holds 8
+# pixels x 16 channels of a warp tile of 32 x 128, and a layer's whole
+# output stays in registers until it overwrites the one activation buffer,
+# so a block of 256 threads takes at most _MAX_OUTPUTS = pix x widest
+# outputs: 256 pixels for the 128-wide nets, 128 for the 256-wide, 32 for
+# the 1024-wide. Two chunk buffers before one, then the largest chunk.
+_PIX = {"default": (128, 64, 32, 16), "highest": (256, 128, 64, 32)}
 _CHUNK = {"default": (64,), "highest": (32, 16)}
+_MAX_OUTPUTS = 256 * 8 * 16
 
 
 def as_surrogate(params) -> NeuralSurrogate:
@@ -110,12 +116,13 @@ def padded_inputs(n_in: int) -> int:
 
 
 def smem_bytes(hmax: int, pix: int, n_chunk: int, nbuf: int, precision: str) -> int:
-    """Shared memory of a block, as csrc/neural_mlp.cu:smem_bytes counts it:
-    two activation buffers and `nbuf` weight chunks. Default tier: pix rows
-    of hmax + 8 bf16, chunks of n_chunk rows of W^T at that stride; fp32
-    tier: hmax rows of pix + 4 floats, chunks of hmax rows of n_chunk."""
+    """Shared memory of a block, as csrc/neural_mlp.cu:smem_bytes counts it.
+    Default tier: two activation buffers of pix rows of hmax + 8 bf16 and
+    `nbuf` chunks of n_chunk rows of W^T at that stride; fp32 tier: one
+    activation buffer of hmax rows of pix + 4 floats and `nbuf` slabs of
+    n_chunk rows of hmax floats."""
     if kernel_tier(precision) == "highest":
-        return (2 * hmax * (pix + 4) + nbuf * hmax * n_chunk) * 4
+        return (hmax * (pix + 4) + nbuf * n_chunk * hmax) * 4
     return (2 * pix + nbuf * n_chunk) * (hmax + 8) * 2
 
 
@@ -130,19 +137,23 @@ def kernel_shapes_ok(params) -> bool:
 
 
 def kernel_plan(params, precision) -> tuple[int, int, int] | None:
-    """(pixels per block, channels per weight chunk, chunk buffers) for this
-    net and tier, or None when no block of the kernel holds it: a net that
-    `kernel_shapes_ok` refuses, more than MAX_LAYERS layers, or a widest
-    layer for which no block fits in shared memory (`smem_bytes`; widths up
-    to 1152 fit in the default tier, 1024 in the fp32 one)."""
+    """(pixels per block, channels per weight chunk or W rows per slab,
+    chunk buffers) for this net and tier, or None when no block of the
+    kernel holds it: a net that `kernel_shapes_ok` refuses, more than
+    MAX_LAYERS layers, or a widest layer for which no block fits in shared
+    memory (`smem_bytes`) and, in the fp32 tier, in registers
+    (_MAX_OUTPUTS); widths up to 1152 fit in the default tier, 1024 in the
+    fp32 one."""
     if not kernel_shapes_ok(params) or len(params) > MAX_LAYERS:
         return None
     params = as_surrogate(params)
     precision = kernel_tier(precision)
     hmax = max(padded_inputs(params[0][0].shape[0]), *params.widths)
     for pix in _PIX[precision]:
-        for nc in _CHUNK[precision]:
-            for nbuf in (2, 1):
+        if precision == "highest" and pix * hmax > _MAX_OUTPUTS:
+            continue
+        for nbuf in (2, 1):
+            for nc in _CHUNK[precision]:
                 if smem_bytes(hmax, pix, nc, nbuf, precision) <= SMEM_LIMIT:
                     return pix, nc, nbuf
     return None
@@ -174,8 +185,7 @@ def prep_weights(params, *, precision, device) -> tuple:
     the TPU's pads), contiguous on `device`: per layer the weights with the
     first layer's inputs zero-padded to `padded_inputs`, and the bias in
     fp32. ``default``: W^T (out, in) in bf16, the mma's B operand;
-    ``highest``: W (in, out) in fp32, read a row of output channels at a
-    time."""
+    ``highest``: W (in, out) in fp32, whose slabs of rows are contiguous."""
     highest = kernel_tier(precision) == "highest"
     ops = []
     for i, (w, b) in enumerate(as_surrogate(params)):

@@ -47,8 +47,9 @@ class KernelParams(ctypes.Structure):
 class MlpDesc(ctypes.Structure):
     """bhr::MlpDesc of csrc/neural_mlp.cu, passed by value: the layer count,
     the widths (dims[0] the padded inputs, dims[l + 1] layer l's outputs),
-    the block's pixels, the channels per weight chunk and the number of
-    chunk buffers, and each layer's weights and bias as device pointers."""
+    the block's pixels, the channels per weight chunk (default tier) or
+    the W rows per weight slab (highest) and the number of chunk buffers,
+    and each layer's weights and bias as device pointers."""
 
     _fields_ = [
         ("n_layers", ctypes.c_int),

@@ -42,7 +42,11 @@ renderer's paths:
     launch a frame; 8 OrbitAnimator frames with no host sync; the staged
     routes (srgb tonemap; "auto" resolved to "high"), with no kernel
     launch; and each variant's time beside its plain version's, its bound
-    and the staged route's MLP chain through torch.matmul (cuBLAS);
+    and the staged route's MLP chain through torch.matmul (cuBLAS); for
+    the highest tier (the frames of N1 and N2, N2's direction planes and
+    its band) the share of the fp32 bound and the kernel/chain ratio (the
+    build line gives -Xptxas -v's registers and spills of its two
+    instantiations, "kerr,highest" and "schwarzschild,highest");
   * texture skyboxes: at 160x96x200 with a 256x512 texture from a seed,
     every texture tier (TEX_TIERS: filter x subsample) x {euler, rk4 +
     disk, kerr} x math tier, the kernel's trace and the device epilogue
@@ -240,7 +244,8 @@ NEURAL_ASSETS = {  # (model, asset)
 }
 # Seeded random nets, hidden widths (w, 128, w), that reach every block plan
 # of csrc/neural_mlp.cu the committed nets do not (ops/neural_kernel.
-# kernel_plan: pixels per block, channels per weight chunk, chunk buffers;
+# kernel_plan: pixels per block, channels per weight chunk (default tier)
+# or W rows per weight slab (highest), chunk buffers;
 # tests/test_torch_neural.py:PLAN_NETS is the same list and checks that it
 # covers every plan): (tier, model, w, seed), each seed picked so that the
 # capture mask is mixed at both cameras.
@@ -382,6 +387,14 @@ def ptxas_summary(log: str) -> str:
                                                                         "bytes spill stores"):
             out.append(f"{tag}: {line.strip()}")
     return " | ".join(out) or "already built"
+
+
+def fp32_timing(name: str, ms: float, bound_ms: float, chain_ms: float, smi: str) -> str:
+    """One highest-tier variant's time against its fp32 bound and the
+    cuBLAS MLP chain of the same call."""
+    return (f"{name}: kernel {ms:.3f} ms, {bound_ms / ms:.1%} of the fp32 bound "
+            f"{bound_ms:.3f} ms, cuBLAS MLP chain {chain_ms:.3f} ms, kernel/chain "
+            f"{ms / chain_ms:.3f} on {smi}")
 
 
 def step_ops(model: str, fast: bool, integrator: str, *, adaptive: bool, disk: bool,
@@ -1391,6 +1404,12 @@ def main() -> None:
         phase("neural_timing", f"neural_mlp<{model},{tier}> ({desc}): kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, cuBLAS MLP chain {library_ms:.3f} ms, bound {b:.3f} ms ({by}) "
               f"on {smi}")
+        if highest:
+            plan = nk.kernel_plan(params, tier)
+            phase("neural_timing", fp32_timing(f"neural_mlp<{model},highest> frame", ms, b,
+                                               library_ms, smi)
+                  + f"; block plan {plan}, {nk.smem_bytes(max(params.widths), *plan, tier)} "
+                  "bytes of shared memory")
         del params, feats
 
     # 12. texture skyboxes, small: every texture tier x {euler, rk4 + disk,
@@ -1790,6 +1809,9 @@ def main() -> None:
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, config=desc,
                    library_ms=neural_times[key]["library_ms"],
                    max_abs_err=max(rec["max_abs_err"], st["max_abs_err"]))
+        if highest:
+            phase("neural_timing", fp32_timing(f"neural_dirs<{model},highest> (N3 planes)", ms,
+                                               b, neural_times[key]["library_ms"], smi))
         phase("neural_dirs_main", f"neural_dirs<{model},{tier}> ({desc}), skybox 2048x4096 "
               f"bilinear: render_frame 1 neural_mlp launch; direction planes ({dirs_bar(highest)}"
               f"): {json.dumps(st)}; shaded frame against the all-plain one: {json.dumps(fs)}; "
@@ -1929,6 +1951,9 @@ def main() -> None:
                 f"camera {cam.position.tolist()}, rows {row0}-{row0 + band_rows - 1} of {W}x{H}")
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=library_ms,
                    config=desc, max_abs_err=max(rec["max_abs_err"], st["max_abs_err"]))
+        if highest:
+            phase("neural_timing", fp32_timing(f"neural_band<{model},highest> (N4, {band_rows} "
+                                               "rows)", ms, b, library_ms, smi))
         phase("neural_band", f"neural_band<{model},{tier}> ({desc}): render_frame_sharded {SP} "
               f"neural_mlp band launches, bit-equal to the whole frame on {same:.6f}; one band "
               f"against its plain version ({neural_bar(highest)}): {json.dumps(st)}; band kernel "

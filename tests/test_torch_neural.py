@@ -303,22 +303,25 @@ def test_renderer_routes_as_bhr_tpu(kw, route):
 def test_kernel_plan_fits_shared_memory():
     """kernel_plan's block fits 227 KB for the assets' widths with two
     weight-chunk buffers, and for every multiple of 128 up to 1152 (default
-    tier) and 1024 (highest); it refuses wider nets, other widths and the
-    high tier."""
+    tier) and 1024 (highest, whose block also holds a layer's outputs in
+    registers: at most 256 x 128 of them, in warp tiles of 32 pixels); it
+    refuses wider nets, other widths and the high tier."""
     def net(width, n_in=16, n_out=2, layers=3):
         dims = [n_in] + [width] * layers + [n_out]
         return T.NeuralSurrogate((np.zeros((a, b)), np.zeros(b)) for a, b in zip(dims, dims[1:]))
 
     assert neural_kernel.kernel_plan(net(128), "default") == (128, 64, 2)
     assert neural_kernel.kernel_plan(net(256, 22, 3), "default") == (128, 64, 2)
-    assert neural_kernel.kernel_plan(net(256, 22, 3), "highest") == (64, 32, 2)
+    assert neural_kernel.kernel_plan(net(128), "highest") == (256, 32, 2)
+    assert neural_kernel.kernel_plan(net(256, 22, 3), "highest") == (128, 32, 2)
     assert neural_kernel.smem_bytes(256, 128, 64, 2, "default") == (256 + 128) * 264 * 2
-    assert neural_kernel.smem_bytes(256, 64, 32, 2, "highest") == (2 * 256 * 68 + 2 * 256 * 32) * 4
+    assert neural_kernel.smem_bytes(256, 128, 32, 2, "highest") == (256 * 132 + 2 * 32 * 256) * 4
     for tier, widest in (("default", 1152), ("highest", 1024)):
         for width in range(128, widest + 1, 128):
             pix, nc, nbuf = neural_kernel.kernel_plan(net(width), tier)
             assert neural_kernel.smem_bytes(width, pix, nc, nbuf, tier) <= neural_kernel.SMEM_LIMIT
-            assert width % nc == 0 and pix % (16 if tier == "default" else 4) == 0
+            assert width % nc == 0 and pix % (16 if tier == "default" else 32) == 0
+            assert tier == "default" or pix * width <= 256 * 128
         assert neural_kernel.kernel_plan(net(widest + 128), tier) is None
     assert neural_kernel.kernel_plan(net(192), "default") is None
     assert neural_kernel.kernel_plan(net(128, layers=8), "default") is None
@@ -574,8 +577,8 @@ def test_neural_kernel_matches_plain_version_on_gpu(case):
 @pytest.mark.parametrize("case", PLAN_NETS, ids=PLAN_IDS)
 def test_neural_kernel_block_plans_on_gpu(case):
     """Every block plan the committed nets do not reach (fewer pixels a
-    block, one chunk buffer, 16- or 32-channel chunks) against the plain
-    version, at both cameras."""
+    block, one chunk buffer, 16- or 32-channel chunks, 16- or 32-row
+    slabs) against the plain version, at both cameras."""
     _need_cuda()
     tier, model, width, seed = case
     net = random_net(model, width, seed).to("cuda")
@@ -590,6 +593,40 @@ def test_neural_kernel_block_plans_on_gpu(case):
                                                             precision=tier, device="cuda")
         assert_frames_agree(unpack_frame(got).cpu(), unpack_frame(want).cpu(),
                             highest=tier == "highest")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["schwarzschild", "kerr"])
+def test_highest_tier_ragged_last_block_on_gpu(model):
+    """The highest tier over pixel counts that no block size divides, so
+    the last block is masked: a 97x61 frame, and a band of 7 rows of a
+    1013x61 frame, each against the plain version at the tier's bar, and
+    the band bit-equal to its whole frame's rows (N1 on the committed net,
+    N2 on the fp32-trained Kerr net at spin 0.9)."""
+    _need_cuda()
+    from bhr_tpu_torch.models import neural_kerr
+
+    kerr = model == "kerr"
+    tp, _ = (neural_kerr if kerr else tn).load_params(
+        ASSETS / ("neural_kerr_default.npz" if kerr else "neural_schwarzschild.npz"))
+    tp = tp.to("cuda")
+    cam = T.Camera.new(*SIDE) if kerr else T.Camera.default()
+    spin = 0.9 if kerr else 0.0
+    scene = T.SceneParams(screen_width=97, screen_height=61, spin=spin)
+    got = neural_kernel.neural_render_packed(tp, cam, scene, precision="highest", device="cuda")
+    want = neural_kernel.neural_render_packed_reference(tp, cam, scene, precision="highest",
+                                                        device="cuda")
+    assert_frames_agree(unpack_frame(got).cpu(), unpack_frame(want).cpu(), highest=True)
+    wide = T.SceneParams(screen_width=1013, screen_height=61, spin=spin)
+    whole = neural_kernel.neural_render_packed(tp, cam, wide, precision="highest", device="cuda")
+    band = neural_kernel.neural_render_packed_band(tp, cam, wide, 20, 7, precision="highest",
+                                                   device="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(band, whole[20:27])
+    want = neural_kernel.neural_render_packed_reference(tp, cam, wide, precision="highest",
+                                                        device="cuda", row0=20,
+                                                        local_shape=(7, 1013))
+    assert_frames_agree(unpack_frame(band).cpu(), unpack_frame(want).cpu(), highest=True)
 
 
 @pytest.mark.gpu

@@ -11,21 +11,27 @@
 // the disk's emission, and the quantized, packed RGBA word -- the only
 // memory the kernel writes is that one 4-byte store per pixel.
 //
-// What bounds it: instruction issue. A fast-tier Euler ray-step compiles
-// to 49 SASS instructions, 3 of them SFU operations (2 rsqrt, 1 rcp); the
-// exact tier's common path is 158, 10 of them SFU, because each correctly
-// rounded divide and sqrt is a short Newton sequence; rk4 evaluates the
+// What bounds it: instruction issue. One ray-step of the main path (Euler,
+// no flags) compiles to 52 SASS instructions in the fast tier, 3 of them
+// SFU operations (2 rsqrt, 1 rcp), and to 138 in the exact tier, 5 of them
+// SFU (2 sqrt, the 2 reciprocals that the quotients by r and by |v| share,
+// the divide of `factor`), because each correctly rounded divide and sqrt
+// is a short Newton sequence; before those quotients shared a reciprocal
+// (common.cuh div_shared) the exact step was 160 instructions, 10 of them
+// SFU (bhr_tpu_torch/tools/time_trace.py: the loop with its flags fixed,
+// walked in cuobjdump -sass past its slow-path calls). rk4 evaluates the
 // acceleration four times a step and leapfrog three. Nothing is read from
 // memory but the disk's 1.5 KB blackbody table, in constant memory; the
 // one 4-byte store per pixel is all the traffic. Measured on an NVIDIA
 // H100 80GB HBM3 (700 W power limit, SM clock 1980 MHz under load) at
-// 1920x1080x500 from the default camera, Euler: 9.6e8 ray-steps in 1.59 ms
-// (fast) and 5.69 ms (exact), about 89% and 80% of the card's issue rate
-// of one warp instruction per scheduler per clock. Warp divergence costs
-// little there: 99.7% of the lane-steps of the 16x16 blocks do work. The
-// design keeps the ray's state in registers and the parameters in kernel
-// arguments (constant bank, no loads). Cutting instructions per step, and
-// tuning occupancy, block shape and ray order, is later work.
+// 1920x1080x500 from the default camera, Euler: 9.6e8 ray-steps, 3.01e7
+// warp-steps, in 2.33 ms (fast) and 5.28 ms (exact; 6.25 before), 64% and
+// 75% of the card's issue rate of one warp instruction per scheduler per
+// clock (issue floors 1.50 and 3.97 ms). Warp divergence costs little
+// there: 99.7% of the lane-steps of the 16x16 blocks do work. The design
+// keeps the ray's state in registers and the parameters in kernel
+// arguments (constant bank, no loads). Tuning occupancy, block shape and
+// ray order is later work.
 //
 // The TPU kernel's Mosaic workarounds are gone: a per-thread `break`
 // replaces the dt-freeze termination, the disk's y-sentinel teleport, the

@@ -14,6 +14,8 @@
 //    oracle's operation order (bhr_tpu/ops/geodesic.py euler_step, rk4_step,
 //    leapfrog_step, adaptive_dt; models/schwarzschild.py:acceleration;
 //    models/disk.py:intersect_equatorial), termination on the sqrt'd radius;
+//    the quotients by a shared denominator (rel / r, rs / r, v / |v|) take
+//    one reciprocal and give __fdiv_rn's bits (common.cuh div_shared);
 //  * fast (FAST = true): the folded forms of pallas_trace.py
 //    (physics_substep :793-834, sl_deriv :469-497, sl_rk4 :499-530,
 //    sl_leapfrog :532-546) with rsqrt and an approximate reciprocal,
@@ -99,8 +101,12 @@ __device__ __forceinline__ Vec3 vnorm(Vec3 v) {
     const float s = rsqrtf(dot<true>(v, v));
     return {v.x * s, v.y * s, v.z * s};
   } else {
+    // three quotients by one |v|: one reciprocal (common.cuh div_shared)
     const float s = A::sqrt(dot<false>(v, v));
-    return {A::div(v.x, s), A::div(v.y, s), A::div(v.z, s)};
+    const float num[3] = {v.x, v.y, v.z};
+    float q[3];
+    div_shared(num, s, q);
+    return {q[0], q[1], q[2]};
   }
 }
 
@@ -133,9 +139,13 @@ __device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, const P
   using A = Arith<false>;
   if (ph.flat) return {0.0f, 0.0f, 0.0f};
   const float rs = ph.rs;
-  const Vec3 r_vec = {A::div(rel.x, r), A::div(rel.y, r), A::div(rel.z, r)};
+  // rel / r and rs / r: four quotients by one r (common.cuh div_shared)
+  const float num[4] = {rel.x, rel.y, rel.z, rs};
+  float q[4];
+  div_shared(num, r, q);
+  const Vec3 r_vec = {q[0], q[1], q[2]};
   const float v_rad = dot<false>(vel, r_vec);
-  const float rs_over_r = A::div(rs, r);
+  const float rs_over_r = q[3];
   const float one_m = A::sub(1.0f, rs_over_r);
   const float factor = A::div(rs, A::mul(A::mul(A::mul(2.0f, r), r), one_m));
   const float one_p = A::add(1.0f, rs_over_r);

@@ -18,7 +18,11 @@ and fp32 tiers), and the kernels of csrc/probes.cu answer them here:
 * `ieee` (probe_ieee<OP>): each operation over 4M (4096 x 1024) inputs made
   as ieee_probe.py makes them (log-uniform magnitudes in [1e-6, 1e6],
   random signs, numpy seed 7), against numpy's float64 result rounded to
-  float32 and against PyTorch's a / b, torch.sqrt and torch.rsqrt;
+  float32 and against PyTorch's a / b, torch.sqrt and torch.rsqrt; and the
+  exact tier's quotients by a shared denominator (csrc/common.cuh
+  div_shared, four numerators a denominator) bit for bit against __fdiv_rn,
+  sign of zero included, over those inputs, every mantissa of a
+  denominator in [1, 2), the geodesic loop's ranges and an edge set;
 * `gather` (probe_gather<SRC>): exact lookups from __constant__, shared and
   device memory and by warp shuffles, on the probes' (8, 128) and (8, W)
   shapes, then 1920 x 1080 lookups, hashed (pallas_gather_bench.py's index)
@@ -64,8 +68,13 @@ from ..utils.timing import device_time_ms
 LAUNCHES: collections.Counter = collections.Counter()
 
 IEEE_OPS = {"div": 0, "fdiv_rn": 1, "fsqrt_rn": 2, "sqrtf": 3, "frsqrt_rn": 4, "rsqrtf": 5,
-            "rcp_approx": 6, "markstein": 7, "sqrt_seq": 8}
-BINARY_OPS = ("div", "fdiv_rn", "markstein")
+            "rcp_approx": 6, "markstein": 7, "sqrt_seq": 8, "shared_div": 9}
+BINARY_OPS = ("div", "fdiv_rn", "markstein", "shared_div")
+# csrc/common.cuh div_shared: the window of magnitudes [2^-32, 2^32) in which
+# numerators and denominator take the shared reciprocal (bits of 2^-32 and
+# 2^32), and the mantissa bits of a denominator that never does
+SHARED_DIV_WINDOW = (0x2F800000, 0x4F800000)
+MANTISSA = 0x7FFFFF
 # Largest error in ulp each operation may have: correctly rounded for the
 # _rn intrinsics and nvcc's default divide and sqrtf; rsqrtf 2 ulp (CUDA C++
 # Programming Guide, single-precision functions); rcp.approx 1 ulp (PTX ISA,
@@ -164,9 +173,14 @@ def ieee_reference(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *,
     sequences repeat the kernel's operations from the estimate `y0` (the
     kernel's rcp_approx(b) or rsqrtf(a); without it, the correctly rounded
     one), each correctly rounded: `fma` contracts as __fmaf_rn does, else
-    every product and sum rounds on its own."""
+    every product and sum rounds on its own. `shared_div` takes a (n, 4)
+    and b (n,): where `shared_div_guard` lets a row through, the sequence of
+    csrc/common.cuh div_shared from `y0`; elsewhere the correctly rounded
+    quotient, as the kernel's __fdiv_rn gives it."""
     if op in ("div", "fdiv_rn"):
         return (a.double() / b.double()).float()
+    if op == "shared_div":
+        return shared_div_reference(a, b, y0)
     if op in ("fsqrt_rn", "sqrtf"):
         return a.double().sqrt().float()
     if op in ("frsqrt_rn", "rsqrtf"):
@@ -198,6 +212,36 @@ def ieee_reference(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *,
     raise ValueError(f"unknown probe_ieee op {op!r}; have {sorted(IEEE_OPS)}")
 
 
+def shared_div_guard(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Which rows (a (n, 4) numerators over b (n,)) csrc/common.cuh
+    div_shared takes through the shared reciprocal: every numerator and the
+    denominator within [2^-32, 2^32) in magnitude, and the denominator's
+    mantissa not all ones. The others go to __fdiv_rn."""
+    lo, hi = SHARED_DIV_WINDOW
+
+    def inside(x):
+        m = x.contiguous().view(torch.int32) & 0x7FFFFFFF
+        return (m >= lo) & (m < hi)
+
+    bits = b.contiguous().view(torch.int32)
+    return inside(a).all(-1) & inside(b) & ((bits & MANTISSA) != MANTISSA)
+
+
+def shared_div_reference(a: torch.Tensor, b: torch.Tensor,
+                         y0: torch.Tensor | None = None) -> torch.Tensor:
+    """div_shared's plain version: a (n, 4) / b (n,). Rows the guard takes:
+    y = fma(y0, fma(-b, y0, 1), y0) from the estimate y0 (default RN(1/b)),
+    then each quotient q = RN(a y), q = fma(fma(-b, q, a), y, q); the other
+    rows the correctly rounded quotient."""
+    bc = b[:, None].expand_as(a)
+    y = (1.0 / b.double()).float() if y0 is None else y0
+    y = fma32(y, fma32(-b, y, torch.ones_like(b)), y)[:, None].expand_as(a)
+    q = a * y
+    q = fma32(fma32(-bc, q, a), y, q)
+    exact = (a.double() / bc.double()).float()
+    return torch.where(shared_div_guard(a, b)[:, None], q, exact)
+
+
 def ieee(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *, n_refine: int = 1,
          fixup: bool = False, fma: bool = False) -> torch.Tensor:
     """probe_ieee<op> over the elements of `a` (and `b` for the divides):
@@ -207,19 +251,23 @@ def ieee(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *, n_refine: i
         raise ValueError(f"unknown probe_ieee op {op!r}; have {sorted(IEEE_OPS)}")
     if (op in BINARY_OPS) != (b is not None):
         raise ValueError(f"probe_ieee<{op}> takes {'a and b' if op in BINARY_OPS else 'a only'}")
+    if op == "shared_div" and (a.dim() != 2 or a.shape[1] != 4 or b.shape != a.shape[:1]):
+        raise ValueError(f"probe_ieee<shared_div> takes a (n, 4) and b (n,); got a "
+                         f"{tuple(a.shape)}, b {tuple(b.shape)}")
     if a.device.type == "cpu":
         return ieee_reference(op, a, b, n_refine=n_refine, fixup=fixup, fma=fma)
     _check(a, torch.float32, "a", a.device)
     if b is not None:
         _check(b, torch.float32, "b", a.device)
-        if b.shape != a.shape:
+        if op != "shared_div" and b.shape != a.shape:
             raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ in shape")
     lib = build.load_probes()
     out = torch.empty_like(a)
     device, stream = _stream_and_device(a)
+    n = b.numel() if op == "shared_div" else a.numel()  # rows of four numerators
     rc = lib.bhr_probe_ieee(IEEE_OPS[op], a.data_ptr(), b.data_ptr() if b is not None else None,
-                            out.data_ptr(), a.numel(), int(n_refine), int(fixup), int(fma),
-                            device, stream)
+                            out.data_ptr(), n, int(n_refine), int(fixup), int(fma), device,
+                            stream)
     _raise(lib, rc, f"probe_ieee<{op}>")
     LAUNCHES[f"probe_ieee<{op}>"] += 1
     return out
@@ -591,6 +639,136 @@ def probe_ieee(run: Run, small: bool) -> None:
                shared_reciprocal_uncontracted=bool(shared),
                shared_reciprocal_with_fmaf=bool(shared_fma),
                per_sequence={k: v for k, v in sorted(seq_results.items())})
+    probe_shared_div(run, small, a_np, b_np)
+
+
+def _f32(*xs) -> np.ndarray:
+    return np.array(xs, dtype=np.float64).astype(np.float32)
+
+
+def shared_div_inputs(small: bool, a_p1: np.ndarray, b_p1: np.ndarray) -> dict:
+    """The shared_div probe's input sets, each (a (n, 4), b (n,)) float32:
+    `p1`, ieee_probe.py's inputs (its b the denominators, its a and three
+    more draws the numerators); `mantissas`, every denominator in [1, 2)
+    (every 2048th and the all-ones mantissa when small) with 1.0 and three
+    draws over it -- a reciprocal one ulp low misrounds 1.0 / b for b of
+    the all-ones mantissa; `loop_r` and `loop_v`, the geodesic loop's
+    quotients (rel and rs over r = |rel| in [1.05 rs, 100], v over |v| for
+    |v| within about 1e-3 of 1; 1% of the components +-0, a ray in a
+    coordinate plane); `edge`, each of +-0, subnormals, tiny and huge
+    numerators, the window's edges, powers of two, all-ones mantissas,
+    infinities and NaN beside three ordinary numerators, over powers of two,
+    all-ones mantissas, the window's edges, 0 and infinity."""
+    rng = np.random.default_rng(8)
+    sets = {}
+    n = b_p1.size
+    sets["p1"] = (np.stack([a_p1, *rand_fp32(rng, 3 * n).reshape(3, n)], 1), b_p1)
+    bits = np.arange(0x3F800000, 0x40000000, dtype=np.uint32)
+    if small:
+        bits = np.concatenate([bits[::2048], np.array([0x3FFFFFFF], np.uint32)])
+    bm = bits.view(np.float32)
+    m = bm.size
+    sets["mantissas"] = (np.stack([np.ones(m, np.float32),
+                                   *rand_fp32(rng, 3 * m).reshape(3, m)], 1), bm)
+    k = 1 << 12 if small else 1 << 20
+
+    def unit(k):
+        d = rng.standard_normal((k, 3))
+        return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    def planes(x):  # 1% of the components +0 or -0
+        hit = rng.random(x.shape) < 0.01
+        return np.where(hit, np.where(rng.random(x.shape) < 0.5, -0.0, 0.0), x).astype(np.float32)
+
+    def norm32(x):  # the kernel's |x|: ((x x + y y) + z z), then the root, each in fp32
+        return np.sqrt((x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2])
+
+    rs = np.exp(rng.uniform(np.log(0.5), np.log(4.0), k)).astype(np.float32)
+    r = np.exp(rng.uniform(np.log(1.05 * rs), np.log(100.0)))
+    rel = planes(unit(k) * r[:, None])
+    sets["loop_r"] = (np.concatenate([rel, rs[:, None]], 1), norm32(rel))
+    v = planes(unit(k) * (1.0 + 1e-3 * rng.standard_normal((k, 1))))
+    sets["loop_v"] = (np.concatenate([v, -v[:, :1]], 1), norm32(v))
+    two = np.float32(2.0)
+    pows = np.arange(-40, 41, 4)
+    ones = np.float32(2.0 - 2.0 ** -23) * two ** pows  # all-ones mantissas
+    edge_num = _f32(0.0, 2.0 ** -149, 2.0 ** -126 - 2.0 ** -149, 2.0 ** -126, 2.0 ** -100,
+                    2.0 ** -64, 2.0 ** -33, 2.0 ** -32 * (1 - 2.0 ** -24), 2.0 ** -32,
+                    2.0 ** 32 * (1 - 2.0 ** -24), 2.0 ** 32, 2.0 ** 40, 2.0 ** 100,
+                    np.finfo(np.float32).max, np.inf, np.nan)
+    edge_num = np.concatenate([edge_num, -edge_num, two ** pows, -(two ** pows), ones, -ones,
+                               rand_fp32(rng, 8)]).astype(np.float32)
+    edge_den = _f32(1.0 + 2.0 ** -23, 2.0 - 2.0 ** -22, 2.1, 100.0, 2.0 ** -32,
+                    2.0 ** -32 * (1 - 2.0 ** -24), 2.0 ** 32 * (1 - 2.0 ** -24), 2.0 ** 32,
+                    2.0 ** -100, 0.0, np.inf)
+    edge_den = np.concatenate([edge_den, -edge_den[:4], two ** pows, ones]).astype(np.float32)
+    benign = _f32(1.0, 0.7, 3.0)
+    rows, dens = [], []
+    for j, e in enumerate(edge_num):
+        row = list(benign)
+        row.insert(j % 4, e)
+        rows.append(row)
+    pad = (-edge_num.size) % 4  # and the edge numerators four to a row
+    rows += np.concatenate([edge_num, np.ones(pad, np.float32)]).reshape(-1, 4).tolist()
+    rows = np.array(rows, np.float32)
+    sets["edge"] = (np.tile(rows, (edge_den.size, 1)), np.repeat(edge_den, rows.shape[0]))
+    return sets
+
+
+def probe_shared_div(run: Run, small: bool, a_p1: np.ndarray, b_p1: np.ndarray) -> None:
+    """csrc/common.cuh div_shared on the card: four numerators over one
+    denominator, bit for bit against the kernel's __fdiv_rn (probe_ieee<
+    fdiv_rn> on the same pairs), the correctly rounded quotient and the
+    plain version from the card's own rcp.approx, sign of zero included."""
+    dev = run.device
+    results, total = {}, 0
+
+    def same(x, y):  # the same bits, or both NaN
+        return (x.view(torch.int32) == y.view(torch.int32)) | (x.isnan() & y.isnan())
+
+    for name, (a_np, b_np) in shared_div_inputs(small, a_p1, b_p1).items():
+        a, b = torch.from_numpy(a_np).to(dev), torch.from_numpy(b_np).to(dev)
+        got = ieee("shared_div", a, b)
+        fdiv = ieee("fdiv_rn", a.reshape(-1), b.repeat_interleave(4)).reshape(a.shape)
+        host = (a.double() / b.double()[:, None]).float()
+        y0 = ieee("rcp_approx", b)
+        plain = ieee_reference("shared_div", a, b, y0=y0)
+        guard = shared_div_guard(a, b)
+        neg_zero = (host == 0) & (host.view(torch.int32) < 0)
+        rec = {"quotients": a.numel(),
+               "vs_fdiv_rn_mismatches": int((got.view(torch.int32) != fdiv.view(torch.int32))
+                                            .sum().item()),
+               "vs_host_mismatches": int((~same(got, host)).sum().item()),
+               "vs_plain_mismatches": int((~same(got, plain)).sum().item()),
+               "fdiv_rn_rows": float(1.0 - guard.float().mean().item()),
+               "negative_zeros": int(neg_zero.sum().item()),
+               "negative_zeros_kept": int((neg_zero & same(got, host)).sum().item())}
+        total += rec["quotients"]
+        results[name] = rec
+        ok = rec["vs_fdiv_rn_mismatches"] + rec["vs_host_mismatches"] \
+            + rec["vs_plain_mismatches"] == 0
+        run.check("ieee", f"shared_div_{name}", ok, **rec)
+        finite = got.isfinite() & plain.isfinite()
+        run.kernel("probe_ieee<shared_div>", max_abs_err=float(
+            (got - plain)[finite].abs().max().item()) if bool(finite.any()) else 0.0)
+        if name == "p1":
+            n = b.numel()
+            bound_ms, by = _bound(4 * 9 * n, 4 * n, PEAK_FP32)
+            run.kernel("probe_ieee<shared_div>",
+                       ms=run.ms(lambda: ieee("shared_div", a, b)),
+                       plain_ms=run.ms(lambda: ieee_reference("shared_div", a, b, y0=y0)),
+                       library_ms=run.ms(lambda: a / b[:, None]), bound_ms=bound_ms,
+                       bound_by=by, config=f"{n} denominators x 4 numerators, ieee_probe.py's "
+                                           f"inputs (seed 7) and three more draws (seed 8)")
+        del a, b, got, fdiv, host, plain
+    run.answer("shared_quotient",
+               question="do the exact tier's quotients by a shared denominator "
+                        "(csrc/common.cuh div_shared: one reciprocal, then a mul and two "
+                        "__fmaf_rn a quotient; __fdiv_rn for what its guard turns away) give "
+                        "__fdiv_rn's bits, sign of zero included?",
+               yes=all(r["vs_fdiv_rn_mismatches"] == 0 and r["vs_host_mismatches"] == 0
+                       for r in results.values()),
+               quotients=total, per_set=results)
 
 
 def probe_gather(run: Run, small: bool, texture: torch.Tensor | None) -> None:

@@ -90,9 +90,12 @@ renderer's paths:
   * the probes (python -m bhr_tpu_torch.tools.hopper_probe, the questions
     of bhr_tpu's six probe scripts): probe_ieee over 4M inputs (every
     divide and root against the correctly rounded result, the Markstein
-    and rsqrt sequences bit-equal to their plain versions), probe_gather
-    from __constant__, shared and device memory and by warp shuffles
-    (exact on the probes' shapes and on 1920x1080 lookups, and ns a
+    and rsqrt sequences bit-equal to their plain versions; the exact
+    tier's quotients by a shared denominator, csrc/common.cuh div_shared,
+    bit-equal to __fdiv_rn, sign of zero included, on those inputs, every
+    denominator mantissa of [1, 2), the loop's ranges and an edge set),
+    probe_gather from __constant__, shared and device memory and by warp
+    shuffles (exact on the probes' shapes and on 1920x1080 lookups, and ns a
     lookup), probe_dot at the bf16, bf16x3 and fp32 tiers against a
     float64 product (within 1e-2, 1e-5 and 1e-5 of max |C|) and at the
     neural probes' shapes (the bf16 chain with its sums rounded to bf16),
@@ -822,10 +825,14 @@ def main() -> None:
                             worst[key] = min(worst.get(key, 1.0), s[key])
                         worst["max_abs_err"] = max(worst.get("max_abs_err", 0),
                                                    s["max_abs_err"])
+                        if not fast:
+                            worst["exact_bit_same"] = min(worst.get("exact_bit_same", 1.0),
+                                                          s["bit_same"])
     phase("matrix", f"{n_cases} cases at {sw}x{sh}x{ss}, spin {SPIN} (3 integrators x "
           f"fixed/adaptive x {'/'.join(models)} x fast/exact x passthrough (monolithic, "
           f"but exact kerr_lt staged)/srgb staged), each 1 launch of its kernel and held to its "
-          f"tier's bar; worst over the cases: " + json.dumps(worst))
+          f"tier's bar; worst over the cases (exact_bit_same: over the exact tier's): "
+          + json.dumps(worst))
 
     # 4. main path at full size, both tiers
     full_scene = bt.SceneParams(screen_width=W, screen_height=H, max_steps=STEPS)

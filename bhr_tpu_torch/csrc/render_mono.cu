@@ -47,9 +47,10 @@
 // x 3 integrators x 2 loops = 12 instantiations; a Kerr-Schild disk ray is
 // shaded with the direction evaluated at its hit point, y = 0.
 //
-// Kerr-Schild costs more a step: ks_all (derivs) is ~150 fp32 operations
-// against ~35 for the Schwarzschild acceleration, with 3 reciprocals and 2
-// square roots; rk4 calls it 4 times a step, leapfrog 5, euler once.
+// Kerr-Schild costs more a step: derivs (trace_ray.cuh ks_radii, ks_geom,
+// ks_terms) is ~150 fp32 operations against ~35 for the Schwarzschild
+// acceleration, with 3 reciprocals and 2 square roots a point; rk4 takes 4
+// points a step, leapfrog 3 (for its 5 calls), euler 1.
 
 #include <cuda_runtime.h>
 

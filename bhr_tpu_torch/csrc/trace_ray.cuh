@@ -455,9 +455,12 @@ __device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int r
 // tree is the oracle's (models/kerr_schild.py), operation for operation:
 // the flow is chaotic near the shadow's edge, so even a regrouping that is
 // algebraically equal shows as per-pixel noise. The exact tier rounds each
-// operation correctly, uncontracted; the fast tier takes the reciprocals
-// 1/w, 1/bb, 1/r and 1/E by the SFU's approximate rcp, as JAX's `_recip`
-// does, and lets nvcc contract.
+// operation correctly, uncontracted: its roots and the reciprocals 1/w,
+// 1/bb and 1/r give __fsqrt_rn's and __fdiv_rn's bits by their common paths
+// behind one guard a point (ks_radii), and its escape test compares |q|^2
+// with escape_threshold(esc) instead of |q| with esc (common.cuh). The fast
+// tier takes the reciprocals 1/w, 1/bb, 1/r and 1/E by the SFU's
+// approximate rcp, as JAX's `_recip` does, and lets nvcc contract.
 
 struct KsConst {
   float rs;   // 2M
@@ -465,17 +468,6 @@ struct KsConst {
   float a;    // a* M
   float a2;   // a^2
 };
-
-// models/kerr_schild.py ks_radius squared and clamped (pallas_trace.py
-// ks_r2): the Kerr-Schild r^2, and rho2 = |q|^2.
-template <bool FAST>
-__device__ __forceinline__ float ks_r2(Vec3 q, float a2, float& rho2) {
-  using A = Arith<FAST>;
-  rho2 = dot<FAST>(q, q);
-  const float b = A::sub(rho2, a2);
-  const float disc = A::sqrt(A::add(A::mul(b, b), A::mul(A::mul(4.0f, a2), A::mul(q.y, q.y))));
-  return maximum(A::mul(0.5f, A::add(b, disc)), static_cast<float>(1e-12));
-}
 
 template <bool FAST>
 __device__ __forceinline__ float recip(float x) {
@@ -486,33 +478,74 @@ __device__ __forceinline__ float recip(float x) {
   }
 }
 
-struct KsTerms {
-  Vec3 dq, dp;  // dq/dl, dp/dl
-  float f;      // the metric function f at q
-  Vec3 l;       // the null vector l at q
+// The Kerr-Schild radius at q and what the geometry there divides by.
+struct KsRadii {
+  float r2;                    // models/kerr_schild.py ks_radius, squared and clamped
+  float r;                     // its root
+  float w, bb;                 // w = r^4 + a^2 y^2, bb = r^2 + a^2
+  float inv_w, inv_bb, inv_r;  // 1/w, 1/bb, 1/r
 };
 
-// models/kerr_schild.py derivs / pallas_trace.py ks_all (:563-614).
+// pallas_trace.py ks_r2 (:556) and the head of ks_all (:563-574) at q,
+// with rho2 = |q|^2: two roots and three reciprocals. The exact tier takes
+// each by its common path alone and tests all five operands once, after
+// them (common.cuh: root_guard, rcp_guard); the rare point whose operands
+// leave the window takes the whole group again by the intrinsics, in the
+// same order, so every value is __fsqrt_rn's and __fdiv_rn's.
 template <bool FAST>
-__device__ __forceinline__ KsTerms ks_all(Vec3 q, Vec3 p, const KsConst& k) {
+__device__ __forceinline__ KsRadii ks_radii(Vec3 q, float rho2, float a2) {
+  using A = Arith<FAST>;
+  const float b = A::sub(rho2, a2);
+  const float y2 = A::mul(q.y, q.y);
+  const float disc2 = A::add(A::mul(b, b), A::mul(A::mul(4.0f, a2), y2));
+  const auto radii = [&](auto root, auto rcp) {
+    KsRadii g;
+    g.r2 = maximum(A::mul(0.5f, A::add(b, root(disc2))), static_cast<float>(1e-12));
+    g.r = root(g.r2);
+    g.w = A::add(A::mul(g.r2, g.r2), A::mul(a2, y2));
+    g.bb = A::add(g.r2, a2);
+    g.inv_w = rcp(g.w);
+    g.inv_bb = rcp(g.bb);
+    g.inv_r = rcp(g.r);
+    return g;
+  };
+  if constexpr (FAST) {
+    return radii([](float x) { return A::sqrt(x); }, [](float x) { return rcp_approx(x); });
+  } else {
+    KsRadii g = radii([](float x) { return sqrt_rn_seq(x); },
+                      [](float x) { return rcp_rn_shared(x); });
+    if (turned_away(root_guard(disc2) | root_guard(g.r2) | rcp_guard(g.w) | rcp_guard(g.bb) |
+                    rcp_guard(g.r))) {
+      g = radii([](float x) { return __fsqrt_rn(x); }, [](float x) { return __fdiv_rn(1.0f, x); });
+    }
+    return g;
+  }
+}
+
+// What models/kerr_schild.py derivs (pallas_trace.py ks_all :563-614)
+// computes at q alone: f, l and their gradients.
+struct KsGeom {
+  float f;           // the metric function f
+  Vec3 l;            // the null vector l
+  Vec3 df;           // df/dq
+  Vec3 dl_x, dl_y, dl_z;  // dl/dx, dl/dy, dl/dz
+};
+
+template <bool FAST>
+__device__ __forceinline__ KsGeom ks_geom(Vec3 q, const KsRadii& g, const KsConst& k) {
   using A = Arith<FAST>;
   const float x = q.x, y = q.y, z = q.z;
   const float a = k.a, a2 = k.a2;
-  float rho2;
-  const float r2 = ks_r2<FAST>(q, a2, rho2);
-  const float r = A::sqrt(r2);
-  const float y2 = A::mul(y, y);
-  const float w = A::add(A::mul(r2, r2), A::mul(a2, y2));
-  const float inv_w = recip<FAST>(w);
+  const float r2 = g.r2, r = g.r, w = g.w, bb = g.bb;
+  const float inv_w = g.inv_w, inv_bb = g.inv_bb, inv_r = g.inv_r;
   const float r3 = A::mul(r2, r);
   const float two_m = A::mul(2.0f, k.m);
-  const float f = A::mul(A::mul(two_m, r3), inv_w);
-  const float bb = A::add(r2, a2);
-  const float inv_bb = recip<FAST>(bb);
+  KsGeom t;
+  t.f = A::mul(A::mul(two_m, r3), inv_w);
   const float lx = A::mul(A::add(A::mul(r, x), A::mul(a, z)), inv_bb);
-  const float inv_r = recip<FAST>(r);
   const float ly = A::mul(y, inv_r);
   const float lz = A::mul(A::sub(A::mul(r, z), A::mul(a, x)), inv_bb);
+  t.l = {lx, ly, lz};
   // dr/dq_i = r (r^2 q_i + a^2 y d_iy) / W
   const float r_w = A::mul(r, inv_w);
   const float drx = A::mul(A::mul(r_w, r2), x);
@@ -523,9 +556,7 @@ __device__ __forceinline__ KsTerms ks_all(Vec3 q, Vec3 p, const KsConst& k) {
   const float g1 = A::mul(
       A::mul(two_m, A::sub(A::mul(A::mul(3.0f, r2), w), A::mul(A::mul(4.0f, r3), r3))), inv_w2);
   const float g2 = A::mul(A::mul(A::mul(A::mul(4.0f, k.m), a2), r3), inv_w2);
-  const float dfx = A::mul(g1, drx);
-  const float dfy = A::sub(A::mul(g1, dry), A::mul(g2, y));
-  const float dfz = A::mul(g1, drz);
+  t.df = {A::mul(g1, drx), A::sub(A::mul(g1, dry), A::mul(g2, y)), A::mul(g1, drz)};
   // dl_j/dq_i
   const float two_r_invbb = A::mul(A::mul(2.0f, r), inv_bb);
   const float inv_r2 = A::mul(inv_r, inv_r);
@@ -543,43 +574,64 @@ __device__ __forceinline__ KsTerms ks_all(Vec3 q, Vec3 p, const KsConst& k) {
   const float dlz_y = A::sub(A::mul(A::mul(z, dry), inv_bb), A::mul(lz, A::mul(two_r_invbb, dry)));
   const float dlz_z = A::sub(A::mul(A::add(A::mul(z, drz), r), inv_bb),
                              A::mul(lz, A::mul(two_r_invbb, drz)));
-  const float s = A::add(A::add(A::add(1.0f, A::mul(lx, p.x)), A::mul(ly, p.y)), A::mul(lz, p.z));
-  const float fs = A::mul(f, s);
-  const float hs2 = A::mul(A::mul(0.5f, s), s);
-  KsTerms t;
-  t.dq = {A::sub(p.x, A::mul(fs, lx)), A::sub(p.y, A::mul(fs, ly)), A::sub(p.z, A::mul(fs, lz))};
-  t.dp = {A::add(A::mul(hs2, dfx), A::mul(fs, dot<FAST>({dlx_x, dly_x, dlz_x}, p))),
-          A::add(A::mul(hs2, dfy), A::mul(fs, dot<FAST>({dlx_y, dly_y, dlz_y}, p))),
-          A::add(A::mul(hs2, dfz), A::mul(fs, dot<FAST>({dlx_z, dly_z, dlz_z}, p)))};
-  t.f = f;
-  t.l = {lx, ly, lz};
+  t.dl_x = {dlx_x, dly_x, dlz_x};
+  t.dl_y = {dlx_y, dly_y, dlz_y};
+  t.dl_z = {dlx_z, dly_z, dlz_z};
   return t;
 }
 
-// One Kerr-Schild step (ops/trace.py:_trace_rays_kerr_schild step_*).
+// The geometry at a point of its own: its radii, then f, l and gradients.
+template <bool FAST>
+__device__ __forceinline__ KsGeom ks_geom_at(Vec3 q, const KsConst& k) {
+  return ks_geom<FAST>(q, ks_radii<FAST>(q, dot<FAST>(q, q), k.a2), k);
+}
+
+struct KsTerms {
+  Vec3 dq, dp;  // dq/dl, dp/dl
+};
+
+// The rest of pallas_trace.py ks_all, on p: s = 1 + l.p, dq = p - f s l,
+// dp = (s^2 / 2) df + f s (dl . p).
+template <bool FAST>
+__device__ __forceinline__ KsTerms ks_terms(const KsGeom& g, Vec3 p) {
+  using A = Arith<FAST>;
+  const float s =
+      A::add(A::add(A::add(1.0f, A::mul(g.l.x, p.x)), A::mul(g.l.y, p.y)), A::mul(g.l.z, p.z));
+  const float fs = A::mul(g.f, s);
+  const float hs2 = A::mul(A::mul(0.5f, s), s);
+  KsTerms t;
+  t.dq = {A::sub(p.x, A::mul(fs, g.l.x)), A::sub(p.y, A::mul(fs, g.l.y)),
+          A::sub(p.z, A::mul(fs, g.l.z))};
+  t.dp = {A::add(A::mul(hs2, g.df.x), A::mul(fs, dot<FAST>(g.dl_x, p))),
+          A::add(A::mul(hs2, g.df.y), A::mul(fs, dot<FAST>(g.dl_y, p))),
+          A::add(A::mul(hs2, g.df.z), A::mul(fs, dot<FAST>(g.dl_z, p)))};
+  return t;
+}
+
+// One Kerr-Schild step (ops/trace.py:_trace_rays_kerr_schild step_*) from
+// (q, p), with the geometry at q, gq, from the loop's head. Each derivs call
+// of the oracle at a point already visited reuses that point's geometry,
+// which it would compute bit for bit alike: Euler takes 1 geometry, rk4 4,
+// leapfrog 3 for its 5 calls.
 template <bool FAST, int INTEG>
-__device__ __forceinline__ void ks_step(Vec3 q, Vec3 p, float dt, const KsConst& k, Vec3& nq,
-                                        Vec3& np) {
+__device__ __forceinline__ void ks_step(Vec3 q, Vec3 p, const KsGeom& gq, float dt,
+                                        const KsConst& k, Vec3& nq, Vec3& np) {
   using A = Arith<FAST>;
   if constexpr (INTEG == kEuler) {
     // semi-implicit (pallas_trace.py ks_substep :616-626): p' from dp(q, p),
-    // then q' from dq(q, p'), reusing f and l at q -- the oracle's second
-    // derivs call at the same q computes them bit for bit alike.
-    const KsTerms t = ks_all<FAST>(q, p, k);
-    np = axpy<FAST>(p, t.dp, dt);
-    const float s2 = A::add(A::add(A::add(1.0f, A::mul(t.l.x, np.x)), A::mul(t.l.y, np.y)),
-                            A::mul(t.l.z, np.z));
-    const float fs2 = A::mul(t.f, s2);
-    const Vec3 dq2 = {A::sub(np.x, A::mul(fs2, t.l.x)), A::sub(np.y, A::mul(fs2, t.l.y)),
-                      A::sub(np.z, A::mul(fs2, t.l.z))};
-    nq = axpy<FAST>(q, dq2, dt);
+    // then q' from dq(q, p')
+    np = axpy<FAST>(p, ks_terms<FAST>(gq, p).dp, dt);
+    nq = axpy<FAST>(q, ks_terms<FAST>(gq, np).dq, dt);
   } else if constexpr (INTEG == kRk4) {
     // classic RK4 on (q, p) (ks_rk4 :628-650), summed k1 + 2k2 + 2k3 + k4
     const float half = A::mul(0.5f, dt);
-    const KsTerms k1 = ks_all<FAST>(q, p, k);
-    const KsTerms k2 = ks_all<FAST>(axpy<FAST>(q, k1.dq, half), axpy<FAST>(p, k1.dp, half), k);
-    const KsTerms k3 = ks_all<FAST>(axpy<FAST>(q, k2.dq, half), axpy<FAST>(p, k2.dp, half), k);
-    const KsTerms k4 = ks_all<FAST>(axpy<FAST>(q, k3.dq, dt), axpy<FAST>(p, k3.dp, dt), k);
+    const KsTerms k1 = ks_terms<FAST>(gq, p);
+    const Vec3 q2 = axpy<FAST>(q, k1.dq, half);
+    const KsTerms k2 = ks_terms<FAST>(ks_geom_at<FAST>(q2, k), axpy<FAST>(p, k1.dp, half));
+    const Vec3 q3 = axpy<FAST>(q, k2.dq, half);
+    const KsTerms k3 = ks_terms<FAST>(ks_geom_at<FAST>(q3, k), axpy<FAST>(p, k2.dp, half));
+    const Vec3 q4 = axpy<FAST>(q, k3.dq, dt);
+    const KsTerms k4 = ks_terms<FAST>(ks_geom_at<FAST>(q4, k), axpy<FAST>(p, k3.dp, dt));
     const float sixth = A::mul(dt, static_cast<float>(1.0 / 6.0));
     auto sum = [&](Vec3 a1, Vec3 a2, Vec3 a3, Vec3 a4) -> Vec3 {
       return {A::add(A::add(A::add(a1.x, A::mul(2.0f, a2.x)), A::mul(2.0f, a3.x)), a4.x),
@@ -592,11 +644,12 @@ __device__ __forceinline__ void ks_step(Vec3 q, Vec3 p, float dt, const KsConst&
     // kick-drift-kick with a midpoint-corrected drift and a corrector on the
     // final kick (ks_leapfrog :652-666)
     const float half = A::mul(0.5f, dt);
-    const Vec3 ph = axpy<FAST>(p, ks_all<FAST>(q, p, k).dp, half);
-    const Vec3 q_mid = axpy<FAST>(q, ks_all<FAST>(q, ph, k).dq, half);
-    nq = axpy<FAST>(q, ks_all<FAST>(q_mid, ph, k).dq, dt);
-    const Vec3 p_pred = axpy<FAST>(ph, ks_all<FAST>(nq, ph, k).dp, half);
-    np = axpy<FAST>(ph, ks_all<FAST>(nq, p_pred, k).dp, half);
+    const Vec3 ph = axpy<FAST>(p, ks_terms<FAST>(gq, p).dp, half);
+    const Vec3 q_mid = axpy<FAST>(q, ks_terms<FAST>(gq, ph).dq, half);
+    nq = axpy<FAST>(q, ks_terms<FAST>(ks_geom_at<FAST>(q_mid, k), ph).dq, dt);
+    const KsGeom gn = ks_geom_at<FAST>(nq, k);
+    const Vec3 p_pred = axpy<FAST>(ph, ks_terms<FAST>(gn, ph).dp, half);
+    np = axpy<FAST>(ph, ks_terms<FAST>(gn, p_pred).dp, half);
   }
 }
 
@@ -636,7 +689,7 @@ __device__ __forceinline__ Vec3 ks_init_p(Vec3 q, Vec3 d, const KsConst& k) {
 template <bool FAST>
 __device__ __forceinline__ Vec3 ks_direction(Vec3 q, Vec3 p, const KsConst& k) {
   using A = Arith<FAST>;
-  const Vec3 dq = ks_all<FAST>(q, p, k).dq;
+  const Vec3 dq = ks_terms<FAST>(ks_geom_at<FAST>(q, k), p).dq;
   if constexpr (FAST) {
     return vnorm<true>(dq);
   } else {
@@ -646,10 +699,11 @@ __device__ __forceinline__ Vec3 ks_direction(Vec3 q, Vec3 p, const KsConst& k) {
 }
 
 // The oracle's Kerr-Schild loop (ops/trace.py:_trace_rays_kerr_schild) for
-// one ray: escape on |q| (exact) or |q|^2 (fast) against the escape
-// radius, capture on the Kerr-Schild r (r^2) against P_CAP = 1.05 r_+,
-// adaptive dt on the Kerr-Schild r (fast: r^2 rsqrt(r^2)), the disk as for
-// the acceleration models. After the loop the momentum becomes the unit
+// one ray: escape on |q| (exact: |q|^2 against escape_threshold, the same
+// test) or |q|^2 (fast) against the escape radius, capture on the
+// Kerr-Schild r (r^2) against P_CAP = 1.05 r_+, adaptive dt on the
+// Kerr-Schild r (fast: r^2 rsqrt(r^2)), the disk as for the acceleration
+// models. After the loop the momentum becomes the unit
 // coordinate direction, evaluated at the disk hit point for a disk ray
 // (exact: the oracle's interpolated point; fast: y = 0, pallas_trace.py
 // :1134-1146); the returned rel of a disk ray has y = 0.
@@ -672,7 +726,14 @@ __device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row,
   const float base_dt = p.v[P_DT];
   const float esc = p.v[P_ESC];
   const float cap = p.v[P_CAP];
-  const float esc2 = A::mul(esc, esc);
+  // escape when |q|^2 > esc_bound: esc^2 (fast); exact, the T for which
+  // that is __fsqrt_rn(|q|^2) > esc
+  float esc_bound;
+  if constexpr (FAST) {
+    esc_bound = A::mul(esc, esc);
+  } else {
+    esc_bound = escape_threshold(esc);
+  }
   const float cap2 = A::mul(cap, cap);
   const float r_isco = p.v[P_RISCO];
   const float r_outer = p.v[P_ROUTER];
@@ -680,16 +741,15 @@ __device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row,
   Vec3 dir_at = ray.rel;  // where the shading direction is evaluated
   for (int i = 0; i < max_steps; ++i) {
     ray.steps = i + 1;
-    float rho2;
-    const float r2c = ks_r2<FAST>(ray.rel, k.a2, rho2);
+    const float rho2 = dot<FAST>(ray.rel, ray.rel);
+    if (rho2 > esc_bound) { ray.status = kEscaped; break; }
+    const KsRadii g = ks_radii<FAST>(ray.rel, rho2, k.a2);
     float rc;
     if constexpr (FAST) {
-      if (rho2 > esc2) { ray.status = kEscaped; break; }
-      if (r2c < cap2) { ray.status = kCaptured; break; }
-      rc = r2c * rsqrtf(r2c);
+      if (g.r2 < cap2) { ray.status = kCaptured; break; }
+      rc = g.r2 * rsqrtf(g.r2);
     } else {
-      if (A::sqrt(rho2) > esc) { ray.status = kEscaped; break; }
-      rc = A::sqrt(r2c);
+      rc = g.r;
       if (rc < cap) { ray.status = kCaptured; break; }
     }
     float dt = base_dt;
@@ -698,7 +758,7 @@ __device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row,
                                        static_cast<float>(0.01)), 1.0f));
     }
     Vec3 nq, np;
-    ks_step<FAST, INTEG>(ray.rel, mom, dt, k, nq, np);
+    ks_step<FAST, INTEG>(ray.rel, mom, ks_geom<FAST>(ray.rel, g, k), dt, k, nq, np);
     Vec3 hit;
     if (disk && disk_crossing<FAST>(ray.rel, nq, r_isco, r_outer, hit)) {
       dir_at = hit;

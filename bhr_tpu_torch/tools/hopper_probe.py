@@ -22,7 +22,11 @@ and fp32 tiers), and the kernels of csrc/probes.cu answer them here:
   exact tier's quotients by a shared denominator (csrc/common.cuh
   div_shared, four numerators a denominator) bit for bit against __fdiv_rn,
   sign of zero included, over those inputs, every mantissa of a
-  denominator in [1, 2), the geodesic loop's ranges and an edge set;
+  denominator in [1, 2), the geodesic loop's ranges and an edge set; and
+  the exact Kerr-Schild loop's reciprocals and roots behind its group
+  guard (rcp_group, root_group) against __fdiv_rn(1, x) and __fsqrt_rn on
+  every non-negative float32, and its escape threshold (esc_threshold)
+  against the root's test on every float32;
 * `gather` (probe_gather<SRC>): exact lookups from __constant__, shared and
   device memory and by warp shuffles, on the probes' (8, 128) and (8, W)
   shapes, then 1920 x 1080 lookups, hashed (pallas_gather_bench.py's index)
@@ -68,8 +72,14 @@ from ..utils.timing import device_time_ms
 LAUNCHES: collections.Counter = collections.Counter()
 
 IEEE_OPS = {"div": 0, "fdiv_rn": 1, "fsqrt_rn": 2, "sqrtf": 3, "frsqrt_rn": 4, "rsqrtf": 5,
-            "rcp_approx": 6, "markstein": 7, "sqrt_seq": 8, "shared_div": 9}
+            "rcp_approx": 6, "markstein": 7, "sqrt_seq": 8, "shared_div": 9, "rcp_group": 10,
+            "root_group": 11, "esc_threshold": 12}
 BINARY_OPS = ("div", "fdiv_rn", "markstein", "shared_div")
+# operands a group of the exact Kerr-Schild loop's group guard probes
+# (csrc/common.cuh rcp_guard, root_guard): a takes (n, width)
+GROUP_WIDTH = {"rcp_group": 3, "root_group": 2}
+# csrc/common.cuh positive_window: the positive floats [2^-32, 2^32), as bits
+POSITIVE_WINDOW = (0x2F800000, 0x4F800000)
 # csrc/common.cuh div_shared: the window of magnitudes [2^-32, 2^32) in which
 # numerators and denominator take the shared reciprocal (bits of 2^-32 and
 # 2^32), and the mantissa bits of a denominator that never does
@@ -176,11 +186,20 @@ def ieee_reference(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *,
     every product and sum rounds on its own. `shared_div` takes a (n, 4)
     and b (n,): where `shared_div_guard` lets a row through, the sequence of
     csrc/common.cuh div_shared from `y0`; elsewhere the correctly rounded
-    quotient, as the kernel's __fdiv_rn gives it."""
+    quotient, as the kernel's __fdiv_rn gives it. `rcp_group` and
+    `root_group` (a (n, 3), (n, 2)) and `esc_threshold` likewise
+    (rcp_group_reference, root_group_reference,
+    escape_threshold_reference)."""
     if op in ("div", "fdiv_rn"):
         return (a.double() / b.double()).float()
     if op == "shared_div":
         return shared_div_reference(a, b, y0)
+    if op == "rcp_group":
+        return rcp_group_reference(a, y0)
+    if op == "root_group":
+        return root_group_reference(a, y0)
+    if op == "esc_threshold":
+        return escape_threshold_reference(a)
     if op in ("fsqrt_rn", "sqrtf"):
         return a.double().sqrt().float()
     if op in ("frsqrt_rn", "rsqrtf"):
@@ -242,6 +261,81 @@ def shared_div_reference(a: torch.Tensor, b: torch.Tensor,
     return torch.where(shared_div_guard(a, b)[:, None], q, exact)
 
 
+def positive_window(x: torch.Tensor) -> torch.Tensor:
+    """csrc/common.cuh positive_window: x within [2^-32, 2^32), positive (a
+    negative x, +-0, a subnormal, an infinity or NaN never is)."""
+    bits = x.contiguous().view(torch.int32)  # negative floats are negative ints
+    return (bits >= POSITIVE_WINDOW[0]) & (bits < POSITIVE_WINDOW[1])
+
+
+def rcp_group_guard(a: torch.Tensor) -> torch.Tensor:
+    """Which groups (rows of a) the exact Kerr-Schild loop takes through
+    rcp_rn_shared (csrc/common.cuh rcp_guard): every operand in the positive
+    window and none with an all-ones mantissa. The others go to
+    __fdiv_rn(1, x)."""
+    bits = a.contiguous().view(torch.int32)
+    return (positive_window(a) & ((bits & MANTISSA) != MANTISSA)).all(-1)
+
+
+def root_group_guard(a: torch.Tensor) -> torch.Tensor:
+    """Which groups (rows of a) the loop takes through sqrt_rn_seq
+    (csrc/common.cuh root_guard): every operand in the positive window. The
+    others go to __fsqrt_rn."""
+    return positive_window(a).all(-1)
+
+
+def rcp_group_reference(a: torch.Tensor, y0: torch.Tensor | None = None) -> torch.Tensor:
+    """The rcp_group probe's plain version: for the rows rcp_group_guard
+    takes, y = fma(y0, fma(-a, y0, 1), y0) from the estimate y0 (default
+    RN(1/a)); elsewhere RN(1/a), as __fdiv_rn(1, a) gives it."""
+    exact = (1.0 / a.double()).float()
+    y = exact if y0 is None else y0
+    y = fma32(y, fma32(-a, y, torch.ones_like(a)), y)
+    return torch.where(rcp_group_guard(a)[:, None], y, exact)
+
+
+def root_group_reference(a: torch.Tensor, y0: torch.Tensor | None = None) -> torch.Tensor:
+    """The root_group probe's plain version: for the rows root_group_guard
+    takes, s = RN(a y0), then fma(fma(-s, s, a), y0 / 2, s) from the rsqrt
+    estimate y0 (default RN(1/sqrt(a))); elsewhere RN(sqrt(a)), as
+    __fsqrt_rn gives it."""
+    exact = a.double().sqrt().float()
+    y = (1.0 / a.double().sqrt()).float() if y0 is None else y0
+    s = a * y
+    seq = fma32(fma32(-s, s, a), y * 0.5, s)
+    return torch.where(root_group_guard(a)[:, None], seq, exact)
+
+
+def escape_threshold_reference(esc: torch.Tensor) -> torch.Tensor:
+    """csrc/common.cuh escape_threshold, elementwise: the largest float32 T
+    with RN(sqrt(T)) <= esc, stepped to from RN(esc^2) one float at a time
+    (roots correctly rounded through float64); esc NaN or +inf gives esc,
+    +-0 gives 0, and a negative esc the negative float next to -0."""
+    esc = esc.float()
+    inf = torch.tensor(math.inf)
+
+    def root(t):
+        return t.double().sqrt().float()
+
+    def nudge(t, k):  # k floats up (positive t)
+        return (t.view(torch.int32) + k).view(torch.float32)
+
+    ok = (esc > 0) & (esc != inf)
+    t = torch.where(ok, esc * esc, torch.ones_like(esc))
+    for k, move in ((-1, lambda t: root(t) > esc), (1, lambda t: root(nudge(t, 1)) <= esc)):
+        for _ in range(1 << 10):
+            step = ok & move(t)
+            if not bool(step.any()):
+                break
+            t = torch.where(step, nudge(t, k), t)
+        else:
+            raise RuntimeError("escape_threshold_reference did not settle")
+    tiny = torch.tensor(-(2.0 ** -149), dtype=torch.float32)
+    special = torch.where(esc.isnan() | (esc == inf), esc,
+                          torch.where(esc < 0, tiny, torch.zeros_like(esc)))
+    return torch.where(ok, t, special)
+
+
 def ieee(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *, n_refine: int = 1,
          fixup: bool = False, fma: bool = False) -> torch.Tensor:
     """probe_ieee<op> over the elements of `a` (and `b` for the divides):
@@ -254,6 +348,9 @@ def ieee(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *, n_refine: i
     if op == "shared_div" and (a.dim() != 2 or a.shape[1] != 4 or b.shape != a.shape[:1]):
         raise ValueError(f"probe_ieee<shared_div> takes a (n, 4) and b (n,); got a "
                          f"{tuple(a.shape)}, b {tuple(b.shape)}")
+    if op in GROUP_WIDTH and (a.dim() != 2 or a.shape[1] != GROUP_WIDTH[op]):
+        raise ValueError(f"probe_ieee<{op}> takes a (n, {GROUP_WIDTH[op]}); got "
+                         f"{tuple(a.shape)}")
     if a.device.type == "cpu":
         return ieee_reference(op, a, b, n_refine=n_refine, fixup=fixup, fma=fma)
     _check(a, torch.float32, "a", a.device)
@@ -264,7 +361,8 @@ def ieee(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *, n_refine: i
     lib = build.load_probes()
     out = torch.empty_like(a)
     device, stream = _stream_and_device(a)
-    n = b.numel() if op == "shared_div" else a.numel()  # rows of four numerators
+    # rows of four numerators, or groups
+    n = b.numel() if op == "shared_div" else a.shape[0] if op in GROUP_WIDTH else a.numel()
     rc = lib.bhr_probe_ieee(IEEE_OPS[op], a.data_ptr(), b.data_ptr() if b is not None else None,
                             out.data_ptr(), n, int(n_refine), int(fixup), int(fma), device,
                             stream)
@@ -640,6 +738,7 @@ def probe_ieee(run: Run, small: bool) -> None:
                shared_reciprocal_with_fmaf=bool(shared_fma),
                per_sequence={k: v for k, v in sorted(seq_results.items())})
     probe_shared_div(run, small, a_np, b_np)
+    probe_group_guard(run, small)
 
 
 def _f32(*xs) -> np.ndarray:
@@ -769,6 +868,120 @@ def probe_shared_div(run: Run, small: bool, a_p1: np.ndarray, b_p1: np.ndarray) 
                yes=all(r["vs_fdiv_rn_mismatches"] == 0 and r["vs_host_mismatches"] == 0
                        for r in results.values()),
                quotients=total, per_set=results)
+
+
+def _same_bits(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The same bits, or both NaN."""
+    return (x.view(torch.int32) == y.view(torch.int32)) | (x.isnan() & y.isnan())
+
+
+def _float_chunks(lo: int, hi: int, small: bool, device):
+    """The float32 bit patterns lo..hi-1 as floats, in chunks of 2^26 (every
+    65537th pattern when small)."""
+    step, chunk = (65537, 1 << 14) if small else (1, 1 << 26)
+    for start in range(lo, hi, step * chunk):
+        stop = min(start + step * chunk, hi)
+        bits = torch.arange(start, stop, step, dtype=torch.int64, device=device)
+        yield torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(
+            torch.float32)
+
+
+# the escape radii the threshold is held at: the port's (core/scene.py), a
+# seeded log-uniform draw, and the edges
+ESC_EDGES = (100.0, 0.0, -0.0, -1.0, math.inf, -math.inf, math.nan, 1e-40, 1e-20, 1.0, 2.0,
+             1e19, 3e38, float(np.finfo(np.float32).max))
+
+
+def probe_group_guard(run: Run, small: bool) -> None:
+    """The exact Kerr-Schild loop's roots and reciprocals behind its group
+    guard (csrc/common.cuh rcp_rn_shared, sqrt_rn_seq, rcp_guard,
+    root_guard) over every non-negative float32 -- each operand beside two
+    (reciprocals) or one (roots) others of its chunk, so that groups mix --
+    bit for bit against the kernel's __fdiv_rn(1, x) and __fsqrt_rn and
+    against the correctly rounded result; then escape_threshold against its
+    plain version, and its test rho2 > T against __fsqrt_rn(rho2) > esc
+    over every float32 for each escape radius of ESC_EDGES and 16 seeded
+    ones."""
+    dev = run.device
+    for op, width in GROUP_WIDTH.items():
+        counts = collections.Counter()
+        for x in _float_chunks(0, 1 << 31, small, dev):
+            a = torch.stack([x, x.flip(0), x.roll(1)][:width], 1).contiguous()
+            got = ieee(op, a)
+            if op == "rcp_group":
+                intr = ieee("fdiv_rn", torch.ones_like(a).reshape(-1), a.reshape(-1))
+                host = (1.0 / a.double()).float()
+            else:
+                intr = ieee("fsqrt_rn", a.reshape(-1))
+                host = a.double().sqrt().float()
+            intr = intr.reshape(a.shape)
+            guard = rcp_group_guard(a) if op == "rcp_group" else root_group_guard(a)
+            counts["operands"] += a.numel()
+            counts["vs_intrinsic_mismatches"] += int((~_same_bits(got, intr)).sum().item())
+            counts["vs_host_mismatches"] += int((~_same_bits(got, host)).sum().item())
+            counts["through_sequence"] += int(guard.sum().item()) * width
+            if op == "rcp_group":
+                y0 = ieee("rcp_approx", a.reshape(-1)).reshape(a.shape)
+            else:
+                y0 = ieee("rsqrtf", a.reshape(-1)).reshape(a.shape)
+            plain = ieee_reference(op, a, y0=y0)
+            counts["vs_plain_mismatches"] += int((~_same_bits(got, plain)).sum().item())
+            finite = got.isfinite() & plain.isfinite()
+            if bool(finite.any()):
+                run.kernel(f"probe_ieee<{op}>", max_abs_err=float(
+                    (got - plain)[finite].abs().max().item()))
+            del a, got, intr, host, y0, plain
+        rec = dict(counts)
+        ok = rec["vs_intrinsic_mismatches"] + rec["vs_host_mismatches"] == 0
+        run.check("ieee", f"{op}_every_nonnegative_float", ok, small=small, **rec)
+    # the escape threshold
+    rng = np.random.default_rng(9)
+    esc_np = np.concatenate([_f32(*ESC_EDGES),
+                             np.exp(rng.uniform(np.log(1e-4), np.log(1e8), 16)).astype(np.float32)])
+    esc = torch.from_numpy(esc_np).to(dev)
+    t = ieee("esc_threshold", esc)
+    plain = escape_threshold_reference(esc)
+    floats, mismatches = 0, torch.zeros((), dtype=torch.int64, device=dev)
+    for x in _float_chunks(0, 1 << 32, small, dev):
+        root = ieee("fsqrt_rn", x)
+        floats += x.numel()
+        for j in range(esc.numel()):
+            mismatches += ((x > t[j]) != (root > esc[j])).sum()
+    rec = {"radii": esc_np.size, "floats": floats, "mismatches": int(mismatches.item()),
+           "vs_plain_mismatches": int((~_same_bits(t, plain)).sum().item()),
+           "threshold_at_100": float(t[0].item())}
+    run.check("ieee", "escape_threshold_every_float", rec["mismatches"] == 0
+              and rec["vs_plain_mismatches"] == 0, small=small, **rec)
+    run.kernel("probe_ieee<esc_threshold>", max_abs_err=float(
+        (t - plain)[t.isfinite()].abs().max().item()))
+    # the timings, at ieee_probe.py's size (4,194,304 groups or radii)
+    n = 1 << 12 if small else N_IEEE
+    g = torch.Generator(device="cpu").manual_seed(10)
+    ops = {"rcp_group": (torch.rand(n, 3, generator=g) * 99 + 1,
+                         lambda a: torch.reciprocal(a), 24, 3),
+           "root_group": (torch.rand(n, 2, generator=g) * 1e4 + 1e-3,
+                          lambda a: torch.sqrt(a), 16, 2),
+           "esc_threshold": (torch.rand(n, generator=g) * 199 + 1, None, 8, 3)}
+    for op, (a, library, nbytes, n_ops) in ops.items():
+        a = a.to(dev)
+        bound_ms, by = _bound(nbytes * n, n_ops * n, PEAK_FP32)
+        run.kernel(f"probe_ieee<{op}>", ms=run.ms(lambda: ieee(op, a)),
+                   plain_ms=run.ms(lambda: ieee_reference(op, a)),
+                   library_ms=run.ms(lambda: library(a)) if library else None,
+                   bound_ms=bound_ms, bound_by=by,
+                   config=f"{n} {'radii' if op == 'esc_threshold' else 'groups'} "
+                          f"(torch seed 10)")
+    done = [c for c in run.checks if c["check"].endswith(("_every_nonnegative_float",
+                                                          "_every_float"))]
+    run.answer("ks_group_guard",
+               question="do the exact Kerr-Schild loop's reciprocals and roots by their common "
+                        "paths behind one group guard (csrc/common.cuh) give __fdiv_rn(1, x)'s "
+                        "and __fsqrt_rn's bits on every non-negative float32, and does "
+                        "|q|^2 > escape_threshold(esc) decide escape as __fsqrt_rn(|q|^2) > esc "
+                        "does on every float32?",
+               yes=all(c["ok"] for c in done), small=small,
+               per_check={c["check"]: {k: v for k, v in c.items()
+                                       if k not in ("probe", "check", "small")} for c in done})
 
 
 def probe_gather(run: Run, small: bool, texture: torch.Tensor | None) -> None:

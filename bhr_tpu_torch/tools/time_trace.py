@@ -9,19 +9,23 @@ compiled code (needs nvcc; the SASS needs cuobjdump beside it or on PATH):
   utils/build.py's flags: -Xptxas -v registers, stack and spills of every
   instantiation, and a hash of each instantiation's SASS (equal hashes
   across roots: the same code);
-* the SASS of one step of the geodesic loop: trace_ray.cuh's loop built
-  once more as a small kernel per (tier, integrator, flags) with the
-  launch's flags fixed (FLAGS_OF_CASE; the kernels take them at run time,
-  so theirs add a few flag tests a step), walked from the loop's head to
-  its back edge, past the blocks a step does not run on its common path (a
-  forward branch is taken when the code it skips calls a slow path or
-  leaves the loop): the instructions and the SFU (MUFU) instructions of
-  that step, beside the whole loop's; and the opcodes of one __fdiv_rn.
+* the SASS of one step of the geodesic loop: trace_ray.cuh's loop (the
+  acceleration loop, or the Kerr-Schild one with FLAG_KS) built once more
+  as a small kernel per (tier, integrator, flags) with the launch's flags
+  fixed (FLAGS_OF_CASE; the kernels take them at run time, so theirs add
+  a few flag tests a step), walked from the loop's head to its back edge,
+  past the blocks a step does not run on its common path (a forward
+  branch is taken when the code it skips calls a slow path or leaves the
+  loop): the instructions and the SFU (MUFU) instructions of that step,
+  beside the whole loop's; and the opcodes of one __fdiv_rn, one
+  __fdiv_rn(1, x) and one __fsqrt_rn (ALONE).
 Then one process per ROOT, in the order given, builds ROOT's kernels as
 the package does and times each case of CASES (the main path's
 render_mono in both tiers, BASELINE config 4's trace_planes rk4 exact and
-render_mono fast, the other exact instantiations, config 5's exact
-Kerr-Schild trace and the paczynski_wiita.py plugin): the median of
+render_mono fast, the other exact instantiations, config 5's Kerr-Schild
+trace_planes exact and render_mono fast at 3840x2160x2000, the exact
+Kerr-Schild rk4 and leapfrog traces and Euler frame at 1920x1080x500, and
+the paczynski_wiita.py plugin): the median of
 REPEATS runs of 3 launches by CUDA events, a hash of the output (equal
 across roots: bit-equal frames or planes), the ray-steps and warp-steps of
 the trace's step counts, and nvidia-smi's SM clock and power draw read
@@ -55,7 +59,7 @@ SCHEDULERS = 4  # warp schedulers an SM (Hopper)
 BLOCK = (16, 16)  # the kernels' blocks: a warp is 2 rows x 16 columns
 SIDE = ([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
 PLUGIN = "examples/plugins/paczynski_wiita.py"
-FLAG_ADAPTIVE, FLAG_DISK, FLAG_LT = 2, 4, 8  # trace_ray.cuh TraceFlags
+FLAG_ADAPTIVE, FLAG_DISK, FLAG_LT, FLAG_KS = 2, 4, 8, 16  # trace_ray.cuh TraceFlags
 # (case, kernel, fast, integrator, model, camera, config keywords); the
 # configurations of chip_smoke.py's timings (config 4: rk4, adaptive dt,
 # disk, side camera; an exact render_mono takes no disk)
@@ -74,10 +78,16 @@ CASES = (
     ("kerr_lt_exact", "trace_planes", False, "euler", "kerr_lt", "side", {}),
     ("config5_exact", "trace_planes", False, "euler", "kerr", "side", dict(disk=True)),
     ("custom_exact", "trace_planes", False, "euler", "custom", "default", {}),
+    ("config5_fast", "render_mono", True, "euler", "kerr", "side", dict(disk=True)),
+    ("ks_rk4_exact", "trace_planes", False, "rk4", "kerr", "side", dict(disk=True)),
+    ("ks_leapfrog_exact", "trace_planes", False, "leapfrog", "kerr", "side", dict(disk=True)),
+    ("ks_mono_euler_exact", "render_mono", False, "euler", "kerr", "side", {}),
 )
+BIG = ("config5_exact", "config5_fast")  # 3840x2160x2000; the others 1920x1080x500
 INTEGRATORS = ("euler", "rk4", "leapfrog")
 # The loop step each case runs, as (fast, integrator, flags) of the walked
-# kernel; Kerr-Schild and plugin cases have none.
+# kernel (FLAG_KS: the Kerr-Schild loop, trace_ray_ks); the plugin case has
+# none.
 FLAGS_OF_CASE = {
     "main_exact": (False, "euler", 0), "main_fast": (True, "euler", 0),
     "config4_exact": (False, "rk4", FLAG_ADAPTIVE | FLAG_DISK),
@@ -87,21 +97,29 @@ FLAGS_OF_CASE = {
     "mono_rk4_exact": (False, "rk4", FLAG_ADAPTIVE),
     "mono_leapfrog_exact": (False, "leapfrog", FLAG_ADAPTIVE),
     "kerr_lt_exact": (False, "euler", FLAG_LT),
+    "config5_exact": (False, "euler", FLAG_DISK | FLAG_KS),
+    "config5_fast": (True, "euler", FLAG_DISK | FLAG_KS),
+    "ks_rk4_exact": (False, "rk4", FLAG_DISK | FLAG_KS),
+    "ks_leapfrog_exact": (False, "leapfrog", FLAG_DISK | FLAG_KS),
+    "ks_mono_euler_exact": (False, "euler", FLAG_KS),
 }
+# Intrinsics whose SASS is listed alone: the exact tier's divide, a
+# reciprocal written as a divide, and the root.
+ALONE = {"fdiv_rn": "__fdiv_rn(a[threadIdx.x], b[threadIdx.x])",
+         "rcp_rn": "__fdiv_rn(1.0f, b[threadIdx.x])",
+         "fsqrt_rn": "__fsqrt_rn(b[threadIdx.x])"}
 
 WALK_SOURCE = """#include "trace_ray.cuh"
 namespace bhr {
 template <bool FAST, int INTEG, int FLAGS>
 __global__ void step_walk(const Params p, const int max_steps, float* __restrict__ out) {
-  const Ray ray = trace_ray_accel<FAST, INTEG>(p, FLAGS, blockIdx.y, threadIdx.x, max_steps);
+  const Ray ray = trace_ray<FAST, INTEG, (FLAGS & kFlagKS) != 0>(p, FLAGS, blockIdx.y, threadIdx.x,
+                                                                   max_steps);
   const int i = 4 * (blockIdx.y * blockDim.x + threadIdx.x);
   out[i] = ray.rel.x + ray.vel.x;
   out[i + 1] = ray.rel.y + ray.vel.y;
   out[i + 2] = ray.rel.z + ray.vel.z;
   out[i + 3] = static_cast<float>(ray.status * 65536 + ray.steps);
-}
-__global__ void fdiv_rn_alone(float* a, const float* b) {
-  a[threadIdx.x] = __fdiv_rn(a[threadIdx.x], b[threadIdx.x]);
 }
 %s
 }  // namespace bhr
@@ -131,9 +149,11 @@ def _walk_name(fast: bool, integ: str, flags: int) -> str:
 
 
 def _instantiations() -> str:
-    return "\n".join(f"template __global__ void step_walk<{str(f).lower()}, "
-                     f"{INTEGRATORS.index(i)}, {fl}>(const Params, const int, float* __restrict__);"
-                     for f, i, fl in _walk_kernels())
+    alone = [f"__global__ void {k}_alone(float* a, const float* b) {{ a[threadIdx.x] = {e}; }}"
+             for k, e in ALONE.items()]
+    return "\n".join(alone + [
+        f"template __global__ void step_walk<{str(f).lower()}, {INTEGRATORS.index(i)}, {fl}>"
+        f"(const Params, const int, float* __restrict__);" for f, i, fl in _walk_kernels()])
 
 
 def parse_sass(text: str) -> dict:
@@ -275,10 +295,11 @@ def static(root: str, nvcc: str, cuobjdump: str | None, flags: list,
     for fast, integ, fl in _walk_kernels():
         name = next(n for n in walk if _walk_name(fast, integ, fl) in n)
         steps[f"{'fast' if fast else 'exact'},{integ},flags={fl}"] = walk_step(walk[name])
-    fdiv = next(ins for n, ins in walk.items() if "fdiv_rn_alone" in n)
-    fdiv = fdiv[:next(k for k, x in enumerate(fdiv) if x[2] == "EXIT") + 1]
-    out.update(sass_hash=hashes, sass_totals=totals, steps=steps,
-               fdiv_rn_opcodes=[f"{p + ' ' if p else ''}{op}" for _a, p, op, _t in fdiv])
+    out.update(sass_hash=hashes, sass_totals=totals, steps=steps)
+    for k in ALONE:
+        ins = next(ins for n, ins in walk.items() if f"{k}_alone" in n)
+        ins = ins[:next(j for j, x in enumerate(ins) if x[2] == "EXIT") + 1]
+        out[f"{k}_opcodes"] = [f"{p + ' ' if p else ''}{op}" for _a, p, op, _t in ins]
     shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -315,7 +336,7 @@ def measure(root: str) -> dict:
     cells = []
     for case, kernel, fast, integ, model, cam_name, kw in CASES:
         cam = cams[cam_name]
-        w, h, s = (W5, H5, STEPS5) if model == "kerr" else (W, H, STEPS)
+        w, h, s = (W5, H5, STEPS5) if case in BIG else (W, H, STEPS)
         scene = bt.SceneParams(screen_width=w, screen_height=h, max_steps=s, spin=0.9)
         accel_ops = 0
         if model == "custom":

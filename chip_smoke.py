@@ -93,7 +93,11 @@ renderer's paths:
     and rsqrt sequences bit-equal to their plain versions; the exact
     tier's quotients by a shared denominator, csrc/common.cuh div_shared,
     bit-equal to __fdiv_rn, sign of zero included, on those inputs, every
-    denominator mantissa of [1, 2), the loop's ranges and an edge set),
+    denominator mantissa of [1, 2), the loop's ranges and an edge set; the
+    exact Kerr-Schild loop's reciprocals and roots behind its group guard
+    bit-equal to __fdiv_rn(1, x) and __fsqrt_rn on every non-negative
+    float32, and its escape threshold deciding as the root does on every
+    float32),
     probe_gather from __constant__, shared and device memory and by warp
     shuffles (exact on the probes' shapes and on 1920x1080 lookups, and ns a
     lookup), probe_dot at the bf16, bf16x3 and fp32 tiers against a

@@ -11,27 +11,33 @@
 // the disk's emission, and the quantized, packed RGBA word -- the only
 // memory the kernel writes is that one 4-byte store per pixel.
 //
-// What bounds it: instruction issue. One ray-step of the main path (Euler,
-// no flags) compiles to 52 SASS instructions in the fast tier, 3 of them
-// SFU operations (2 rsqrt, 1 rcp), and to 138 in the exact tier, 5 of them
-// SFU (2 sqrt, the 2 reciprocals that the quotients by r and by |v| share,
-// the divide of `factor`), because each correctly rounded divide and sqrt
-// is a short Newton sequence; before those quotients shared a reciprocal
-// (common.cuh div_shared) the exact step was 160 instructions, 10 of them
-// SFU (bhr_tpu_torch/tools/time_trace.py: the loop with its flags fixed,
-// walked in cuobjdump -sass past its slow-path calls). rk4 evaluates the
-// acceleration four times a step and leapfrog three. Nothing is read from
-// memory but the disk's 1.5 KB blackbody table, in constant memory; the
-// one 4-byte store per pixel is all the traffic. Measured on an NVIDIA
-// H100 80GB HBM3 (700 W power limit, SM clock 1980 MHz under load) at
-// 1920x1080x500 from the default camera, Euler: 9.6e8 ray-steps, 3.01e7
-// warp-steps, in 2.33 ms (fast) and 5.28 ms (exact; 6.25 before), 64% and
-// 75% of the card's issue rate of one warp instruction per scheduler per
-// clock (issue floors 1.50 and 3.97 ms). Warp divergence costs little
-// there: 99.7% of the lane-steps of the 16x16 blocks do work. The design
-// keeps the ray's state in registers and the parameters in kernel
-// arguments (constant bank, no loads). Tuning occupancy, block shape and
-// ray order is later work.
+// What bounds it: instruction issue. The loop a launch really runs
+// (bhr_tpu_torch/tools/sass_walk.py walk_step: cuobjdump -sass of the
+// kernel as built, walked from its entry along the launch's flags) issued
+// 68 SASS instructions a step on the main path (Euler, no flags) in the
+// fast tier, 3 of them SFU operations (2 rsqrt, 1 rcp), and 157 in the
+// exact tier, 5 of them SFU: besides the step's arithmetic, a step reloaded
+// the runtime flags, tested flat, kerr_lt and the disk, and moved values
+// between the registers of the branches (nvcc unswitched the loop on
+// adaptive dt alone). So the main path's frame has an instantiation of its
+// own with the flags fixed at 0 (FLAGS; `launch` takes it for an Euler
+// launch with no flag set): the tests fold away and the step is the
+// arithmetic, the termination test, the counter and the back edge. The fast tier's rsqrt is the SFU's without rsqrtf's subnormal
+// fix-up (trace_ray.cuh), and both termination tests share one branch.
+// The fast step is now 42 SASS / 3 MUFU, the exact one 135 / 5, with every
+// output bit-equal to before. Measured on an NVIDIA H100 80GB HBM3
+// (700.00 W power limit, SM clock 1980 MHz under load) at 1920x1080x500
+// from the default camera: 9.6e8 ray-steps, 3.01e7 warp-steps, in 1.45-1.56
+// ms (fast; 2.29-2.37 before, in the same calls) and 4.60-4.67 ms (exact;
+// 5.26-5.39), 78-84% and 83-84% of the card's issue rate of one warp
+// instruction per scheduler per clock (issue floors 1.209 and 3.887 ms).
+// Warp divergence costs little: 99.7% of the lane-steps of the 16x16
+// blocks do work. More resident warps do not help: with the dynamic shared
+// memory a launch asks for cut to 1 .. 8 blocks an SM, the frame takes 2.6,
+// 1.7, 1.5 ms and then stays flat within 3% from 4 blocks on; the last
+// partial wave costs nothing measurable. The design keeps the ray's state
+// in registers and the parameters in kernel arguments (constant bank, no
+// loads).
 //
 // The TPU kernel's Mosaic workarounds are gone: a per-thread `break`
 // replaces the dt-freeze termination, the disk's y-sentinel teleport, the
@@ -44,7 +50,8 @@
 // The disk is shaded in the fast tier only: an exact-tier disk frame goes
 // through trace_planes.cu and the plain PyTorch epilogue, as in bhr_tpu.
 // The Kerr-Schild loop is a template parameter (KS), so there are 2 tiers
-// x 3 integrators x 2 loops = 12 instantiations; a Kerr-Schild disk ray is
+// x 3 integrators x 2 loops = 12 instantiations, and the 2 tiers' Euler
+// instantiations with the flags fixed at 0; a Kerr-Schild disk ray is
 // shaded with the direction evaluated at its hit point, y = 0.
 //
 // Kerr-Schild costs more a step: derivs (trace_ray.cuh ks_radii, ks_geom,
@@ -124,7 +131,7 @@ __device__ __forceinline__ void shade_disk(const Params& p, Vec3 rel, Vec3 vel, 
   out_b = lerp(2);
 }
 
-template <bool FAST, int INTEG, bool KS>
+template <bool FAST, int INTEG, bool KS, int FLAGS = kFlagsAtLaunch>
 __global__ void __launch_bounds__(256)
     render_mono_kernel(const Params p, const uint32_t seed_term, const int flags,
                        const int height, const int width, const int max_steps,
@@ -133,7 +140,7 @@ __global__ void __launch_bounds__(256)
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
 
-  const Ray ray = trace_ray<FAST, INTEG, KS>(p, flags, row, col, max_steps);
+  const Ray ray = trace_ray<FAST, INTEG, KS>(p, trace_flags<FLAGS>(flags), row, col, max_steps);
 
   // ---- shade, quantize, pack (pallas_trace.py:1294-1333)
   const bool captured = ray.status == kCaptured;
@@ -163,9 +170,14 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
             uint32_t* frame) {
   switch (integrator) {
     case kEuler:
-      render_mono_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(params, seed_term, flags,
-                                                                   height, width, max_steps,
-                                                                   frame);
+      if (flags == 0) {  // the main path: its own instantiation, no flag tested a step
+        render_mono_kernel<FAST, kEuler, false, 0><<<grid, block, 0, s>>>(
+            params, seed_term, flags, height, width, max_steps, frame);
+      } else {
+        render_mono_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(params, seed_term, flags,
+                                                                     height, width, max_steps,
+                                                                     frame);
+      }
       break;
     case kRk4:
       render_mono_kernel<FAST, kRk4, KS><<<grid, block, 0, s>>>(params, seed_term, flags, height,
@@ -187,7 +199,8 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
 // the launch (0 on success). Does not synchronise. `integrator` is an
 // Integrator and `flags` a TraceFlags mask of trace_ray.cuh (at most one
 // of flat, kerr_lt and Kerr-Schild); the disk flag needs `fast` and a
-// table set by bhr_set_disk_lut.
+// table set by bhr_set_disk_lut. An Euler launch with no flag set runs
+// the instantiation whose flags are fixed at 0 at compile time.
 extern "C" int bhr_render_mono(bhr::Params params, uint32_t seed_term, int fast, int integrator,
                                int flags, int height, int width, int max_steps, int device,
                                void* out, void* stream) {

@@ -7,7 +7,9 @@
 // leapfrog integrators, fixed or adaptive dt, the Schwarzschild, exact
 // Kerr (Kerr-Schild, K6), Lense-Thirring Kerr (K7) or flat metric, with or
 // without the accretion disk, in both math tiers (the Kerr-Schild loop a
-// template parameter: 12 instantiations). One
+// template parameter: 12 instantiations, and 2 more of Euler with the
+// flags fixed at 0, which a frame with no flag set launches, as
+// render_mono.cu describes). One
 // thread traces one pixel (trace_ray.cuh) and writes its TraceResult:
 // final position and unit direction as fp32 (H, W, 3), status and step
 // count as int32 (H, W). On a TPU tile the step count cost a scratch plane
@@ -52,7 +54,7 @@
 namespace bhr {
 namespace {
 
-template <bool FAST, int INTEG, bool KS>
+template <bool FAST, int INTEG, bool KS, int FLAGS = kFlagsAtLaunch>
 __global__ void __launch_bounds__(256)
     trace_planes_kernel(const Params p, const int flags, const int height, const int width,
                         const int max_steps, const float* __restrict__ mask,
@@ -78,7 +80,7 @@ __global__ void __launch_bounds__(256)
     return;
   }
 
-  const Ray ray = trace_ray<FAST, INTEG, KS>(p, flags, row, col, max_steps);
+  const Ray ray = trace_ray<FAST, INTEG, KS>(p, trace_flags<FLAGS>(flags), row, col, max_steps);
 
   pos[3 * i + 0] = A::add(ray.rel.x, p.v[P_BH + 0]);
   pos[3 * i + 1] = A::add(ray.rel.y, p.v[P_BH + 1]);
@@ -96,8 +98,13 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
             float* vel, int32_t* status, int32_t* steps) {
   switch (integrator) {
     case kEuler:
-      trace_planes_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(
-          params, flags, height, width, max_steps, mask, pos, vel, status, steps);
+      if (flags == 0) {  // the main path: its own instantiation, no flag tested a step
+        trace_planes_kernel<FAST, kEuler, false, 0><<<grid, block, 0, s>>>(
+            params, flags, height, width, max_steps, mask, pos, vel, status, steps);
+      } else {
+        trace_planes_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(
+            params, flags, height, width, max_steps, mask, pos, vel, status, steps);
+      }
       break;
     case kRk4:
       trace_planes_kernel<FAST, kRk4, KS><<<grid, block, 0, s>>>(
@@ -121,7 +128,8 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
 // are not integrated. Returns cudaGetLastError() after the launch (0 on
 // success); does not synchronise. `integrator` is an Integrator and `flags`
 // a TraceFlags mask of trace_ray.cuh (at most one of flat, kerr_lt and
-// Kerr-Schild).
+// Kerr-Schild). An Euler launch with no flag set runs the instantiation
+// whose flags are fixed at 0 at compile time.
 extern "C" int bhr_trace_planes(bhr::Params params, int fast, int integrator, int flags,
                                 int height, int width, int max_steps, int device,
                                 const void* mask, void* pos, void* vel, void* status,

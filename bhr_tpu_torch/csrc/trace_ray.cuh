@@ -19,9 +19,15 @@
 //  * fast (FAST = true): the folded forms of pallas_trace.py
 //    (physics_substep :793-834, sl_deriv :469-497, sl_rk4 :499-530,
 //    sl_leapfrog :532-546) with rsqrt and an approximate reciprocal,
-//    termination and the disk annulus in r^2 space.
+//    termination and the disk annulus in r^2 space. Its rsqrt is the SFU's
+//    (rsqrt_approx) without rsqrtf's subnormal handling: the two differ only
+//    on a subnormal operand, and every operand here is a squared radius past
+//    the capture test or a squared direction near 1.
 // The integrator is a template parameter; the flat model, adaptive dt and
-// the disk are uniform runtime flags.
+// the disk are uniform runtime flags, which a kernel may fix at compile
+// time (its FLAGS template argument; the main path's Euler frame runs with
+// none set): the flag tests then fold away, and the loop a step runs is the
+// same code with fewer instructions.
 //
 // Two Kerr models (ROADMAP item 9; replacing the K6 and K7 parts of the TPU
 // kernels):
@@ -64,6 +70,16 @@ enum TraceFlags : int {
   kFlagKS = 16,
 };
 
+// A kernel's FLAGS template argument when the launch's `flags` decide.
+constexpr int kFlagsAtLaunch = -1;
+
+// The flags a kernel instantiated with FLAGS traces with: FLAGS itself, a
+// compile-time constant, unless it is kFlagsAtLaunch.
+template <int FLAGS>
+__device__ __forceinline__ int trace_flags(int flags) {
+  return FLAGS == kFlagsAtLaunch ? flags : FLAGS;
+}
+
 // The acceleration models' constants of a launch.
 struct Phys {
   float rs;
@@ -98,7 +114,7 @@ template <bool FAST>
 __device__ __forceinline__ Vec3 vnorm(Vec3 v) {
   using A = Arith<FAST>;
   if constexpr (FAST) {
-    const float s = rsqrtf(dot<true>(v, v));
+    const float s = rsqrt_approx(dot<true>(v, v));
     return {v.x * s, v.y * s, v.z * s};
   } else {
     // three quotients by one |v|: one reciprocal (common.cuh div_shared)
@@ -246,7 +262,7 @@ __device__ __forceinline__ Vec3 lt_field(Vec3 p, float inv_r, const Phys& ph) {
 __device__ __forceinline__ Vec3 sl_deriv(Vec3 p, Vec3 v, const Phys& ph) {
   const float rs = ph.rs;
   const float rr2 = dot<true>(p, p);
-  const float inv_rr = rsqrtf(rr2);
+  const float inv_rr = rsqrt_approx(rr2);
   const float rs_inv = rs * inv_rr;
   const float one_m = fmaxf(1.0f - rs_inv, static_cast<float>(0.02));
   const float factor = rs * rcp_approx(2.0f * rr2 * one_m);
@@ -273,7 +289,7 @@ __device__ __forceinline__ void step_fast(Vec3 rel, Vec3 vel, float r2, const Ph
     // of the pre-step velocity, scaled by dt.
     Vec3 nv = vel;
     if (!ph.flat) {
-      const float inv_r = rsqrtf(r2);
+      const float inv_r = rsqrt_approx(r2);
       const float c = dot<true>(vel, rel);
       const float rs_inv_r = rs * inv_r;
       float one_m = 1.0f - rs_inv_r;
@@ -388,7 +404,9 @@ __device__ __forceinline__ void generate_ray(const Params& p, int row, int col, 
 // The oracle's loop (ops/trace.py:trace_rays) for one ray: test, then
 // step, until the ray escapes, is captured, hits the disk or runs out of
 // steps. `flags` is a TraceFlags mask. FOLDED is the fast tier's loop;
-// plugin physics has none (see the top of this file).
+// plugin physics has none (see the top of this file). Both termination
+// tests share one branch a step; which of the two ended the ray is decided
+// once, on the way out (a NaN radius passes both, as in the oracle).
 template <bool FAST, int INTEG>
 __device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int row, int col,
                                                int max_steps) {
@@ -405,26 +423,24 @@ __device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int r
   const float base_dt = p.v[P_DT];
   const float esc = p.v[P_ESC];
   const float cap = p.v[P_CAP];
-  const float esc2 = A::mul(esc, esc);
-  const float cap2 = A::mul(cap, cap);
+  // the bounds of the tested radius: r^2 (fast) or r (exact)
+  const float esc_t = FOLDED ? A::mul(esc, esc) : esc;
+  const float cap_t = FOLDED ? A::mul(cap, cap) : cap;
   const float r_isco = p.v[P_RISCO];
   const float r_outer = p.v[P_ROUTER];
   for (int i = 0; i < max_steps; ++i) {
     ray.steps = i + 1;
     const float r2 = dot<FOLDED>(ray.rel, ray.rel);
-    float r = 0.0f;  // the exact tier's sqrt'd radius
-    if constexpr (FOLDED) {
-      if (r2 > esc2) { ray.status = kEscaped; break; }
-      if (r2 < cap2) { ray.status = kCaptured; break; }
-    } else {
-      r = A::sqrt(r2);
-      if (r > esc) { ray.status = kEscaped; break; }
-      if (r < cap) { ray.status = kCaptured; break; }
+    const float r = FOLDED ? 0.0f : A::sqrt(r2);  // the exact tier's sqrt'd radius
+    const float rt = FOLDED ? r2 : r;
+    if ((rt > esc_t) | (rt < cap_t)) {
+      ray.status = rt > esc_t ? kEscaped : kCaptured;
+      break;
     }
     float dt = base_dt;
     if (adaptive) {
       // geodesic.py:adaptive_dt; the fast tier's radius is r2 * rsqrt(r2)
-      const float rc = FOLDED ? r2 * rsqrtf(r2) : r;
+      const float rc = FOLDED ? r2 * rsqrt_approx(r2) : r;
       dt = A::mul(base_dt, fminf(fmaxf(A::mul(A::sub(rc, rs), static_cast<float>(0.1)),
                                        static_cast<float>(0.01)), 1.0f));
     }
@@ -747,7 +763,7 @@ __device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row,
     float rc;
     if constexpr (FAST) {
       if (g.r2 < cap2) { ray.status = kCaptured; break; }
-      rc = g.r2 * rsqrtf(g.r2);
+      rc = g.r2 * rsqrt_approx(g.r2);
     } else {
       rc = g.r;
       if (rc < cap) { ray.status = kCaptured; break; }

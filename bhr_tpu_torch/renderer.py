@@ -595,6 +595,13 @@ class BlackHoleRenderer:
     def device(self) -> torch.device:
         return self.context.device
 
+    @property
+    def queue(self) -> torch.device:
+        """Reference-API parity accessor (lib.rs:605-607): PyTorch has no
+        queue object apart from the device's streams, so it returns the
+        context's device, as bhr_tpu's does."""
+        return self.context.device
+
 
 def block_on(value):
     """Run an awaitable to completion, or pass a plain value through

@@ -13,7 +13,11 @@ variant against its plain PyTorch version on the card, and drives the
 renderer's paths:
   * the main path at 1920x1080x500, Euler on the Schwarzschild metric
     through BlackHoleRenderer.render_frame and OrbitAnimator.render_frames,
-    both math tiers (one render_mono launch per frame); then its front
+    both math tiers (one render_mono launch per frame, each of the
+    instantiation with its flags fixed at 0), with the loop step that
+    instantiation runs as built (tools/sass_walk.py's route walk of the
+    built library's SASS), its issue floor and the kernel's share of the
+    issue rate at the SM clock read under load; then its front
     end: frames issued back to back with a TimestampQuery each (no host
     sync; the queries' median within 10% of the kernel's time by CUDA
     events), 4 PathAnimator frames along the orbit (bit-equal to
@@ -374,28 +378,6 @@ def bar(fast: bool) -> str:
     return f"{frame}; status_agree, captured_black >= {STATUS_MIN}"
 
 
-def ptxas_summary(log: str) -> str:
-    """'<kernel>: <registers and spills>' per instantiation, from nvcc
-    -Xptxas -v (template arguments: tier ILb1 fast / ILb0 exact, the
-    integrator Li0 euler / Li1 rk4 / Li2 leapfrog, then Lb1 for the
-    Kerr-Schild loop)."""
-    out, tag = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"ILb([01])ELi([0-2])ELb([01])E", line)
-            n = re.search(r"neural_render_kernelILb([01])ELb([01])E", line)
-            tag = (f"{'fast' if m[1] == '1' else 'exact'},"
-                   f"{('euler', 'rk4', 'leapfrog')[int(m[2])]}{',ks' if m[3] == '1' else ''}"
-                   if m else f"{'kerr' if n[1] == '1' else 'schwarzschild'},"
-                   f"{'highest' if n[2] == '1' else 'default'}" if n else line.split()[-3])
-        elif tag and "Used" in line:
-            out.append(f"{tag}: {line.split('Used')[1].split(',')[0].strip()}")
-        elif tag and "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 "
-                                                                        "bytes spill stores"):
-            out.append(f"{tag}: {line.strip()}")
-    return " | ".join(out) or "already built"
-
-
 def fp32_timing(name: str, ms: float, bound_ms: float, chain_ms: float, smi: str) -> str:
     """One highest-tier variant's time against its fp32 bound and the
     cuBLAS MLP chain of the same call."""
@@ -669,6 +651,7 @@ def main() -> None:
     from bhr_tpu_torch.parallel import mesh as pm
     from bhr_tpu_torch.renderer import shade_image
     from bhr_tpu_torch.tools import hopper_probe as hp
+    from bhr_tpu_torch.tools import sass_walk
     from bhr_tpu_torch.utils import build, plugin
     from bhr_tpu_torch.utils.timing import device_time_ms
 
@@ -687,12 +670,14 @@ def main() -> None:
         for name, job in jobs.items():
             info = job.result()
             phase("build", f"{info.path.name} in {info.seconds:.1f} s; ptxas: "
-                  f"{ptxas_summary(info.log)}")
+                  f"{sass_walk.ptxas_summary(info.log)}")
     build.load_render_mono()
     build.load_trace_planes()
     build.load_neural_mlp()
     build.load_trace_planes_custom(plugin_source)
     build.load_probes()
+    cuobjdump = sass_walk.cuobjdump_path(build.nvcc_path())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     var = Variants()
     side = bt.Camera.new(*SIDE)
@@ -906,6 +891,25 @@ def main() -> None:
               f"plain {plain_ms:.3f} ms/frame, {ray_steps} ray-steps/frame, launches={launches}, "
               f"frames agree with the plain version ({bar(fast)}; max_abs_err {max(errs)}) "
               f"on {smi}")
+        # the loop step the launch really runs, from the built library's SASS
+        # (tools/sass_walk.py route_step, flags 0), and its share of the issue rate
+        if cuobjdump is None:
+            phase("issue", "not measured: no cuobjdump on PATH or beside nvcc to read the "
+                  "built library's SASS")
+            continue
+        listing = sass_walk.sass_of(build.build("render_mono").path, cuobjdump)
+        route = sass_walk.route_step(sass_walk.parse_sass(listing), "render_mono", fast, "euler", 0)
+        ws = sum(sass_walk.warp_steps(torch, r.steps) for r in plain_res) // N_FRAMES
+        clock = sass_walk.sm_clock_under_load(
+            lambda: tk.render_packed(cams[0], full_scene, fast_math=fast, device="cuda",
+                                     out=scratch), ms)
+        floor = sass_walk.issue_floor_ms(route["step_instructions"], ws, sms,
+                                         float(clock.split(",")[0]))
+        phase("issue", f"{route['function']} on the main path: {route['step_instructions']} SASS "
+              f"/ {route['step_mufu']} MUFU a loop step as built (walked along flags 0), {ws} "
+              f"warp-steps/frame, SM clock {clock.split(',')[0].strip()} MHz under load: issue "
+              f"floor {floor:.3f} ms against the kernel's {ms:.3f} ms, {floor / ms:.1%} of the "
+              f"issue rate, on {smi}")
 
     # 5b. the front end on the main path, fast tier. (a) render_frame with a
     # TimestampQuery: frames issued back to back, so that each query's

@@ -67,6 +67,16 @@ def test_the_seven_names_import_from_the_package():
     assert [v.position for v in T.QUAD_VERTICES] == [v.position for v in J.QUAD_VERTICES]
 
 
+def test_queue_is_the_contexts_device_as_in_bhr_tpu():
+    # tests/test_renderer.py:119 holds bhr_tpu's accessor the same way
+    ctx = T.CudaContext.new("cpu")
+    r = T.BlackHoleRenderer(8, 8, context=ctx)
+    assert r.device is ctx.device
+    assert r.queue is ctx.device
+    jr = J.BlackHoleRenderer(8, 8)
+    assert jr.queue is jr.context.device
+
+
 def test_block_on_runs_awaitables_and_passes_values():
     async def answer():
         return 42

@@ -9,6 +9,8 @@ import os
 import pytest
 import torch
 
+from bhr_tpu_torch.tools import sass_walk
+
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py"))
 chip_smoke = importlib.util.module_from_spec(_spec)
@@ -134,10 +136,10 @@ def test_ptxas_summary_names_every_instantiation():
         "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
         "ptxas info    : Used 255 registers, used 0 barriers",
     ])
-    assert chip_smoke.ptxas_summary(log) == (
+    assert sass_walk.ptxas_summary(log) == (
         "fast,leapfrog,ks: 48 registers | exact,rk4: 8 bytes stack frame, 4 bytes spill "
         "stores, 4 bytes spill loads | exact,rk4: 255 registers")
-    assert chip_smoke.ptxas_summary("") == "already built"
+    assert sass_walk.ptxas_summary("") == "already built"
 
 
 def _planes(seed=0, shape=(24, 32)):

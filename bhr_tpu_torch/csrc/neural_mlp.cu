@@ -31,17 +31,18 @@
 // so a band is bit for bit the same rows of the whole frame. A runtime
 // argument again, not an instantiation; the outputs are indexed locally.
 //
-// Tiers (template parameter HI), the arithmetic of models/neural.py:
-//  * default (HI = false): bf16 operands, fp32 accumulation, by
+// Tiers, the arithmetic of models/neural.py:
+//  * default: bf16 operands, fp32 accumulation, by
 //    mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on the tensor
 //    cores, pixels as M, output channels as N, input channels as K (the
-//    Kerr net's 22 features padded with zeros to K = 32, which is exact).
-//    Activations are pixel-major and the weights W^T (out, in), so both
-//    fragments come by ldmatrix; each warp computes 16 pixels x 64
-//    channels at a time; the bias and tanhf are fp32 and the result is
-//    rounded to bf16 for the next layer.
-//  * highest (HI = true): fp32 operands and fmaf on the CUDA cores, over k
-//    in order for every output, then the bias, then tanhf; no TF32.
+//    Kerr net's 22 features padded with zeros to K = 32, which is exact);
+//    each output tile's k-steps are summed in order from 0 into one
+//    accumulator; the bias and tanhf are fp32 and the result is rounded to
+//    bf16 for the next layer; the head is an fmaf chain over k in order.
+//    Two layouts (below) compute the same bits.
+//  * highest (neural_render_kernel<KERR, true>): fp32 operands and fmaf
+//    on the CUDA cores, over k in order for every output, then the bias,
+//    then tanhf; no TF32.
 // The per-pixel arithmetic around the MLP is written with correctly
 // rounded, uncontracted operations (Arith<false>) and the full-precision
 // tanhf, logf, log1pf, expf, sinf and cosf, in the order of the plain
@@ -49,18 +50,43 @@
 // and plain version differ only where the matrix sums are taken in another
 // order. No --use_fast_math.
 //
-// Layout, default tier. A block of `pix` pixels and 256 threads holds two
-// activation buffers and one or two chunks of a layer's weights in shared
-// memory. A layer streams its weights through the chunks, n_chunk output
-// channels at a time, from device memory (L2-resident: the largest net's
-// weights are 0.27 MB in bf16) by cp.async, so a copy needs no register
-// round trip; with two chunk buffers the next chunk's copy overlaps this
-// chunk's products, and the first chunk's copy overlaps the features. The
-// head (2 or 3 outputs) is a per-pixel fmaf loop. The host picks pix,
-// n_chunk and the buffers so that the block fits
-// (ops/neural_kernel.kernel_plan: any hidden width that is a multiple of
-// 128, up to 1152). Still simple: mma.sync rather than wgmma, no TMA, no
-// persistent blocks, every block streams every layer's weights again.
+// Layout, default tier, fused (neural_fused_kernel<KERR, KMAX>; the plan of
+// every net whose widths are at most 256). What holds it on this card, at
+// 1920x1080 (tools/time_neural.py --floor, PERF.md): instruction issue --
+// each hidden output's tanhf is 16 SASS and 2 SFU operations, beside which
+// its 2.5 of products and loads are small -- then the tensor cores, then
+// the per-pixel phases. So:
+//  * a warp owns 32 pixels (two m16 tiles) from the features to the store,
+//    one pixel a lane in the per-pixel phases, and keeps a layer's input in
+//    registers as A fragments (KMAX / 16 k-steps x 2 tiles x 4 registers);
+//    its outputs go through its own staging rows in shared memory, read
+//    back by ldmatrix as the next layer's fragments. No block barrier
+//    between layers or for the per-pixel phases.
+//  * the products of 16 output channels are woven with the tanh epilogue
+//    of the 16 before them (step16), so that one warp's instruction stream
+//    feeds the tensor cores and the ALU / SFU together.
+//  * persistent blocks, one an SM (registers: 162 a thread at KMAX 128,
+//    235-237 at 256), taking rounds of 32 pixels a warp in turn. Weights up to
+//    the block's room (N1's 74 KB) are copied once a block and held; wider
+//    nets stream them in chunks of 64 rows through two buffers, each
+//    chunk one bulk copy (weights kept in device memory with rows of in +
+//    8, the shared layout) completing on an mbarrier, issued by the last
+//    warp done with the buffer: a warp waits only for its next chunk.
+//  * the per-pixel geometry is computed once, with the features, and kept
+//    in shared memory for the end.
+// Still simple: mma.sync rather than wgmma (the tensor cores are not what
+// holds it), no warp specialisation.
+//
+// Layout, default tier, chunked (neural_render_kernel<KERR, false>; nets
+// wider than 256, up to 1152). A block of `pix` pixels and 256 threads
+// holds two activation buffers and one or two chunks of a layer's weights
+// in shared memory. A layer streams its weights through the chunks,
+// n_chunk output channels at a time, from device memory by cp.async; with
+// two chunk buffers the next chunk's copy overlaps this chunk's products,
+// and the first chunk's copy overlaps the features. Each warp computes 16
+// pixels x 64 channels at a time. The head (2 or 3 outputs) is a per-pixel
+// fmaf loop. The host picks pix, n_chunk and the buffers so that the block
+// fits (ops/neural_kernel.kernel_plan).
 //
 // Layout, fp32 tier. What bounds it is the FMA pipe: 2 x (22 x 256 +
 // 2 x 256 x 256 + 256 x 3) FLOPs a pixel of the 256-wide Kerr net against
@@ -121,8 +147,9 @@ struct MlpDesc {
   int dims[kMaxLayers + 1];  // dims[0]: padded inputs; dims[l + 1]: layer l's outputs
   int pix;                   // pixels per block
   int n_chunk;               // default: output channels a weight chunk; fp32: W rows a slab
-  int nbuf;                  // weight-chunk buffers: 2 overlaps copy and products
-  const void* w[kMaxLayers];   // layer l: W^T (dims[l + 1], dims[l]) bf16, or W fp32
+  int nbuf;                  // weight-chunk buffers: 2 overlaps copy and products; 0: all held
+  int regs;                  // default tier: 0 chunked, 128 / 256 fused (its register width)
+  const void* w[kMaxLayers];   // layer l: W^T (dims[l + 1], dims[l] (+ 8 fused)) bf16, or W fp32
   const float* b[kMaxLayers];  // layer l: bias (dims[l + 1],), fp32
 };
 
@@ -331,6 +358,48 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
   }
 }
 
+// mbarriers in shared memory and bulk copies that complete on them.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+// One arrival that also expects `bytes` more of copies to complete.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete (acquire).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra.uni DONE;\n"
+      "bra.uni LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory into shared memory by the
+// copy engine, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // The default tier's chunk: out[:, n0 : n0 + n_chunk] =
 // bf16(tanh(in @ W^T[n0 : n0 + n_chunk]^T + b)), with the chunk's W^T rows
 // (n_chunk x k_in) in `wsm` and activations pixel-major (pix x ld). Warps
@@ -396,19 +465,27 @@ __device__ __forceinline__ void hidden_chunk_mma(const __nv_bfloat16* __restrict
   }
 }
 
+// Start copying `rows` rows of k_in bf16 (a multiple of 8), contiguous at
+// `src`, into `dst` at row stride ld, spread over `threads` threads; the
+// caller commits the group.
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* __restrict__ dst, int ld,
+                                           const __nv_bfloat16* __restrict__ src, int rows,
+                                           int k_in, int threads) {
+  constexpr int kVec = 8;  // bf16 a 16-byte copy moves
+  const int vecs = k_in / kVec;
+  for (int i = threadIdx.x; i < rows * vecs; i += threads) {
+    const int r = i / vecs, v = i % vecs;
+    cp_async16(dst + r * ld + v * kVec, src + static_cast<int64_t>(r) * k_in + v * kVec);
+  }
+}
+
 // Start the copy of the default tier's weight chunk, output channels
 // [n0, n0 + n_chunk) of layer l: n_chunk rows of W^T (k_in each, row stride
 // ld) into `wsm`.
 __device__ __forceinline__ void stage_chunk(const MlpDesc& m, int l, int n0,
                                             __nv_bfloat16* __restrict__ wsm, int ld) {
-  constexpr int kVec = 8;  // bf16 a 16-byte copy moves
-  const int k_in = m.dims[l];
   const auto* w = static_cast<const __nv_bfloat16*>(m.w[l]);
-  const int vecs = k_in / kVec;
-  for (int i = threadIdx.x; i < m.n_chunk * vecs; i += kThreads) {
-    const int r = i / vecs, v = i % vecs;
-    cp_async16(wsm + r * ld + v * kVec, w + static_cast<int64_t>(n0 + r) * k_in + v * kVec);
-  }
+  stage_rows(wsm, ld, w + static_cast<int64_t>(n0) * m.dims[l], m.n_chunk, m.dims[l], kThreads);
   cp_async_commit();
 }
 
@@ -587,14 +664,11 @@ __device__ __forceinline__ void head_fp32(const MlpDesc& m, const float* __restr
 // the packed word of the star field (N1, N2) or the direction and the
 // capture status (N3).
 template <bool KERR>
-__device__ __forceinline__ void shade_pixel(const Params& p, const Frame& fr, int64_t id,
-                                            int width, const float* head, uint32_t seed_term,
-                                            uint32_t* __restrict__ frame, float* __restrict__ vel,
-                                            int32_t* __restrict__ status) {
+__device__ __forceinline__ void shade_geo(const Params& p, const Frame& fr, int64_t id,
+                                          const Geo& g, const float* head, uint32_t seed_term,
+                                          uint32_t* __restrict__ frame, float* __restrict__ vel,
+                                          int32_t* __restrict__ status) {
   constexpr int kOut = KERR ? 3 : 2;
-  float f[KERR ? 22 : 16];
-  const Geo g =
-      pixel_geometry<KERR>(p, fr, static_cast<int>(id / width), static_cast<int>(id % width), f);
   const float c = g.c, s = g.s;
   // envelope (neural_pallas.py:306-311): (rs/r0) s (1/4 + log1p(1 / (|t| + 0.02)) sigmoid(-8c))
   const float sig = A::div(1.0f, A::add(1.0f, expf(-A::mul(-8.0f, c))));
@@ -634,6 +708,18 @@ __device__ __forceinline__ void shade_pixel(const Params& p, const Frame& fr, in
   const float live = head[kOut - 1] <= 0.0f ? 1.0f : 0.0f;  // logit > 0: captured, black
   frame[id] = quantize_half_up_rn(r, live) | (quantize_half_up_rn(gg, live) << 8) |
               (quantize_half_up_rn(b, live) << 16) | 0xFF000000u;
+}
+
+// shade_geo with the pixel's geometry computed again from its index.
+template <bool KERR>
+__device__ __forceinline__ void shade_pixel(const Params& p, const Frame& fr, int64_t id,
+                                            int width, const float* head, uint32_t seed_term,
+                                            uint32_t* __restrict__ frame, float* __restrict__ vel,
+                                            int32_t* __restrict__ status) {
+  float f[KERR ? 22 : 16];
+  const Geo g =
+      pixel_geometry<KERR>(p, fr, static_cast<int>(id / width), static_cast<int>(id % width), f);
+  shade_geo<KERR>(p, fr, id, g, head, seed_term, frame, vel, status);
 }
 
 template <bool KERR, bool HI>
@@ -753,6 +839,422 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the default tier, fused --------------------------------------------
+//
+// A warp owns 32 pixels (two m16 tiles) from the features to the store. A
+// layer's input stays in registers as mma A fragments (16 bytes a lane a
+// k-step and tile); its outputs, 16 channels at a time, go through the
+// bias, tanhf and the bf16 rounding into the warp's own staging rows in
+// shared memory, which the next layer reads back as fragments by ldmatrix:
+// no block barrier between layers. The weights (W^T, the mma's B) are read
+// from shared memory by ldmatrix, once for both tiles. KMAX is the widest
+// layer's register width: 128 (12 warps a block, 64 registers of A) or
+// 256 (8 warps, 128 registers of A); the inputs are 16 or 32 wide, the
+// hidden layers 128 or 256 (shapes_ok).
+
+// Warps a block of the fused layout at register width 128 or 256: as many
+// as their registers and staging rows leave room for, one block an SM.
+__host__ __device__ constexpr int fused_warps(int regs) { return regs == 128 ? 12 : 8; }
+
+template <int KMAX>
+struct Fused {
+  static constexpr int kWarps = fused_warps(KMAX);
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kPix = kThreads;  // pixels a round: 32 a warp
+  static constexpr int kLd = KMAX + 8;   // staging row: bf16, 16 bytes of padding
+  static constexpr int kKs = KMAX / 16;  // k-steps of the widest layer
+  static constexpr int kGeo = 8;         // floats of a pixel's geometry (7 used)
+};
+
+// The streamed ring's two "full" mbarriers and two counters of the warps
+// done with a buffer, after the geometry (none when the weights are held).
+constexpr int kRingBytes = 32;
+
+// bf16 elements of the hidden layers' W^T held whole, row stride in + 8.
+__host__ __device__ __forceinline__ int64_t held_weight_elems(const MlpDesc& m) {
+  int64_t n = 0;
+  for (int l = 0; l + 1 < m.n_layers; ++l) {
+    n += static_cast<int64_t>(m.dims[l + 1]) * (m.dims[l] + 8);
+  }
+  return n;
+}
+
+// Shared memory of the fused block: each warp's staging rows, the weights
+// (held whole when nbuf == 0, else nbuf chunks of n_chunk rows at the
+// staging's stride), the head's weights in fp32 and each pixel's geometry.
+__host__ __device__ __forceinline__ int64_t fused_smem_bytes(const MlpDesc& m, int k_out) {
+  const int warps = fused_warps(m.regs), ld = m.regs + 8;
+  const int64_t w = m.nbuf == 0 ? held_weight_elems(m)
+                                : static_cast<int64_t>(m.nbuf) * m.n_chunk * ld;
+  return (static_cast<int64_t>(warps) * 32 * ld + w) * 2 +
+         (static_cast<int64_t>(k_out) * m.dims[m.n_layers - 1] + warps * 32 * 8) * 4 +
+         (m.nbuf == 0 ? 0 : kRingBytes);
+}
+
+// This warp's A fragments of a layer of k_in inputs from its staging rows:
+// tile m holds rows 16 m .. 16 m + 15, k-step ks columns 16 ks .. + 15.
+template <int KMAX>
+__device__ __forceinline__ void load_a(uint32_t (&a)[2][KMAX / 16][4],
+                                       const __nv_bfloat16* __restrict__ stg, int k_in) {
+  const int lane = threadIdx.x % 32;
+  const int a_row = lane % 8 + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
+#pragma unroll
+  for (int ks = 0; ks < KMAX / 16; ++ks) {
+    if (16 * ks >= k_in) break;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      ldmatrix_x4(a[m][ks], stg + (16 * m + a_row) * Fused<KMAX>::kLd + 16 * ks + a_col);
+    }
+  }
+}
+
+// 16 output channels of both tiles over KS k-steps: acc[m][j] = A W^T
+// for n-tiles j = 0, 1, W^T's 16 rows at `w` (row stride ldw), summed in
+// k-steps from 0 into one accumulator per tile, as the chunked layout sums
+// them.
+template <int KMAX, int KS>
+__device__ __forceinline__ void products16(float (&acc)[2][2][4],
+                                           const uint32_t (&a)[2][KMAX / 16][4],
+                                           const __nv_bfloat16* __restrict__ w, int ldw) {
+  const int lane = threadIdx.x % 32;
+  const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;
+  const __nv_bfloat16* b_base = w + b_row * ldw + b_col;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.0f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t b[4];  // n-tile 0: b[0], b[1]; n-tile 1: b[2], b[3]
+    ldmatrix_x4(b, b_base + 16 * ks);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      mma_bf16(acc[m][0], a[m][ks], b[0], b[1]);
+      mma_bf16(acc[m][1], a[m][ks], b[2], b[3]);
+    }
+  }
+}
+
+// Pair p (0 .. 7) of this lane's 16 outputs of a 16-channel step:
+// out[row, n : n + 2] = bf16(tanh(acc + b)), tile m = p / 2 % 2, n-tile
+// j = p / 4, rows g (p even) or g + 8 (C fragments: rows g and g + 8 of
+// each tile, columns 2t and 2t + 1).
+template <int KMAX>
+__device__ __forceinline__ void epilogue_pair(int p, const float (&acc)[2][2][4],
+                                              const float* __restrict__ bias,
+                                              __nv_bfloat16* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m = (p / 2) % 2, j = p / 4, h = p % 2;
+  const int n = 8 * j + 2 * t;
+  const float b0 = bias[n], b1 = bias[n + 1];
+  *reinterpret_cast<__nv_bfloat162*>(out + (16 * m + g + 8 * h) * Fused<KMAX>::kLd + n) =
+      __floats2bfloat162_rn(tanhf(acc[m][j][2 * h] + b0), tanhf(acc[m][j][2 * h + 1] + b1));
+}
+
+template <int KMAX>
+__device__ __forceinline__ void epilogue16(const float (&acc)[2][2][4],
+                                           const float* __restrict__ bias,
+                                           __nv_bfloat16* __restrict__ out) {
+#pragma unroll
+  for (int p = 0; p < 8; ++p) epilogue_pair<KMAX>(p, acc, bias, out);
+}
+
+// products16 into `nxt` with the epilogue of `cur` woven in, its 8 pairs
+// of outputs spread over the k-steps' products, so that a warp's instruction
+// stream alternates tensor and ALU / SFU work (ptxas keeps a burst of
+// products together otherwise).
+template <int KMAX, int KS>
+__device__ __forceinline__ void step16(float (&nxt)[2][2][4], const uint32_t (&a)[2][KMAX / 16][4],
+                                       const __nv_bfloat16* __restrict__ w, int ldw,
+                                       const float (&cur)[2][2][4],
+                                       const float* __restrict__ bias,
+                                       __nv_bfloat16* __restrict__ out) {
+  // pair p follows k-step p * KS / 8: spread evenly over the k-steps
+  const int lane = threadIdx.x % 32;
+  const int b_row = lane % 8 + (lane / 16) * 8, b_col = ((lane / 8) % 2) * 8;
+  const __nv_bfloat16* b_base = w + b_row * ldw + b_col;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) nxt[m][j][0] = nxt[m][j][1] = nxt[m][j][2] = nxt[m][j][3] = 0.0f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t b[4];
+    ldmatrix_x4(b, b_base + 16 * ks);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      mma_bf16(nxt[m][0], a[m][ks], b[0], b[1]);
+      mma_bf16(nxt[m][1], a[m][ks], b[2], b[3]);
+    }
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      if (p * KS / 8 == ks) epilogue_pair<KMAX>(p, cur, bias, out);
+    }
+  }
+}
+
+// One layer of n_out outputs over KS k-steps of inputs, 16 channels at a
+// time, software-pipelined: the products of channels n0 .. n0 + 15 are
+// woven with the epilogue of the 16 before them (step16); the two sets of
+// accumulators trade roles each step. `rows(n0, ldw)` gives W^T's row n0
+// (a streamed layer waits there at a chunk's first row).
+template <int KMAX, int KS, class Rows>
+__device__ __forceinline__ void layer_pass(const uint32_t (&a)[2][KMAX / 16][4], Rows&& rows,
+                                           const float* __restrict__ bias,
+                                           __nv_bfloat16* __restrict__ stg, int n_out) {
+  float acc0[2][2][4], acc1[2][2][4];
+  int ldw;
+  const __nv_bfloat16* w = rows(0, ldw);
+  products16<KMAX, KS>(acc0, a, w, ldw);
+  int n0 = 16;
+  for (; n0 + 16 < n_out; n0 += 32) {
+    w = rows(n0, ldw);
+    step16<KMAX, KS>(acc1, a, w, ldw, acc0, bias + n0 - 16, stg + n0 - 16);
+    w = rows(n0 + 16, ldw);
+    step16<KMAX, KS>(acc0, a, w, ldw, acc1, bias + n0, stg + n0);
+  }
+  if (n0 < n_out) {
+    w = rows(n0, ldw);
+    step16<KMAX, KS>(acc1, a, w, ldw, acc0, bias + n0 - 16, stg + n0 - 16);
+    epilogue16<KMAX>(acc1, bias + n0, stg + n0);
+  } else {
+    epilogue16<KMAX>(acc0, bias + n0 - 16, stg + n0 - 16);
+  }
+}
+
+// The head of one pixel from its staging row h (k_head bf16): for each
+// output an fmaf chain over k in order from 0 -- the chunked layout's -- on
+// the head's weights in fp32 (hw, output-major), then the bias.
+template <int kOut>
+__device__ __forceinline__ void fused_head(const __nv_bfloat16* __restrict__ h,
+                                           const float* __restrict__ hw, int k_head,
+                                           const float* __restrict__ bias, float (&head)[kOut]) {
+  float acc[kOut];
+#pragma unroll
+  for (int o = 0; o < kOut; ++o) acc[o] = 0.0f;
+  for (int k = 0; k < k_head; k += 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(h + k);
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+    float x[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // bf16 pairs, the first in the low half
+      x[2 * q] = __uint_as_float(u[q] << 16);
+      x[2 * q + 1] = __uint_as_float(u[q] & 0xFFFF0000u);
+    }
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) {
+      const float4 w0 = *reinterpret_cast<const float4*>(hw + o * k_head + k);
+      const float4 w1 = *reinterpret_cast<const float4*>(hw + o * k_head + k + 4);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[o] = fmaf(x[i], wv[i], acc[o]);
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kOut; ++o) head[o] = acc[o] + bias[o];
+}
+
+template <bool KERR, int KMAX>
+__global__ void __launch_bounds__(Fused<KMAX>::kThreads, 1)
+    neural_fused_kernel(const Params p, const uint32_t seed_term, const int height,
+                        const int width, const MlpDesc mlp, uint32_t* __restrict__ frame,
+                        float* __restrict__ vel, int32_t* __restrict__ status) {
+  using F = Fused<KMAX>;
+  constexpr int kFeats = KERR ? 22 : 16;
+  constexpr int kOut = KERR ? 3 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lh = mlp.n_layers - 1, k_head = mlp.dims[lh];
+  const bool held = mlp.nbuf == 0;
+  auto* stg_all = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* stg = stg_all + warp * 32 * F::kLd;
+  __nv_bfloat16* wsm = stg_all + F::kWarps * 32 * F::kLd;
+  const int chunk_elems = mlp.n_chunk * F::kLd;
+  float* hw = reinterpret_cast<float*>(
+      wsm + (held ? held_weight_elems(mlp) : static_cast<int64_t>(mlp.nbuf) * chunk_elems));
+  float* geo_all = hw + kOut * k_head;
+  float* geo = geo_all + (warp * 32 + lane) * F::kGeo;
+  auto* full = reinterpret_cast<uint64_t*>(geo_all + F::kThreads * F::kGeo);  // chunk landed
+  auto* done = reinterpret_cast<int*>(full + 2);  // warps done with the buffer
+  const Frame fr = frame_constants(p);
+  const int64_t n_pixels = static_cast<int64_t>(height) * width;
+  const int64_t rounds = (n_pixels + F::kPix - 1) / F::kPix;
+  int steps = 0;  // weight chunks a round (streamed)
+  for (int l = 0; l < lh && !held; ++l) steps += mlp.dims[l + 1] / mlp.n_chunk;
+  // this block's chunks: `steps` in each of its rounds
+  const int64_t chunks = held ? 0 : (rounds - blockIdx.x + gridDim.x - 1) / gridDim.x * steps;
+
+  // Streamed: chunk c (weights in the order chunk_of gives, round after
+  // round) goes into buffer c % 2 by bulk copies, one a row, completing on
+  // full[c % 2]; the last warp done with chunk c copies chunk c + 2 into
+  // its buffer. A warp waits only for its next chunk to land: no block
+  // barrier, so warps drift apart by up to a chunk.
+  auto issue = [&](int64_t c) {  // by one thread: one bulk copy of the chunk's rows
+    const int b = static_cast<int>(c % 2);
+    int l, n0;
+    chunk_of(mlp, static_cast<int>(c % steps), l, n0);
+    const int ld = mlp.dims[l] + 8;
+    const unsigned bytes = 2u * ld * mlp.n_chunk;
+    mbar_expect_tx(full + b, bytes);
+    bulk_copy(wsm + b * chunk_elems,
+              static_cast<const __nv_bfloat16*>(mlp.w[l]) + static_cast<int64_t>(n0) * ld, bytes,
+              full + b);
+  };
+  auto release = [&](int64_t c) {  // this warp is done reading chunk c
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) {
+      __threadfence_block();
+      last = atomicAdd(done + c % 2, 1) == F::kWarps - 1;
+      if (last) {
+        done[c % 2] = 0;
+        __threadfence_block();
+      }
+    }
+    if (last && c + 2 < chunks) {  // lane 0 of the last warp
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(c + 2);
+    }
+  };
+
+  // the weights: held, all of them once by cp.async; streamed, the first two
+  // chunks (their copies overlap the first features)
+  if (held) {  // rows of in + 8 in device memory too: one contiguous copy a layer
+    int64_t off = 0;
+    for (int l = 0; l < lh; ++l) {
+      const int ld = mlp.dims[l] + 8;
+      stage_rows(wsm + off, ld, static_cast<const __nv_bfloat16*>(mlp.w[l]), mlp.dims[l + 1], ld,
+                 F::kThreads);
+      off += static_cast<int64_t>(mlp.dims[l + 1]) * ld;
+    }
+    cp_async_commit();
+  } else if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    done[0] = done[1] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const auto* wh = static_cast<const __nv_bfloat16*>(mlp.w[lh]);  // rows of k_head + 8
+  for (int i = threadIdx.x; i < kOut * k_head; i += F::kThreads) {
+    hw[i] = __bfloat162float(wh[i / k_head * (k_head + 8) + i % k_head]);
+  }
+  if (held) cp_async_wait(0);
+  __syncthreads();
+  if (!held && threadIdx.x == 0) {
+    for (int64_t c = 0; c < 2 && c < chunks; ++c) issue(c);
+  }
+  int64_t s = 0;            // chunks waited for so far; chunk s - 1 is in buffer (s - 1) % 2
+  int64_t to_release = -1;  // the chunk this warp read last and has not released
+
+  for (int64_t rnd = blockIdx.x; rnd < rounds; rnd += gridDim.x) {
+    const int64_t id = rnd * F::kPix + warp * 32 + lane;
+    const bool live = id < n_pixels;
+    // 1. this lane's pixel: its features into its staging row, rounded to
+    // bf16 and padded with zeros to dims[0]; its geometry kept for the end
+    {
+      float f[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) f[k] = 0.0f;
+      Geo g{};
+      if (live) {
+        g = pixel_geometry<KERR>(p, fr, static_cast<int>(id / width),
+                                 static_cast<int>(id % width), f);
+      }
+      uint4* row = reinterpret_cast<uint4*>(stg + lane * F::kLd);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (8 * q >= mlp.dims[0]) break;
+        uint32_t u[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(f[8 * q + 2 * i], f[8 * q + 2 * i + 1]);
+          u[i] = *reinterpret_cast<const uint32_t*>(&h2);
+        }
+        row[q] = make_uint4(u[0], u[1], u[2], u[3]);
+      }
+      reinterpret_cast<float4*>(geo)[0] = make_float4(g.c, g.s, g.whx, g.why);
+      reinterpret_cast<float4*>(geo)[1] = make_float4(g.whz, g.nyp, g.t_env, 0.0f);
+    }
+    __syncwarp();
+    // 2. the hidden layers
+    uint32_t a[2][F::kKs][4];
+    load_a<KMAX>(a, stg, mlp.dims[0]);
+    int64_t off = 0;  // layer l's W^T among the held weights
+    for (int l = 0; l < lh; ++l) {
+      __syncwarp();  // every lane has its fragments before the staging is written
+      const int k_in = mlp.dims[l], n_out = mlp.dims[l + 1];
+      auto rows = [&](int n0, int& ldw) -> const __nv_bfloat16* {
+        ldw = k_in + 8;
+        if (held) return wsm + off + static_cast<int64_t>(n0) * ldw;
+        if (n0 % 64 == 0) {  // a chunk's first row: release the last one, wait for this one
+          if (to_release >= 0) release(to_release);
+          mbar_wait(full + s % 2, static_cast<unsigned>(s / 2) & 1u);
+          to_release = s++;
+        }
+        return wsm + ((s - 1) % 2) * chunk_elems + (n0 % 64) * ldw;
+      };
+      const float* bias = mlp.b[l];
+      if (k_in == 16) {
+        layer_pass<KMAX, 1>(a, rows, bias, stg, n_out);
+      } else if (k_in == 32) {
+        layer_pass<KMAX, 2>(a, rows, bias, stg, n_out);
+      } else if (KMAX == 128 || k_in == 128) {
+        layer_pass<KMAX, 8>(a, rows, bias, stg, n_out);
+      } else {
+        layer_pass<KMAX, KMAX / 16>(a, rows, bias, stg, n_out);
+      }
+      off += static_cast<int64_t>(n_out) * (k_in + 8);
+      __syncwarp();  // the layer's outputs are in the staging
+      if (l + 1 < lh) load_a<KMAX>(a, stg, n_out);
+    }
+    if (to_release >= 0) {  // the round's last chunk, before the pixel's end
+      release(to_release);
+      to_release = -1;
+    }
+    // 3. the head, then the pixel's end
+    if (live) {
+      float head[kOut];
+      fused_head<kOut>(stg + lane * F::kLd, hw, k_head, mlp.b[lh], head);
+      const float4 g0 = reinterpret_cast<const float4*>(geo)[0];
+      const float4 g1 = reinterpret_cast<const float4*>(geo)[1];
+      const Geo g{g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z};
+      shade_geo<KERR>(p, fr, id, g, head, seed_term, frame, vel, status);
+    }
+    __syncwarp();  // the staging is read before the next round's features
+  }
+}
+
+template <bool KERR, int KMAX>
+int launch_fused(const Params& p, uint32_t seed_term, int height, int width, const MlpDesc& mlp,
+                 uint32_t* frame, float* vel, int32_t* status, cudaStream_t s) {
+  const int64_t smem = fused_smem_bytes(mlp, KERR ? 3 : 2);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = neural_fused_kernel<KERR, KMAX>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Fused<KMAX>::kThreads,
+                                                           static_cast<size_t>(smem))) !=
+          cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // persistent blocks: as many as are resident, each taking rounds in turn
+  const int64_t rounds = (static_cast<int64_t>(height) * width + Fused<KMAX>::kPix - 1) /
+                         Fused<KMAX>::kPix;
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  const unsigned blocks = static_cast<unsigned>(rounds < resident ? rounds : resident);
+  kernel<<<blocks, Fused<KMAX>::kThreads, static_cast<size_t>(smem), s>>>(
+      p, seed_term, height, width, mlp, frame, vel, status);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool KERR, bool HI>
 int launch(const Params& p, uint32_t seed_term, int height, int width, const MlpDesc& mlp,
            uint32_t* frame, float* vel, int32_t* status, cudaStream_t s) {
@@ -780,8 +1282,16 @@ bool shapes_ok(const MlpDesc& m, bool kerr, bool hi) {
   if (m.n_layers < 2 || m.n_layers > kMaxLayers) return false;
   if (m.dims[0] % 16 != 0 || m.dims[0] < (kerr ? 22 : 16)) return false;
   if (m.dims[m.n_layers] != (kerr ? 3 : 2)) return false;
-  if ((m.nbuf != 1 && m.nbuf != 2) || m.pix <= 0 || m.n_chunk <= 0) return false;
-  if (hi) {
+  if (m.regs != 0) {  // the fused default tier: every width held in KMAX registers
+    if (hi || (m.regs != 128 && m.regs != 256) || m.pix != 32 * fused_warps(m.regs)) return false;
+    if (m.nbuf != 0 && (m.nbuf != 2 || m.n_chunk != 64)) return false;
+    if (m.dims[0] > 32) return false;  // one or two k-steps of inputs
+    for (int l = 1; l < m.n_layers; ++l) {
+      if (m.dims[l] > m.regs || m.dims[l] % 128 != 0) return false;
+    }
+  } else if ((m.nbuf != 1 && m.nbuf != 2) || m.pix <= 0 || m.n_chunk <= 0) {
+    return false;
+  } else if (hi) {
     if (m.pix % kWarpP != 0 || m.n_chunk % 8 != 0) return false;
     for (int l = 0; l + 1 < m.n_layers; ++l) {
       const int rows = m.n_chunk < m.dims[l] ? m.n_chunk : m.dims[l];
@@ -815,7 +1325,9 @@ bool shapes_ok(const MlpDesc& m, bool kerr, bool hi) {
 // int32 (height, width), that receive the unit directions and the capture
 // status unshaded (N3; `seed_term` is then unused). Does not synchronise.
 // `kerr` selects the Kerr net (22 features, 3 heads), `highest` the fp32
-// tier over the bf16 one.
+// tier over the bf16 one; the bf16 tier takes the fused layout where
+// mlp.regs is 128 or 256 (its weights' rows then padded by 8 zeros), the
+// chunked one where it is 0.
 extern "C" int bhr_neural_render(bhr::Params params, uint32_t seed_term, int kerr, int highest,
                                  int height, int width, bhr::MlpDesc mlp, int device, void* out,
                                  void* vel, void* status, void* stream) {
@@ -830,6 +1342,18 @@ extern "C" int bhr_neural_render(bhr::Params params, uint32_t seed_term, int ker
   auto* v = static_cast<float*>(vel);
   auto* st = static_cast<int32_t*>(status);
   auto s = static_cast<cudaStream_t>(stream);
+  if (mlp.regs == 128 && kerr) {
+    return bhr::launch_fused<true, 128>(params, seed_term, height, width, mlp, frame, v, st, s);
+  }
+  if (mlp.regs == 128) {
+    return bhr::launch_fused<false, 128>(params, seed_term, height, width, mlp, frame, v, st, s);
+  }
+  if (mlp.regs == 256 && kerr) {
+    return bhr::launch_fused<true, 256>(params, seed_term, height, width, mlp, frame, v, st, s);
+  }
+  if (mlp.regs == 256) {
+    return bhr::launch_fused<false, 256>(params, seed_term, height, width, mlp, frame, v, st, s);
+  }
   if (kerr && highest) {
     return bhr::launch<true, true>(params, seed_term, height, width, mlp, frame, v, st, s);
   }

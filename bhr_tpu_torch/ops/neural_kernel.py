@@ -18,7 +18,10 @@ CUDA cores); models/neural.py says what each means. The renderer sends it
 the nets bhr_tpu sends its kernel (`kernel_takes`: hidden widths that are
 multiples of 128); the kernel holds those of at most 8 layers up to what a
 block's shared memory holds (`kernel_plan`: widths up to 1152 in the
-default tier, 1024 in the highest) and raises for any other.
+default tier, 1024 in the highest) and raises for any other. The default
+tier has two layouts of the same bits, chosen by the net's widths alone
+(`kernel_plan`): the fused one (a warp's 32 pixels through every layer,
+activations in registers) up to 256 wide, the chunked one beyond.
 `neural_trace_dirs` is the same kernel's direction-plane output (N3,
 bhr_tpu's emit="dirs"): it stores the unit directions and the capture
 status as a TraceResult instead of shading them, for frames with a texture
@@ -80,14 +83,22 @@ NEURAL_BAND_LAUNCHES = 0
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use (sm_90)
 KERNEL_TIERS = ("default", "highest")
-# The block plans, tried largest first. Default tier: pixels a block and
-# output channels a weight chunk (mma items are 16 pixels x 64 channels).
-# fp32 tier: pixels a block and W rows a weight slab. There a thread holds 8
-# pixels x 16 channels of a warp tile of 32 x 128, and a layer's whole
-# output stays in registers until it overwrites the one activation buffer,
-# so a block of 256 threads takes at most _MAX_OUTPUTS = pix x widest
-# outputs: 256 pixels for the 128-wide nets, 128 for the 256-wide, 32 for
-# the 1024-wide. Two chunk buffers before one, then the largest chunk.
+# The block plans: (pixels a block, rows a weight chunk, chunk buffers,
+# register width). Default tier, fused layout (csrc/neural_mlp.cu
+# neural_fused_kernel), for nets whose every width fits the register width
+# of A fragments, 128 or 256: a warp owns 32 pixels through every layer,
+# _FUSED_WARPS warps a block; the weights held whole (0 buffers) where they
+# fit beside the warps' staging rows, else streamed in chunks of 64 rows
+# through 2 buffers. Wider nets take the chunked layout (register width 0):
+# pixels a block and output channels a weight chunk (mma items are 16
+# pixels x 64 channels). fp32 tier: pixels a block and W rows a weight
+# slab. There a thread holds 8 pixels x 16 channels of a warp tile of
+# 32 x 128, and a layer's whole output stays in registers until it
+# overwrites the one activation buffer, so a block of 256 threads takes at
+# most _MAX_OUTPUTS = pix x widest outputs: 256 pixels for the 128-wide
+# nets, 128 for the 256-wide, 32 for the 1024-wide. Two chunk buffers
+# before one, then the largest chunk.
+_FUSED_WARPS = {128: 12, 256: 8}
 _PIX = {"default": (128, 64, 32, 16), "highest": (256, 128, 64, 32)}
 _CHUNK = {"default": (64,), "highest": (32, 16)}
 _MAX_OUTPUTS = 256 * 8 * 16
@@ -115,14 +126,35 @@ def padded_inputs(n_in: int) -> int:
     return -(-n_in // 16) * 16
 
 
-def smem_bytes(hmax: int, pix: int, n_chunk: int, nbuf: int, precision: str) -> int:
-    """Shared memory of a block, as csrc/neural_mlp.cu:smem_bytes counts it.
-    Default tier: two activation buffers of pix rows of hmax + 8 bf16 and
-    `nbuf` chunks of n_chunk rows of W^T at that stride; fp32 tier: one
+def mlp_dims(params) -> list[int]:
+    """[padded inputs, hidden widths..., outputs]: csrc/neural_mlp.cu's
+    MlpDesc.dims."""
+    params = as_surrogate(params)
+    return [padded_inputs(params[0][0].shape[0]), *params.widths, params[-1][0].shape[1]]
+
+
+def smem_bytes(dims, plan, precision: str) -> int:
+    """Shared memory of a block of `plan` for a net of widths `dims`
+    (mlp_dims), as csrc/neural_mlp.cu counts it (fused_smem_bytes,
+    smem_bytes). Fused: each warp's 32 staging rows of regs + 8 bf16, the
+    hidden layers' W^T held whole (rows of in + 8 bf16) or `nbuf` chunks of
+    n_chunk rows at the staging's stride, the head's weights in fp32, 8
+    floats of geometry a pixel, and in a streamed block 32 bytes of
+    barriers. Chunked: two activation buffers of pix rows of hmax + 8 bf16
+    and `nbuf` chunks of n_chunk rows of W^T at that stride; fp32 tier: one
     activation buffer of hmax rows of pix + 4 floats and `nbuf` slabs of
-    n_chunk rows of hmax floats."""
+    n_chunk rows of hmax floats (hmax: the widest of dims but the
+    outputs)."""
+    pix, n_chunk, nbuf, regs = plan
+    hmax = max(dims[:-1])
     if kernel_tier(precision) == "highest":
         return (hmax * (pix + 4) + nbuf * n_chunk * hmax) * 4
+    if regs:
+        warps, ld = _FUSED_WARPS[regs], regs + 8
+        held = sum(n * (k + 8) for k, n in zip(dims[:-2], dims[1:-1]))
+        w = held if nbuf == 0 else nbuf * n_chunk * ld
+        return ((warps * 32 * ld + w) * 2 + (dims[-1] * dims[-2] + warps * 32 * 8) * 4
+                + (32 if nbuf else 0))
     return (2 * pix + nbuf * n_chunk) * (hmax + 8) * 2
 
 
@@ -136,26 +168,34 @@ def kernel_shapes_ok(params) -> bool:
             and all(w.shape[1] % 128 == 0 for w, _ in layers[:-1]))
 
 
-def kernel_plan(params, precision) -> tuple[int, int, int] | None:
+def kernel_plan(params, precision) -> tuple[int, int, int, int] | None:
     """(pixels per block, channels per weight chunk or W rows per slab,
-    chunk buffers) for this net and tier, or None when no block of the
-    kernel holds it: a net that `kernel_shapes_ok` refuses, more than
-    MAX_LAYERS layers, or a widest layer for which no block fits in shared
-    memory (`smem_bytes`) and, in the fp32 tier, in registers
+    chunk buffers, register width) for this net and tier, or None when no
+    block of the kernel holds it: a net that `kernel_shapes_ok` refuses,
+    more than MAX_LAYERS layers, or a widest layer for which no block fits
+    in shared memory (`smem_bytes`) and, in the fp32 tier, in registers
     (_MAX_OUTPUTS); widths up to 1152 fit in the default tier, 1024 in the
-    fp32 one."""
+    fp32 one. The default tier takes the fused layout by the net's widths
+    alone: up to 128 wide with every weight held if they fit, else up to
+    256 wide streamed; wider nets take the chunked layout."""
     if not kernel_shapes_ok(params) or len(params) > MAX_LAYERS:
         return None
     params = as_surrogate(params)
     precision = kernel_tier(precision)
-    hmax = max(padded_inputs(params[0][0].shape[0]), *params.widths)
+    dims = mlp_dims(params)
+    hmax = max(dims[:-1])
+    if precision == "default" and hmax <= 256:
+        held = (32 * _FUSED_WARPS[128], 0, 0, 128)
+        if hmax <= 128 and smem_bytes(dims, held, precision) <= SMEM_LIMIT:
+            return held
+        return 32 * _FUSED_WARPS[256], 64, 2, 256  # 214,048 bytes at most
     for pix in _PIX[precision]:
         if precision == "highest" and pix * hmax > _MAX_OUTPUTS:
             continue
         for nbuf in (2, 1):
             for nc in _CHUNK[precision]:
-                if smem_bytes(hmax, pix, nc, nbuf, precision) <= SMEM_LIMIT:
-                    return pix, nc, nbuf
+                if smem_bytes(dims, (pix, nc, nbuf, 0), precision) <= SMEM_LIMIT:
+                    return pix, nc, nbuf, 0
     return None
 
 
@@ -180,11 +220,12 @@ def dirs_kernel_takes(params, scene: SceneParams, *, dtype: str, precision) -> b
             and kernel_shapes_ok(params))
 
 
-def prep_weights(params, *, precision, device) -> tuple:
+def prep_weights(params, *, precision, device, row_pad: int = 0) -> tuple:
     """The kernel's operands (bhr_tpu/ops/neural_pallas.py:85-107 without
     the TPU's pads), contiguous on `device`: per layer the weights with the
     first layer's inputs zero-padded to `padded_inputs`, and the bias in
-    fp32. ``default``: W^T (out, in) in bf16, the mma's B operand;
+    fp32. ``default``: W^T (out, in) in bf16, the mma's B operand, each row
+    followed by `row_pad` zeros (the fused layout's shared-memory rows, 8);
     ``highest``: W (in, out) in fp32, whose slabs of rows are contiguous."""
     highest = kernel_tier(precision) == "highest"
     ops = []
@@ -192,7 +233,8 @@ def prep_weights(params, *, precision, device) -> tuple:
         w = w.to(device=device, dtype=torch.float32)
         if i == 0:
             w = torch.nn.functional.pad(w, (0, 0, 0, padded_inputs(w.shape[0]) - w.shape[0]))
-        w = w if highest else w.t().to(torch.bfloat16)
+        if not highest:
+            w = torch.nn.functional.pad(w.t(), (0, row_pad)).to(torch.bfloat16)
         ops.append((w.contiguous(), b.to(device=device, dtype=torch.float32).contiguous()))
     return tuple(ops)
 
@@ -211,7 +253,8 @@ def _mlp_desc(params: NeuralSurrogate, precision: str, device: torch.device, pla
     stamp = weights_stamp(params)
     held = params._kernel_operands.get(key)
     if held is None or held[0] != stamp:
-        ops = prep_weights(params, precision=precision, device=device)
+        ops = prep_weights(params, precision=precision, device=device,
+                           row_pad=8 if plan[3] else 0)
         desc = MlpDesc()
         desc.n_layers = len(ops)
         for i, (w, b) in enumerate(ops):
@@ -219,7 +262,7 @@ def _mlp_desc(params: NeuralSurrogate, precision: str, device: torch.device, pla
             desc.w[i] = w.data_ptr()
             desc.b[i] = b.data_ptr()
         desc.dims[len(ops)] = params[-1][0].shape[1]
-        desc.pix, desc.n_chunk, desc.nbuf = plan
+        desc.pix, desc.n_chunk, desc.nbuf, desc.regs = plan
         params._kernel_operands[key] = held = (stamp, ops, desc)
     return held[2]
 
@@ -360,7 +403,7 @@ def _launch(params: NeuralSurrogate, camera, scene, precision: str, plan, device
     _raise_on_error(lib, rc, "neural_render launch")
 
 
-def _plan(params: NeuralSurrogate, precision: str) -> tuple[int, int, int]:
+def _plan(params: NeuralSurrogate, precision: str) -> tuple[int, int, int, int]:
     """`kernel_plan`, or a ValueError for a net no block holds."""
     plan = kernel_plan(params, precision)
     if plan is None:

@@ -40,17 +40,21 @@ def ptxas_summary(log: str) -> str:
     -Xptxas -v (template arguments: tier ILb1 fast / ILb0 exact, the
     integrator Li0 euler / Li1 rk4 / Li2 leapfrog, then Lb1 for the
     Kerr-Schild loop, then flags=N for an instantiation whose flags are
-    fixed at compile time)."""
+    fixed at compile time; the neural kernel's model, tier and, at the
+    default tier, its layout: chunked, or fused with its register width)."""
     out, tag = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"ILb([01])ELi([0-2])ELb([01])E(?:Li(\d+)E)?", line)
             n = re.search(r"neural_render_kernelILb([01])ELb([01])E", line)
+            f = re.search(r"neural_fused_kernelILb([01])ELi(\d+)E", line)
             tag = (f"{'fast' if m[1] == '1' else 'exact'},"
                    f"{('euler', 'rk4', 'leapfrog')[int(m[2])]}{',ks' if m[3] == '1' else ''}"
                    f"{f',flags={m[4]}' if m[4] else ''}"
                    if m else f"{'kerr' if n[1] == '1' else 'schwarzschild'},"
-                   f"{'highest' if n[2] == '1' else 'default'}" if n else line.split()[-3])
+                   f"{'highest' if n[2] == '1' else 'default,chunked'}" if n else
+                   f"{'kerr' if f[1] == '1' else 'schwarzschild'},default,fused{f[2]}" if f
+                   else line.split()[-3])
         elif tag and "Used" in line:
             out.append(f"{tag}: {line.split('Used')[1].split(',')[0].strip()}")
         elif tag and "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 "

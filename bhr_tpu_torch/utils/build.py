@@ -48,8 +48,10 @@ class MlpDesc(ctypes.Structure):
     """bhr::MlpDesc of csrc/neural_mlp.cu, passed by value: the layer count,
     the widths (dims[0] the padded inputs, dims[l + 1] layer l's outputs),
     the block's pixels, the channels per weight chunk (default tier) or
-    the W rows per weight slab (highest) and the number of chunk buffers,
-    and each layer's weights and bias as device pointers."""
+    the W rows per weight slab (highest) and the number of chunk buffers
+    (0: the fused layout holds every weight), the fused layout's register
+    width (0 for the chunked layout and the highest tier), and each layer's
+    weights and bias as device pointers."""
 
     _fields_ = [
         ("n_layers", ctypes.c_int),
@@ -57,6 +59,7 @@ class MlpDesc(ctypes.Structure):
         ("pix", ctypes.c_int),
         ("n_chunk", ctypes.c_int),
         ("nbuf", ctypes.c_int),
+        ("regs", ctypes.c_int),
         ("w", ctypes.c_void_p * MAX_LAYERS),
         ("b", ctypes.c_void_p * MAX_LAYERS),
     ]

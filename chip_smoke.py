@@ -39,8 +39,8 @@ renderer's paths:
     route, srgb-tonemapped staged};
   * the neural surrogate (integrator "neural"): a matrix at 160x96 over
     the five committed nets, both tiers and two cameras, and over seeded
-    random nets of widths 384 to 1152 that reach every other block plan
-    of the kernel (PLAN_NETS); the main path at
+    random nets of widths 128 to 1152 that reach every other block plan
+    and instantiation of the kernel (PLAN_NETS); the main path at
     1920x1080 through render_frame (N1 Schwarzschild and N2 Kerr at spin
     0.9 in the default tier, N2 and N1 at the highest tier), one neural_mlp
     launch a frame; 8 OrbitAnimator frames with no host sync; the staged
@@ -142,7 +142,10 @@ time and its plain version's, and its bound: the larger of the operations
 it must do over the card's peak for their type -- fp32 at 67 TFLOP/s, the
 neural default tier's products at 989 TFLOP/s bf16 -- and the bytes it
 must write over 3.35 TB/s; for the neural kernel also the cuBLAS MLP
-chain's time; for a probe kernel, its bytes or its products at the bf16
+chain's time and, at the default tier, the bf16 tensor-core chain's
+(bf16_chain_ms), whose floor (tools/neural_floor.py: mma.sync rate, SASS
+issue and L2 terms measured in this run) and share the neural_timing lines
+print before the kernel's time; for a probe kernel, its bytes or its products at the bf16
 or fp32 peak, its device time with the host's issue hidden, and the one
 PyTorch call of the same function where there is one); the last line is
 {"ok": true, "device": {...}}.
@@ -256,11 +259,13 @@ NEURAL_ASSETS = {  # (model, asset)
 # Seeded random nets, hidden widths (w, 128, w), that reach every block plan
 # of csrc/neural_mlp.cu the committed nets do not (ops/neural_kernel.
 # kernel_plan: pixels per block, channels per weight chunk (default tier)
-# or W rows per weight slab (highest), chunk buffers;
-# tests/test_torch_neural.py:PLAN_NETS is the same list and checks that it
-# covers every plan): (tier, model, w, seed), each seed picked so that the
-# capture mask is mixed at both cameras.
-PLAN_NETS = (("default", "kerr", 384, 0), ("default", "schwarzschild", 512, 4),
+# or W rows per weight slab (highest), chunk buffers, register width of the
+# fused layout), and the one fused instantiation they do not (Kerr, 128
+# wide); tests/test_torch_neural.py:PLAN_NETS is the same list and checks
+# that it covers every plan): (tier, model, w, seed), each seed picked so
+# that the capture mask is mixed at both cameras.
+PLAN_NETS = (("default", "kerr", 128, 0),
+             ("default", "kerr", 384, 0), ("default", "schwarzschild", 512, 4),
              ("default", "kerr", 640, 0), ("default", "schwarzschild", 1152, 0),
              ("highest", "schwarzschild", 384, 0), ("highest", "kerr", 512, 0),
              ("highest", "schwarzschild", 640, 0), ("highest", "kerr", 768, 0),
@@ -280,6 +285,17 @@ DIRS_HIGHEST_CLOSE, DIRS_HIGHEST_MIN = 1e-6, 0.999
 # writes: 3 fp32 and 1 int32 a pixel.
 NEURAL_SHADE_OPS = 345 + 18
 DIRS_BYTES_PER_PIXEL = 16
+# The default tier's instantiations the main path runs (ops/neural_kernel.
+# kernel_plan's register width of the committed nets): the kernels line
+# names them neural_mlp<model,default>; the other fused one is
+# neural_mlp[fused]<model,width>, the chunked layout's (nets wider than
+# 256) neural_mlp[chunked]<model,default>. Besides the committed nets, the
+# timing phase times at full width the PLAN_NETS net of each that no
+# committed net reaches: (model, width, seed).
+MAIN_REGS = {"schwarzschild": 128, "kerr": 256}
+TIMED_PLAN_NETS = {"neural_mlp[fused]<kerr,128>": ("kerr", 128, 0),
+                   "neural_mlp[chunked]<kerr,default>": ("kerr", 384, 0),
+                   "neural_mlp[chunked]<schwarzschild,default>": ("schwarzschild", 512, 4)}
 # Bands and the mesh: the bands of a frame (sp), the height that does not
 # divide over sp = 7, the (dp, sp) of the orbit frames, and the multires
 # bands' divisor.
@@ -503,6 +519,31 @@ def neural_bound(params, model: str, highest: bool, pixels: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def neural_variant(model: str, highest: bool, plan=None) -> str:
+    """The kernels line's name of the neural_mlp instantiation a launch of
+    `plan` runs (MAIN_REGS)."""
+    if highest:
+        return f"neural_mlp<{model},highest>"
+    regs = MAIN_REGS[model] if plan is None else plan[3]
+    if regs == 0:
+        return f"neural_mlp[chunked]<{model},default>"
+    if regs == MAIN_REGS[model]:
+        return f"neural_mlp<{model},default>"
+    return f"neural_mlp[fused]<{model},{regs}>"
+
+
+def neural_floor_line(name: str, terms: dict, ms: float, smi: str) -> str:
+    """One default-tier variant's floor (tools/neural_floor.py) and the
+    kernel's share of it."""
+    return (f"{name}: floor {terms['floor_ms']:.3f} ms ({terms['bound_by']}), the largest of "
+            f"tensor {terms['tensor_ms']:.3f} ms ({terms['mma']} mma.sync), issue "
+            f"{terms['issue_ms']:.3f} ms ({terms['issue_pixel']} SASS a pixel, "
+            f"{terms['issue_output']} a hidden output), L2 {terms['l2_ms']:.3f} ms "
+            f"({terms['weight_bytes']} bytes of weights copied); their sum "
+            f"{terms['sum_ms']:.3f} ms; kernel {ms:.3f} ms, {terms['floor_ms'] / ms:.1%} of the "
+            f"floor, on {smi}")
+
+
 def trace_compare(k, p, fast: bool) -> dict:
     """Hold a kernel trace (TraceResult) against its plain version on every
     pixel; raise if a bar fails."""
@@ -601,10 +642,12 @@ class Variants:
         r = self.get(kernel, fast, integrator, model)
         r["max_abs_err"] = max(r["max_abs_err"], e)
 
-    def neural(self, model: str, highest: bool) -> dict:
-        """The record of neural_mlp's variant for a model and tier."""
+    def neural(self, model: str, highest: bool, plan=None) -> dict:
+        """The record of neural_mlp's variant for a model and tier, and at
+        the default tier for the layout of `plan` (kernel_plan's; None: the
+        main path's)."""
         return self.rec.setdefault(
-            f"neural_mlp<{model},{'highest' if highest else 'default'}>",
+            neural_variant(model, highest, plan),
             {"kernel": "neural_mlp", "model": model, "launches": 0, "max_abs_err": 0, "ms": None,
              "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
              "config": None})
@@ -651,6 +694,7 @@ def main() -> None:
     from bhr_tpu_torch.parallel import mesh as pm
     from bhr_tpu_torch.renderer import shade_image
     from bhr_tpu_torch.tools import hopper_probe as hp
+    from bhr_tpu_torch.tools import neural_floor as nf
     from bhr_tpu_torch.tools import sass_walk
     from bhr_tpu_torch.utils import build, plugin
     from bhr_tpu_torch.utils.timing import device_time_ms
@@ -660,13 +704,16 @@ def main() -> None:
     plugin_accel, plugin_cap = plugin.load_plugin(PLUGIN)
     plugin_program = plugin.record(plugin_accel)
     plugin_source = plugin.cuda_source(plugin_accel)
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        floor_job = pool.submit(nf.build_floor, build.nvcc_path(), build.NVCC_FLAGS,
+                                build.CSRC_DIR, build.BUILD_DIR / "neural_floor")
         jobs = {name: pool.submit(build.build, name, sources, *extra) for name, sources, *extra in
                 (("render_mono", build.RENDER_MONO_SOURCES),
                  ("trace_planes", build.TRACE_PLANES_SOURCES),
                  ("neural_mlp", build.NEURAL_MLP_SOURCES),
                  ("trace_planes_custom", build.TRACE_PLANES_SOURCES, plugin_source),
                  ("probes", build.PROBE_SOURCES))}
+        floor_paths = floor_job.result()
         for name, job in jobs.items():
             info = job.result()
             phase("build", f"{info.path.name} in {info.seconds:.1f} s; ptxas: "
@@ -1242,7 +1289,7 @@ def main() -> None:
             plain = nk.neural_render_packed_reference(r.neural_params, cam, scene, precision=tier,
                                                       device="cuda")
             st = neural_compare(frame.view(torch.int32).view(sh, sw), plain, highest)
-            rec = var.neural(model, highest)
+            rec = var.neural(model, highest, nk.kernel_plan(r.neural_params, tier))
             rec["launches"] += 1
             rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
             w = worst.setdefault(tier, {})
@@ -1277,14 +1324,15 @@ def main() -> None:
             st = neural_compare(frame.view(torch.int32).view(sh, sw), plain, highest)
             if not 0.05 <= st["black_frac"] <= 0.95:
                 raise AssertionError(f"neural plan {plan}: the capture mask is not mixed: {st}")
-            rec = var.neural(model, highest)
+            rec = var.neural(model, highest, plan)
             rec["launches"] += 1
             rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
             plans.append({"tier": tier, "model": model, "hidden": list(net.widths),
                           "plan": list(plan), **{k: st[k] for k in ("bit_same", "black_agree",
                                                                     "black_frac")}})
     phase("neural_plans", f"{len(plans)} frames at {sw}x{sh} of seeded random nets, one per "
-          f"block plan (pixels, channels a chunk, chunk buffers) and camera, each 1 neural_mlp "
+          f"block plan (pixels, channels a chunk, chunk buffers, register width) and camera, "
+          f"each 1 neural_mlp "
           f"launch held to its tier's bar: " + json.dumps(plans))
 
     # (b) the neural main path at 1920x1080 through render_frame: the
@@ -1313,7 +1361,7 @@ def main() -> None:
         plain = nk.neural_render_packed_reference(r.neural_params, cam, scene,
                                                   precision=r.neural_precision, device="cuda")
         st = neural_compare(packed, plain, highest)
-        rec = var.neural(model, highest)
+        rec = var.neural(model, highest, nk.kernel_plan(r.neural_params, r.neural_precision))
         rec["launches"] += 1
         rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
         kernel_frames[key] = packed.clone()
@@ -1330,13 +1378,14 @@ def main() -> None:
     frames, neural_anim_ms, anim = animate(r_orbit, N_FRAMES)
     if counts() != (0, 0, N_FRAMES) or frames.shape != (N_FRAMES, H, W):
         raise AssertionError(f"neural animation launched {counts()}: {tuple(frames.shape)}")
-    var.neural("schwarzschild", False)["launches"] += N_FRAMES
+    orbit_plan = nk.kernel_plan(r_orbit.neural_params, "default")
+    var.neural("schwarzschild", False, orbit_plan)["launches"] += N_FRAMES
     errs = []
     for k, t in enumerate(anim.frame_times(N_FRAMES)):
         plain = nk.neural_render_packed_reference(r_orbit.neural_params, bt.orbit_camera(t),
                                                   r_orbit.scene, device="cuda")
         errs.append(neural_compare(frames[k], plain, False))
-    rec = var.neural("schwarzschild", False)
+    rec = var.neural("schwarzschild", False, orbit_plan)
     rec["max_abs_err"] = max([rec["max_abs_err"]] + [e["max_abs_err"] for e in errs])
     euler = {tier: records[tier]["anim_ms"] for tier in records}
     phase("neural_animation", f"{N_FRAMES} frames {W}x{H} neural_schwarzschild_orbit.npz: "
@@ -1386,16 +1435,42 @@ def main() -> None:
 
     # (e) times at 1920x1080: the kernel (median of REPEATS x 3 launches),
     # its plain version, the bound, and the staged route's MLP chain alone
-    # (models/neural.mlp_apply: torch.matmul, i.e. cuBLAS, at the tier)
+    # (models/neural.mlp_apply: torch.matmul, i.e. cuBLAS, at the tier); at
+    # the default tier also the bf16 tensor-core chain a PyTorch user would
+    # write (tools/neural_floor.bf16_chain: each sum rounded to bf16, so not
+    # the kernel's bits) and the floor (tools/neural_floor.py: the largest
+    # of the mma.sync, SASS-issue and L2 terms, each measured on this card)
+    # with the kernel's share of it. The committed nets, and the PLAN_NETS
+    # net of each instantiation no committed net reaches (TIMED_PLAN_NETS).
     gen = torch.Generator(device="cuda").manual_seed(0)
+    floor_in = None
+    if cuobjdump:
+        floor_in = nf.measure_inputs(floor_paths, torch, sass_walk, cuobjdump)
+        l2 = ", ".join(f"{v['bytes_per_s'] / 1e12:.2f} TB/s at {k} bytes"
+                       for k, v in floor_in["l2_read"].items())
+        phase("neural_floor", f"inputs: mma.sync.m16n8k16 bf16 at "
+              f"{floor_in['mma_rate']['cycles_per_mma_sm']:.4f} SM clocks each an SM "
+              f"(nvidia-smi under load: {floor_in['mma_rate']['clocks_under_load']}); L2 read "
+              f"rate {l2}; shortest SASS paths of the phases {json.dumps(floor_in['phases'])} "
+              f"on {smi}")
+    else:
+        phase("neural_floor", "not measured: no cuobjdump beside nvcc")
+    timed = [(key, NEURAL_ASSETS[key][0], highest, cam, spin, NEURAL_ASSETS[key][1],
+              (tnk if NEURAL_ASSETS[key][0] == "kerr" else tn).load_params(net_path(key))[0])
+             for key, highest, cam, spin in (("n1", False, bt.Camera.default(), 0.0),
+                                             ("n1_xl", False, side, 0.0),
+                                             ("n2", False, side, SPIN),
+                                             ("n2_fp32", True, side, SPIN),
+                                             ("n1_fp32", True, bt.Camera.default(), 0.0))]
+    timed += [(name, model, False, bt.Camera.default(), SPIN if model == "kerr" else 0.0,
+               f"PLAN_NETS seed {seed}", bt.NeuralSurrogate(random_net(model, width, seed)))
+              for name, (model, width, seed) in TIMED_PLAN_NETS.items()]
     neural_times = {}
-    for key, highest, cam, spin in (("n1", False, bt.Camera.default(), 0.0),
-                                    ("n1_xl", False, side, 0.0), ("n2", False, side, SPIN),
-                                    ("n2_fp32", True, side, SPIN),
-                                    ("n1_fp32", True, bt.Camera.default(), 0.0)):
-        model = NEURAL_ASSETS[key][0]
+    for key, model, highest, cam, spin, source, params in timed:
         tier = "highest" if highest else "default"
-        params = (tnk if model == "kerr" else tn).load_params(net_path(key))[0].to("cuda")
+        params = params.to("cuda")
+        plan = nk.kernel_plan(params, tier)
+        name = neural_variant(model, highest, plan)
         scene = full_neural.replace(spin=spin)
         out = torch.empty((H, W), dtype=torch.int32, device="cuda")
 
@@ -1410,21 +1485,32 @@ def main() -> None:
         tn.mlp_apply(params, feats, precision=tier)  # warm-up
         library_ms = cuda_ms(lambda: tn.mlp_apply(params, feats, precision=tier), 1, REPEATS)
         b, by = neural_bound(params, model, highest, W * H)
-        desc = (f"{NEURAL_ASSETS[key][1]} (hidden {params.widths}), {tier}, spin {spin}, camera "
-                f"{cam.position.tolist()}, {W}x{H}")
+        desc = (f"{source} (hidden {params.widths}), {tier}, spin {spin}, camera "
+                f"{cam.position.tolist()}, {W}x{H}, block plan {plan}, "
+                f"{nk.smem_bytes(nk.mlp_dims(params), plan, tier)} bytes of shared memory")
         neural_times[key] = {"ms": ms, "library_ms": library_ms}
-        if key != "n1_xl":  # the main path's nets; the 256-wide orbit net is printed only
-            var.neural(model, highest).update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                                              library_ms=library_ms, config=desc)
-        phase("neural_timing", f"neural_mlp<{model},{tier}> ({desc}): kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, cuBLAS MLP chain {library_ms:.3f} ms, bound {b:.3f} ms ({by}) "
-              f"on {smi}")
+        rec = var.neural(model, highest, plan)
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=library_ms,
+                   config=desc)
+        chains = f"cuBLAS MLP chain {library_ms:.3f} ms"
+        if not highest:
+            layers = [(w.to(torch.bfloat16), bias.to(torch.bfloat16)) for w, bias in params]
+            xb = feats.to(torch.bfloat16)
+            nf.bf16_chain(layers, xb)  # warm-up
+            bf16_ms = cuda_ms(lambda: nf.bf16_chain(layers, xb), 1, REPEATS)
+            neural_times[key]["bf16_chain_ms"] = rec["bf16_chain_ms"] = bf16_ms
+            chains += (f" (fp32 operands), bf16 tensor-core chain {bf16_ms:.3f} ms (bf16 "
+                       "torch.matmul, bias, torch.tanh; each sum rounded to bf16, not bit-equal)")
+            if floor_in:
+                mhz = float(sass_walk.sm_clock_under_load(launch, ms).split(",")[0])
+                terms = nf.frame_floor(floor_in, nk.mlp_dims(params), plan, W * H,
+                                       model == "kerr", mhz)
+                neural_times[key]["floor_ms"] = terms["floor_ms"]
+                phase("neural_timing", neural_floor_line(f"{name} frame", terms, ms, smi))
+        phase("neural_timing", f"{name} ({desc}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"{chains}, bound {b:.3f} ms ({by}) on {smi}")
         if highest:
-            plan = nk.kernel_plan(params, tier)
-            phase("neural_timing", fp32_timing(f"neural_mlp<{model},highest> frame", ms, b,
-                                               library_ms, smi)
-                  + f"; block plan {plan}, {nk.smem_bytes(max(params.widths), *plan, tier)} "
-                  "bytes of shared memory")
+            phase("neural_timing", fp32_timing(f"{name} frame", ms, b, library_ms, smi))
         del params, feats
 
     # 12. texture skyboxes, small: every texture tier x {euler, rk4 + disk,
@@ -1824,6 +1910,10 @@ def main() -> None:
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, config=desc,
                    library_ms=neural_times[key]["library_ms"],
                    max_abs_err=max(rec["max_abs_err"], st["max_abs_err"]))
+        chains = f"cuBLAS MLP chain {neural_times[key]['library_ms']:.3f} ms"
+        if not highest:
+            rec["bf16_chain_ms"] = neural_times[key]["bf16_chain_ms"]
+            chains += f", bf16 tensor-core chain {rec['bf16_chain_ms']:.3f} ms"
         if highest:
             phase("neural_timing", fp32_timing(f"neural_dirs<{model},highest> (N3 planes)", ms,
                                                b, neural_times[key]["library_ms"], smi))
@@ -1831,8 +1921,8 @@ def main() -> None:
               f"bilinear: render_frame 1 neural_mlp launch; direction planes ({dirs_bar(highest)}"
               f"): {json.dumps(st)}; shaded frame against the all-plain one: {json.dumps(fs)}; "
               f"kernel {ms:.3f} ms (the frame kernel on the same net: "
-              f"{neural_times[key]['ms']:.3f} ms), plain {plain_ms:.3f} ms, cuBLAS MLP chain "
-              f"{neural_times[key]['library_ms']:.3f} ms, bound {b:.3f} ms ({by}); texture "
+              f"{neural_times[key]['ms']:.3f} ms), plain {plain_ms:.3f} ms, {chains}, bound "
+              f"{b:.3f} ms ({by}); texture "
               f"epilogue {epilogue_ms:.3f} ms, render_frame {frame_ms:.3f} ms (medians of "
               f"{REPEATS}) on {smi}")
         del out, k, p, plain
@@ -1952,15 +2042,25 @@ def main() -> None:
         torch.cuda.synchronize()
         plain_ms = t0.elapsed_time(t1)
         st = neural_compare(band, plain, highest)
-        ms = cuda_ms(lambda: [nk.neural_render_packed(r.neural_params, cam, scene, precision=tier,
-                                                      device="cuda", out=out, row0=row0,
-                                                      local_shape=(band_rows, W))
-                              for _ in range(3)], 3, REPEATS)
+        # a band's kernel is shorter than the host's issue of it: queued
+        # behind a spin kernel, its time is the card's
+        ms = device_time_ms(lambda: nk.neural_render_packed(
+            r.neural_params, cam, scene, precision=tier, device="cuda", out=out, row0=row0,
+            local_shape=(band_rows, W)), repeats=REPEATS, device="cuda")
         feats = torch.randn((W * band_rows, r.neural_params[0][0].shape[0]), generator=gen,
                             device="cuda")
         tn.mlp_apply(r.neural_params, feats, precision=tier)  # warm-up
         library_ms = cuda_ms(lambda: tn.mlp_apply(r.neural_params, feats, precision=tier), 1,
                              REPEATS)
+        chains = f"cuBLAS MLP chain {library_ms:.3f} ms"
+        if not highest:
+            layers = [(w.to(torch.bfloat16), bias.to(torch.bfloat16))
+                      for w, bias in r.neural_params]
+            xb = feats.to(torch.bfloat16)
+            nf.bf16_chain(layers, xb)  # warm-up
+            rec["bf16_chain_ms"] = cuda_ms(lambda: nf.bf16_chain(layers, xb), 1, REPEATS)
+            chains += f", bf16 tensor-core chain {rec['bf16_chain_ms']:.3f} ms"
+            del layers, xb
         b, by = neural_bound(r.neural_params, model, highest, W * band_rows)
         desc = (f"{NEURAL_ASSETS[key][1]} (hidden {r.neural_params.widths}), {tier}, spin {spin}, "
                 f"camera {cam.position.tolist()}, rows {row0}-{row0 + band_rows - 1} of {W}x{H}")
@@ -1973,8 +2073,7 @@ def main() -> None:
               f"neural_mlp band launches, bit-equal to the whole frame on {same:.6f}; one band "
               f"against its plain version ({neural_bar(highest)}): {json.dumps(st)}; band kernel "
               f"{ms:.3f} ms (the whole frame's kernel {neural_times[key]['ms']:.3f} ms), plain "
-              f"{plain_ms:.3f} ms, cuBLAS MLP chain {library_ms:.3f} ms, bound {b:.3f} ms ({by}) "
-              f"on {smi}")
+              f"{plain_ms:.3f} ms, {chains}, bound {b:.3f} ms ({by}) on {smi}")
         del feats, out, band, plain, whole, frame
         # with the texture a band takes the route its whole frame takes: the
         # direction planes of its rows (N3's band) and the texture epilogue
@@ -2121,6 +2220,8 @@ def main() -> None:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "config": r["config"]})
+        if "bf16_chain_ms" in r:  # the default tier's nearest library call, beside cuBLAS
+            kernels[-1]["bf16_chain_ms"] = r["bf16_chain_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

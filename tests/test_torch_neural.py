@@ -301,26 +301,45 @@ def test_renderer_routes_as_bhr_tpu(kw, route):
 
 
 def test_kernel_plan_fits_shared_memory():
-    """kernel_plan's block fits 227 KB for the assets' widths with two
-    weight-chunk buffers, and for every multiple of 128 up to 1152 (default
-    tier) and 1024 (highest, whose block also holds a layer's outputs in
-    registers: at most 256 x 128 of them, in warp tiles of 32 pixels); it
-    refuses wider nets, other widths and the high tier."""
+    """kernel_plan's block fits 227 KB for the assets' widths -- the
+    default tier's fused layout, N1's weights held whole and N2's streamed
+    through two chunk buffers -- and for every multiple of 128 up to 1152
+    (default tier: the chunked layout beyond 256, two activation buffers
+    and one or two weight chunks) and 1024 (highest, whose block also holds
+    a layer's outputs in registers: at most 256 x 128 of them, in warp
+    tiles of 32 pixels); it refuses wider nets, other widths and the high
+    tier."""
     def net(width, n_in=16, n_out=2, layers=3):
         dims = [n_in] + [width] * layers + [n_out]
         return T.NeuralSurrogate((np.zeros((a, b)), np.zeros(b)) for a, b in zip(dims, dims[1:]))
 
-    assert neural_kernel.kernel_plan(net(128), "default") == (128, 64, 2)
-    assert neural_kernel.kernel_plan(net(256, 22, 3), "default") == (128, 64, 2)
-    assert neural_kernel.kernel_plan(net(128), "highest") == (256, 32, 2)
-    assert neural_kernel.kernel_plan(net(256, 22, 3), "highest") == (128, 32, 2)
-    assert neural_kernel.smem_bytes(256, 128, 64, 2, "default") == (256 + 128) * 264 * 2
-    assert neural_kernel.smem_bytes(256, 128, 32, 2, "highest") == (256 * 132 + 2 * 32 * 256) * 4
+    assert neural_kernel.kernel_plan(net(128), "default") == (384, 0, 0, 128)
+    assert neural_kernel.kernel_plan(net(256, 22, 3), "default") == (256, 64, 2, 256)
+    assert neural_kernel.kernel_plan(net(128), "highest") == (256, 32, 2, 0)
+    assert neural_kernel.kernel_plan(net(256, 22, 3), "highest") == (128, 32, 2, 0)
+    n1, n2 = [16, 128, 128, 128, 2], [32, 256, 256, 256, 3]
+    assert neural_kernel.mlp_dims(net(256, 22, 3)) == n2
+    # fused: 12 warps' staging rows of 136 bf16, the weights held in rows of
+    # in + 8, the head in fp32, 8 floats a pixel; 8 warps' rows of 264, two
+    # chunks of 64 rows of 264, the head, the geometry, 32 bytes of barriers
+    assert neural_kernel.smem_bytes(n1, (384, 0, 0, 128), "default") == (
+        12 * 32 * 136 * 2 + (128 * 24 + 2 * 128 * 136) * 2 + (2 * 128 + 12 * 32 * 8) * 4)
+    assert neural_kernel.smem_bytes(n2, (256, 64, 2, 256), "default") == (
+        8 * 32 * 264 * 2 + 2 * 64 * 264 * 2 + (3 * 256 + 8 * 32 * 8) * 4 + 32)
+    assert neural_kernel.smem_bytes(n2, (128, 64, 2, 0), "default") == (256 + 128) * 264 * 2
+    assert neural_kernel.smem_bytes(n2, (128, 32, 2, 0), "highest") == (
+        256 * 132 + 2 * 32 * 256) * 4
     for tier, widest in (("default", 1152), ("highest", 1024)):
         for width in range(128, widest + 1, 128):
-            pix, nc, nbuf = neural_kernel.kernel_plan(net(width), tier)
-            assert neural_kernel.smem_bytes(width, pix, nc, nbuf, tier) <= neural_kernel.SMEM_LIMIT
-            assert width % nc == 0 and pix % (16 if tier == "default" else 32) == 0
+            plan = neural_kernel.kernel_plan(net(width), tier)
+            pix, nc, nbuf, regs = plan
+            assert neural_kernel.smem_bytes(neural_kernel.mlp_dims(net(width)), plan,
+                                            tier) <= neural_kernel.SMEM_LIMIT
+            if regs:  # fused: every width in the registers, 32 pixels a warp
+                assert tier == "default" and width <= regs and pix == 32 * (12 if regs == 128 else 8)
+                assert (nc, nbuf) == ((0, 0) if regs == 128 else (64, 2))
+            else:
+                assert width % nc == 0 and pix % (16 if tier == "default" else 32) == 0
             assert tier == "default" or pix * width <= 256 * 128
         assert neural_kernel.kernel_plan(net(widest + 128), tier) is None
     assert neural_kernel.kernel_plan(net(192), "default") is None
@@ -330,9 +349,11 @@ def test_kernel_plan_fits_shared_memory():
 
 
 # Seeded random nets, hidden widths (w, 128, w), that reach every block plan
-# of the kernel that the committed nets do not: (tier, model, w, seed), the
-# list chip_smoke.py:PLAN_NETS renders on the card.
-PLAN_NETS = (("default", "kerr", 384, 0), ("default", "schwarzschild", 512, 4),
+# of the kernel that the committed nets do not, and the fused instantiation
+# they do not (Kerr, 128 wide): (tier, model, w, seed), the list
+# chip_smoke.py:PLAN_NETS renders on the card.
+PLAN_NETS = (("default", "kerr", 128, 0),
+             ("default", "kerr", 384, 0), ("default", "schwarzschild", 512, 4),
              ("default", "kerr", 640, 0), ("default", "schwarzschild", 1152, 0),
              ("highest", "schwarzschild", 384, 0), ("highest", "kerr", 512, 0),
              ("highest", "schwarzschild", 640, 0), ("highest", "kerr", 768, 0),
@@ -372,7 +393,7 @@ def test_plan_nets_reach_every_block_plan():
         reached |= {neural_kernel.kernel_plan(random_net(m, w, seed), t)
                     for t, m, w, seed in PLAN_NETS if t == tier}
         assert reached == every, (tier, every - reached)
-        assert {nbuf for _, _, nbuf in reached} == {1, 2}
+        assert {plan[2] for plan in reached} == ({0, 1, 2} if tier == "default" else {1, 2})
 
 
 @pytest.mark.parametrize("case", PLAN_NETS, ids=PLAN_IDS)
@@ -428,7 +449,7 @@ def test_kernel_operands_follow_weight_updates():
 
     def assert_prepared_from(net, ops):
         for (w, b), (w_want, b_want) in zip(ops, neural_kernel.prep_weights(
-                net, precision="default", device=cpu)):
+                net, precision="default", device=cpu, row_pad=8 if plan[3] else 0)):
             assert torch.equal(w, w_want) and torch.equal(b, b_want)
 
     desc, ops = operands()
@@ -445,13 +466,18 @@ def test_kernel_operands_follow_weight_updates():
 
 
 def test_prep_weights_transposes_pads_and_rounds():
-    """W^T (out, in) in bf16 at the default tier, W (in, out) in fp32 at
-    highest, the Kerr net's 22 inputs zero-padded to 32; the bias fp32."""
+    """W^T (out, in) in bf16 at the default tier (each row followed by 8
+    zeros for the fused layout), W (in, out) in fp32 at highest, the Kerr
+    net's 22 inputs zero-padded to 32; the bias fp32."""
     jp, tp = _params()
     ops = neural_kernel.prep_weights(tp, precision="default", device="cpu")
     assert [tuple(w.shape) for w, _ in ops] == [(128, 16), (128, 128), (128, 128), (2, 128)]
     assert all(w.dtype == torch.bfloat16 and b.dtype == torch.float32 for w, b in ops)
     torch.testing.assert_close(ops[1][0], tp[1][0].t().to(torch.bfloat16), rtol=0, atol=0)
+    padded = neural_kernel.prep_weights(tp, precision="default", device="cpu", row_pad=8)
+    assert [tuple(w.shape) for w, _ in padded] == [(128, 24), (128, 136), (128, 136), (2, 136)]
+    for (w, _), (wp, _) in zip(ops, padded):
+        assert torch.equal(wp[:, :w.shape[1]], w) and (wp[:, w.shape[1]:] == 0).all()
     from bhr_tpu_torch.models import neural_kerr
 
     kp, _ = neural_kerr.load_params(ASSETS / "neural_kerr.npz")
@@ -627,6 +653,39 @@ def test_highest_tier_ragged_last_block_on_gpu(model):
                                                         device="cuda", row0=20,
                                                         local_shape=(7, 1013))
     assert_frames_agree(unpack_frame(band).cpu(), unpack_frame(want).cpu(), highest=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["schwarzschild", "kerr"])
+def test_default_tier_ragged_last_block_on_gpu(model):
+    """The default tier over pixel counts that no round of the fused
+    layout divides, so the last warps' pixels are masked: a 97x61 frame,
+    and a band of 7 rows of a 1013x61 frame, each against the plain version
+    at the tier's bars, and the band bit-equal to its whole frame's rows (N1
+    on the committed net, its weights held; N2 on the committed Kerr net at
+    spin 0.9, streamed)."""
+    _need_cuda()
+    from bhr_tpu_torch.models import neural_kerr
+
+    kerr = model == "kerr"
+    tp, _ = (neural_kerr if kerr else tn).load_params(
+        ASSETS / ("neural_kerr.npz" if kerr else "neural_schwarzschild.npz"))
+    tp = tp.to("cuda")
+    assert neural_kernel.kernel_plan(tp, "default")[1:] == ((64, 2, 256) if kerr else (0, 0, 128))
+    cam = T.Camera.new(*SIDE) if kerr else T.Camera.default()
+    spin = 0.9 if kerr else 0.0
+    scene = T.SceneParams(screen_width=97, screen_height=61, spin=spin)
+    got = neural_kernel.neural_render_packed(tp, cam, scene, device="cuda")
+    want = neural_kernel.neural_render_packed_reference(tp, cam, scene, device="cuda")
+    assert_frames_agree(unpack_frame(got).cpu(), unpack_frame(want).cpu())
+    wide = T.SceneParams(screen_width=1013, screen_height=61, spin=spin)
+    whole = neural_kernel.neural_render_packed(tp, cam, wide, device="cuda")
+    band = neural_kernel.neural_render_packed_band(tp, cam, wide, 20, 7, device="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(band, whole[20:27])
+    want = neural_kernel.neural_render_packed_reference(tp, cam, wide, device="cuda", row0=20,
+                                                        local_shape=(7, 1013))
+    assert_frames_agree(unpack_frame(band).cpu(), unpack_frame(want).cpu())
 
 
 @pytest.mark.gpu

@@ -26,8 +26,13 @@ PerformanceStats and PerfLogger, and TimestampQuery on CUDA events
 (render_frame(timestamp_query=)). tools/hopper_probe.py answers, with the
 kernels of csrc/probes.cu, what bhr_tpu's probe scripts asked of the TPU.
 It imports torch and never jax;
-bhr_tpu stays the reference it is tested against.
+bhr_tpu stays the reference it is tested against. utils/tracing records
+the program's spans and counts its kernel launches.
 """
+
+import time as _time
+
+_IMPORT_START_NS = _time.time_ns()
 
 from .animation import OrbitAnimator, PathAnimator
 from .core.camera import Camera, generate_rays, orbit_camera
@@ -64,6 +69,7 @@ from .renderer import (
 )
 from .utils.perf import PerfLogger, PerformanceStats
 from .utils.timing import TimestampQuery
+from .utils import tracing
 
 __version__ = "0.1.0"
 
@@ -107,3 +113,6 @@ __all__ = [
     "trace_rays",
     "trace_result_from_numpy",
 ]
+
+tracing.record("setup.import", _IMPORT_START_NS, _time.time_ns())
+del _IMPORT_START_NS, _time

@@ -37,6 +37,7 @@ from .ops.multires import render_multires
 from .ops.neural_kernel import dirs_kernel_takes
 from .ops.trace_kernel import empty_trace_result, monolithic_eligible
 from .renderer import BlackHoleRenderer, render_image
+from .utils import tracing
 
 
 class PathAnimator:
@@ -57,31 +58,43 @@ class PathAnimator:
     def render_frames(self, n_frames: int, fps: float = 60.0, start_frame: int = 0,
                       scene=None, packed: bool = False) -> torch.Tensor:
         """Frames on the renderer's device: uint8 (F, H, W, 4), or packed
-        int32 (F, H, W) when `packed`. Does not wait for the device."""
-        r = self.renderer
-        scene = r.frame_scene(scene)
-        disk_params = r.disk_params(scene)
-        frames = torch.empty((n_frames, r.height, r.width), dtype=torch.int32, device=r.device)
-        neural = r.config.integrator == "neural"
-        if neural:  # the direction-plane kernel writes into planes; the staged route does not
-            staged = r.skybox is not None and dirs_kernel_takes(
-                r.neural_params, scene, dtype=r.neural_dtype, precision=r.neural_precision)
-        else:
-            staged = not r.multires and not monolithic_eligible(
-                r.config, scene, fast_math=r.fast_math, skybox=r.skybox, disk_params=disk_params,
-                tonemap=r.tonemap)
-        planes = empty_trace_result(r.height, r.width, r.device) if staged else None
-        for k, t in enumerate(self.frame_times(n_frames, fps, start_frame)):
-            cam = self.camera_fn(t)
-            if r.multires and not neural:
-                render_multires(cam, scene, packed=True, out=frames[k],
-                                **r.multires_kwargs(scene, r.multires))
+        int32 (F, H, W) when `packed`. Does not wait for the device. While
+        utils/tracing records, the call is a span "host.frames" and the
+        spans of frame k carry start_frame + k."""
+        with tracing.span("host.frames"):
+            r = self.renderer
+            scene = r.frame_scene(scene)
+            disk_params = r.disk_params(scene)
+            frames = torch.empty((n_frames, r.height, r.width), dtype=torch.int32,
+                                 device=r.device)
+            neural = r.config.integrator == "neural"
+            if neural:  # the direction-plane kernel writes into planes; the staged route does not
+                staged = r.skybox is not None and dirs_kernel_takes(
+                    r.neural_params, scene, dtype=r.neural_dtype, precision=r.neural_precision)
             else:
-                render_image(cam, scene, config=r.config, fast_math=r.fast_math, device=r.device,
-                             tonemap=r.tonemap, seed=r.skybox_seed, packed=True,
-                             disk_params=disk_params, lut=r._lut, out=frames[k], planes=planes,
-                             **r.shade_kwargs(), **r.neural_kwargs())
-        return frames if packed else unpack_frame(frames)
+                staged = not r.multires and not monolithic_eligible(
+                    r.config, scene, fast_math=r.fast_math, skybox=r.skybox,
+                    disk_params=disk_params, tonemap=r.tonemap)
+            planes = empty_trace_result(r.height, r.width, r.device) if staged else None
+            with tracing.span("host.camera"):
+                times = self.frame_times(n_frames, fps, start_frame)
+            try:
+                for k, t in enumerate(times):
+                    tracing.set_frame(start_frame + k)
+                    with tracing.span("host.camera"):
+                        cam = self.camera_fn(t)
+                    if r.multires and not neural:
+                        render_multires(cam, scene, packed=True, out=frames[k],
+                                        **r.multires_kwargs(scene, r.multires))
+                    else:
+                        render_image(cam, scene, config=r.config, fast_math=r.fast_math,
+                                     device=r.device, tonemap=r.tonemap, seed=r.skybox_seed,
+                                     packed=True, disk_params=disk_params, lut=r._lut,
+                                     out=frames[k], planes=planes, **r.shade_kwargs(),
+                                     **r.neural_kwargs())
+            finally:
+                tracing.set_frame(None)
+            return frames if packed else unpack_frame(frames)
 
     def _manifest(self, fps, scene) -> dict:
         """Render-run fingerprint for the manifest sidecar: everything that

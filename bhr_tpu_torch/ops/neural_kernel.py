@@ -50,6 +50,7 @@ from ..models.neural import (
 from ..models.neural_kerr import criticality_kerr
 from .sampling import pack_rgba8_planes
 from .starfield import procedural_background, seed_term
+from ..utils import tracing
 from ..utils.build import MAX_LAYERS, MlpDesc
 from .trace import STATUS_CAPTURED, STATUS_ESCAPED, TraceConfig, TraceResult
 from .trace_kernel import (
@@ -71,15 +72,6 @@ from .trace_kernel import (
     _raise_on_error,
     build_params,
 )
-
-# Kernel launches so far in this process: incremented by `neural_render_packed`
-# (NEURAL_LAUNCHES) and `neural_trace_dirs` (NEURAL_DIRS_LAUNCHES) right after
-# a successful launch of csrc/neural_mlp.cu, and nowhere else.
-# NEURAL_BAND_LAUNCHES counts, besides, the neural_render_packed launches
-# given a band (`local_shape`; N4).
-NEURAL_LAUNCHES = 0
-NEURAL_DIRS_LAUNCHES = 0
-NEURAL_BAND_LAUNCHES = 0
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use (sm_90)
 KERNEL_TIERS = ("default", "highest")
@@ -249,22 +241,25 @@ def _mlp_desc(params: NeuralSurrogate, precision: str, device: torch.device, pla
     """The kernel's MlpDesc for `params`, with its operands, kept on the
     module per tier and device (their pointers are in the descriptor) and
     prepared again once `weights_stamp` changes."""
-    key = (precision, str(device))
-    stamp = weights_stamp(params)
-    held = params._kernel_operands.get(key)
-    if held is None or held[0] != stamp:
-        ops = prep_weights(params, precision=precision, device=device,
-                           row_pad=8 if plan[3] else 0)
-        desc = MlpDesc()
-        desc.n_layers = len(ops)
-        for i, (w, b) in enumerate(ops):
-            desc.dims[i] = params[i][0].shape[0] if i else padded_inputs(params[0][0].shape[0])
-            desc.w[i] = w.data_ptr()
-            desc.b[i] = b.data_ptr()
-        desc.dims[len(ops)] = params[-1][0].shape[1]
-        desc.pix, desc.n_chunk, desc.nbuf, desc.regs = plan
-        params._kernel_operands[key] = held = (stamp, ops, desc)
-    return held[2]
+    with tracing.span("host.params"):
+        key = (precision, str(device))
+        stamp = weights_stamp(params)
+        held = params._kernel_operands.get(key)
+        if held is None or held[0] != stamp:
+            with tracing.span("setup.neural_prepare"):
+                ops = prep_weights(params, precision=precision, device=device,
+                                   row_pad=8 if plan[3] else 0)
+                desc = MlpDesc()
+                desc.n_layers = len(ops)
+                for i, (w, b) in enumerate(ops):
+                    desc.dims[i] = (params[i][0].shape[0] if i
+                                    else padded_inputs(params[0][0].shape[0]))
+                    desc.w[i] = w.data_ptr()
+                    desc.b[i] = b.data_ptr()
+                desc.dims[len(ops)] = params[-1][0].shape[1]
+                desc.pix, desc.n_chunk, desc.nbuf, desc.regs = plan
+                params._kernel_operands[key] = held = (stamp, ops, desc)
+        return held[2]
 
 
 def _directions_reference(params: NeuralSurrogate, camera: Camera, scene: SceneParams,
@@ -433,25 +428,25 @@ def neural_render_packed(params, camera: Camera, scene: SceneParams, *, seed: in
     for. `out`, if given, is a contiguous int32 (H, W) tensor on `device`
     that receives the frame or band.
     """
-    global NEURAL_LAUNCHES, NEURAL_BAND_LAUNCHES
-    params = as_surrogate(params)
-    precision = kernel_tier(precision)
-    plan = _plan(params, precision)
-    device = _kernel_device(device, "neural_render_packed")
-    shape = _local_shape(scene, 1, local_shape)
-    if out is not None:
-        _check_out(out, shape, torch.int32, device, "out")
-    if device.type == "cpu":
-        frame = neural_render_packed_reference(params, camera, scene, seed=seed,
-                                               precision=precision, device=device, row0=row0,
-                                               local_shape=local_shape)
-        return frame if out is None else out.copy_(frame)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.int32, device=device)
-    _launch(params, camera, scene, precision, plan, device, seed, row0, shape, out, None, None)
-    NEURAL_LAUNCHES += 1
-    NEURAL_BAND_LAUNCHES += local_shape is not None
-    return out
+    with tracing.span("kernel.neural_mlp"):
+        params = as_surrogate(params)
+        precision = kernel_tier(precision)
+        plan = _plan(params, precision)
+        device = _kernel_device(device, "neural_render_packed")
+        shape = _local_shape(scene, 1, local_shape)
+        if out is not None:
+            _check_out(out, shape, torch.int32, device, "out")
+        if device.type == "cpu":
+            frame = neural_render_packed_reference(params, camera, scene, seed=seed,
+                                                   precision=precision, device=device, row0=row0,
+                                                   local_shape=local_shape)
+            return frame if out is None else out.copy_(frame)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.int32, device=device)
+        _launch(params, camera, scene, precision, plan, device, seed, row0, shape, out, None, None)
+        tracing.COUNTS["launch.neural_mlp"] += 1
+        tracing.COUNTS["launch.neural_mlp.band"] += local_shape is not None
+        return out
 
 
 def neural_render_packed_band(params, camera: Camera, scene: SceneParams, row0: int,
@@ -485,26 +480,27 @@ def neural_trace_dirs(params, camera: Camera, scene: SceneParams, *, precision="
     contiguous final_vel fp32 (H, W, 3) and status int32 (H, W) receive
     the planes; its final_pos and steps are not written.
     """
-    global NEURAL_DIRS_LAUNCHES
-    params = as_surrogate(params)
-    precision = kernel_tier(precision)
-    plan = _plan(params, precision)
-    device = _kernel_device(device, "neural_trace_dirs")
-    h, w = _local_shape(scene, 1, local_shape)
-    if out is not None:
-        _check_out(out.final_vel, (h, w, 3), torch.float32, device, "out.final_vel")
-        _check_out(out.status, (h, w), torch.int32, device, "out.status")
-    if device.type == "cpu":
-        result = neural_trace_dirs_reference(params, camera, scene, precision=precision,
-                                             device=device, row0=row0, local_shape=local_shape)
-        if out is None:
-            return result
-        out.final_vel.copy_(result.final_vel)
-        out.status.copy_(result.status)
-        return _trace_result(out.final_vel, out.status, camera, scene)
-    vel = torch.empty((h, w, 3), dtype=torch.float32, device=device) if out is None \
-        else out.final_vel
-    status = torch.empty((h, w), dtype=torch.int32, device=device) if out is None else out.status
-    _launch(params, camera, scene, precision, plan, device, 0, row0, (h, w), None, vel, status)
-    NEURAL_DIRS_LAUNCHES += 1
-    return _trace_result(vel, status, camera, scene)
+    with tracing.span("kernel.neural_mlp"):
+        params = as_surrogate(params)
+        precision = kernel_tier(precision)
+        plan = _plan(params, precision)
+        device = _kernel_device(device, "neural_trace_dirs")
+        h, w = _local_shape(scene, 1, local_shape)
+        if out is not None:
+            _check_out(out.final_vel, (h, w, 3), torch.float32, device, "out.final_vel")
+            _check_out(out.status, (h, w), torch.int32, device, "out.status")
+        if device.type == "cpu":
+            result = neural_trace_dirs_reference(params, camera, scene, precision=precision,
+                                                 device=device, row0=row0, local_shape=local_shape)
+            if out is None:
+                return result
+            out.final_vel.copy_(result.final_vel)
+            out.status.copy_(result.status)
+            return _trace_result(out.final_vel, out.status, camera, scene)
+        vel = torch.empty((h, w, 3), dtype=torch.float32, device=device) if out is None \
+            else out.final_vel
+        status = (torch.empty((h, w), dtype=torch.int32, device=device) if out is None
+                  else out.status)
+        _launch(params, camera, scene, precision, plan, device, 0, row0, (h, w), None, vel, status)
+        tracing.COUNTS["launch.neural_mlp.dirs"] += 1
+        return _trace_result(vel, status, camera, scene)

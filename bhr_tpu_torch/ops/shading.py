@@ -16,6 +16,7 @@ import torch
 from ..core.math import dot, on_device, sqrt_rn
 from ..core.scene import DEBUG_STEPS
 from ..models.disk import disk_emission
+from ..utils import tracing
 from .heatmap import steps_to_color
 from .sampling import (
     pack_rgba8_planes,
@@ -56,7 +57,8 @@ def shade_planes_packed(
         rgb = steps_to_color(result.steps, max_steps)
         return pack_rgba8_planes(rgb[..., 0], rgb[..., 1], rgb[..., 2], half_up=half_up)
     vel = result.final_vel
-    r, g, b = background(vel[..., 0], vel[..., 1], vel[..., 2])
+    with tracing.span("epilogue.background"):
+        r, g, b = background(vel[..., 0], vel[..., 1], vel[..., 2])
     captured = result.status == STATUS_CAPTURED
     zero = torch.zeros((), dtype=torch.float32, device=r.device)
     r = torch.where(captured, zero, r)

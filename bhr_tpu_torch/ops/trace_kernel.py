@@ -31,6 +31,7 @@ from ..core.camera import Camera, generate_rays
 from ..core.math import dot, sqrt_rn
 from ..core.scene import CAPTURE_FACTOR, SceneParams
 from ..models.disk import T_ISCO, kernel_lut_np, shade_disk_planes
+from ..utils import tracing
 from ..utils.plugin import cuda_source
 from .geodesic import INTEGRATORS, MODELS, model_capture_radius
 from .sampling import pack_rgba8_planes
@@ -44,17 +45,6 @@ from .trace import (
     check_traceable,
     trace_rays,
 )
-
-# Kernel launches so far in this process: each is incremented by its
-# wrapper right after a successful launch of its CUDA kernel, and nowhere
-# else (`render_packed` -> render_mono.cu, `trace_image` -> trace_planes.cu).
-# STRIDED_LAUNCHES, MASKED_LAUNCHES and CUSTOM_LAUNCHES count, besides, the
-# trace_planes launches with stride != 1, with a mask and with plugin physics.
-LAUNCHES = 0
-TRACE_LAUNCHES = 0
-STRIDED_LAUNCHES = 0
-MASKED_LAUNCHES = 0
-CUSTOM_LAUNCHES = 0
 
 # params vector layout (fp32[32]), as bhr_tpu/ops/pallas_trace.py:181-201
 _P_CAM = 0  # 0:3 camera position
@@ -209,9 +199,10 @@ def _raise_on_error(lib, rc: int, what: str) -> None:
 def _kernel_params(camera, scene, config, row0=0, col0=0, stride=1):
     from ..utils.build import KernelParams
 
-    params = KernelParams()
-    params.v[:] = build_params(camera, scene, config, row0, col0, stride).tolist()
-    return params
+    with tracing.span("host.params"):
+        params = KernelParams()
+        params.v[:] = build_params(camera, scene, config, row0, col0, stride).tolist()
+        return params
 
 
 # ---- the monolithic kernel ----------------------------------------------------
@@ -271,9 +262,10 @@ def _set_disk_lut(device_index: int) -> None:
     from ..utils.build import load_render_mono
 
     lib = load_render_mono()
-    lut = kernel_lut_np()
-    _raise_on_error(lib, lib.bhr_set_disk_lut(device_index, lut.ctypes.data, lut.size),
-                    "bhr_set_disk_lut")
+    with tracing.span("setup.disk_lut"):
+        lut = kernel_lut_np()
+        _raise_on_error(lib, lib.bhr_set_disk_lut(device_index, lut.ctypes.data, lut.size),
+                        "bhr_set_disk_lut")
 
 
 def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = TraceConfig(),
@@ -295,32 +287,32 @@ def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = Trac
     receives the frame or band (the animation path renders into slices of
     one preallocated tensor).
     """
-    global LAUNCHES
-    _check_mono_config(config, scene, fast_math)
-    device = _kernel_device(device, "render_packed")
-    shape = _local_shape(scene, 1, local_shape)
-    if out is not None:
-        _check_out(out, shape, torch.int32, device, "out")
-    if device.type == "cpu":
-        frame = render_packed_reference(camera, scene, config, seed=seed, fast_math=fast_math,
-                                        device=device, row0=row0, local_shape=local_shape)
-        return frame if out is None else out.copy_(frame)
-    from ..utils.build import load_render_mono
+    with tracing.span("kernel.render_mono"):
+        _check_mono_config(config, scene, fast_math)
+        device = _kernel_device(device, "render_packed")
+        shape = _local_shape(scene, 1, local_shape)
+        if out is not None:
+            _check_out(out, shape, torch.int32, device, "out")
+        if device.type == "cpu":
+            frame = render_packed_reference(camera, scene, config, seed=seed, fast_math=fast_math,
+                                            device=device, row0=row0, local_shape=local_shape)
+            return frame if out is None else out.copy_(frame)
+        from ..utils.build import load_render_mono
 
-    lib = load_render_mono()
-    if config.disk:
-        _set_disk_lut(device.index)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.bhr_render_mono(
-        _kernel_params(camera, scene, config, row0), seed_term(seed), int(bool(fast_math)),
-        INTEGRATORS.index(config.integrator), trace_flags(config), shape[0], shape[1],
-        int(scene.max_steps), device.index, out.data_ptr(), stream,
-    )
-    _raise_on_error(lib, rc, "render_mono launch")
-    LAUNCHES += 1
-    return out
+        lib = load_render_mono()
+        if config.disk:
+            _set_disk_lut(device.index)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.int32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.bhr_render_mono(
+            _kernel_params(camera, scene, config, row0), seed_term(seed), int(bool(fast_math)),
+            INTEGRATORS.index(config.integrator), trace_flags(config), shape[0], shape[1],
+            int(scene.max_steps), device.index, out.data_ptr(), stream,
+        )
+        _raise_on_error(lib, rc, "render_mono launch")
+        tracing.COUNTS["launch.render_mono"] += 1
+        return out
 
 
 # ---- the planes kernel --------------------------------------------------------
@@ -426,48 +418,48 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
     With plugin physics (config.model "custom") the kernel is built with
     the plugin's acceleration (utils/build.load_trace_planes_custom; the
     recording raises ValueError for a plugin it cannot take) and the launch
-    counts in CUSTOM_LAUNCHES too.
+    counts in tracing.COUNTS["launch.trace_planes.custom"] too.
     """
-    global TRACE_LAUNCHES, STRIDED_LAUNCHES, MASKED_LAUNCHES, CUSTOM_LAUNCHES
-    check_traceable(config)
-    device = _kernel_device(device, "trace_image")
-    h, w = _local_shape(scene, stride, local_shape)
-    if mask is not None:
-        _check_mask(mask, (h, w), device)
-    if out is not None:
-        for name, shape, dtype in (("final_pos", (h, w, 3), torch.float32),
-                                   ("final_vel", (h, w, 3), torch.float32),
-                                   ("status", (h, w), torch.int32),
-                                   ("steps", (h, w), torch.int32)):
-            _check_out(getattr(out, name), shape, dtype, device, f"out.{name}")
-    if device.type == "cpu":
-        result = trace_image_reference(camera, scene, config, fast_math=fast_math, device=device,
-                                       mask=mask, stride=stride, local_shape=local_shape,
-                                       row0=row0, col0=col0)
-        if out is None:
-            return result
-        for name in ("final_pos", "final_vel", "status", "steps"):
-            getattr(out, name).copy_(getattr(result, name))
-        return out
-    from ..utils.build import load_trace_planes, load_trace_planes_custom
+    with tracing.span("kernel.trace_planes"):
+        check_traceable(config)
+        device = _kernel_device(device, "trace_image")
+        h, w = _local_shape(scene, stride, local_shape)
+        if mask is not None:
+            _check_mask(mask, (h, w), device)
+        if out is not None:
+            for name, shape, dtype in (("final_pos", (h, w, 3), torch.float32),
+                                       ("final_vel", (h, w, 3), torch.float32),
+                                       ("status", (h, w), torch.int32),
+                                       ("steps", (h, w), torch.int32)):
+                _check_out(getattr(out, name), shape, dtype, device, f"out.{name}")
+        if device.type == "cpu":
+            result = trace_image_reference(camera, scene, config, fast_math=fast_math,
+                                           device=device, mask=mask, stride=stride,
+                                           local_shape=local_shape, row0=row0, col0=col0)
+            if out is None:
+                return result
+            for name in ("final_pos", "final_vel", "status", "steps"):
+                getattr(out, name).copy_(getattr(result, name))
+            return out
+        from ..utils.build import load_trace_planes, load_trace_planes_custom
 
-    custom = config.model == "custom"
-    if custom:
-        lib = load_trace_planes_custom(cuda_source(config.custom_accel))
-    else:
-        lib = load_trace_planes()
-    if out is None:
-        out = empty_trace_result(h, w, device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.bhr_trace_planes(
-        _kernel_params(camera, scene, config, row0, col0, stride), int(bool(fast_math)),
-        INTEGRATORS.index(config.integrator), trace_flags(config), h, w, int(scene.max_steps),
-        device.index, None if mask is None else mask.data_ptr(), out.final_pos.data_ptr(),
-        out.final_vel.data_ptr(), out.status.data_ptr(), out.steps.data_ptr(), stream,
-    )
-    _raise_on_error(lib, rc, "trace_planes launch")
-    TRACE_LAUNCHES += 1
-    STRIDED_LAUNCHES += stride != 1
-    MASKED_LAUNCHES += mask is not None
-    CUSTOM_LAUNCHES += custom
-    return out
+        custom = config.model == "custom"
+        if custom:
+            lib = load_trace_planes_custom(cuda_source(config.custom_accel))
+        else:
+            lib = load_trace_planes()
+        if out is None:
+            out = empty_trace_result(h, w, device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.bhr_trace_planes(
+            _kernel_params(camera, scene, config, row0, col0, stride), int(bool(fast_math)),
+            INTEGRATORS.index(config.integrator), trace_flags(config), h, w, int(scene.max_steps),
+            device.index, None if mask is None else mask.data_ptr(), out.final_pos.data_ptr(),
+            out.final_vel.data_ptr(), out.status.data_ptr(), out.steps.data_ptr(), stream,
+        )
+        _raise_on_error(lib, rc, "trace_planes launch")
+        tracing.COUNTS["launch.trace_planes"] += 1
+        tracing.COUNTS["launch.trace_planes.strided"] += stride != 1
+        tracing.COUNTS["launch.trace_planes.masked"] += mask is not None
+        tracing.COUNTS["launch.trace_planes.custom"] += custom
+        return out

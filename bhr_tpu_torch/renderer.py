@@ -70,6 +70,7 @@ from .ops.sampling import luma_pack_texture, pack_texture_rgba8, unpack_frame
 from .ops.shading import shade_planes_packed, texture_background
 from .ops.trace import TraceConfig, TraceResult
 from .ops.trace_kernel import monolithic_eligible, render_packed, trace_image
+from .utils import tracing
 from .utils.plugin import cuda_source, load_plugin
 
 
@@ -246,25 +247,26 @@ def shade_image(result: TraceResult, camera: Camera, scene: SceneParams, disk_pa
     round-half-to-even quantization in both tiers. Returns uint8
     (H, W, 4), or packed int32 (H, W) when `packed`; `out`, if given,
     receives the packed frame."""
-    tm = TONEMAPS[tonemap]
-    frame = shade_planes_packed(
-        result,
-        texture_background(skybox, result, texture_filter=texture_filter,
-                           texture_subsample=texture_subsample, seed=seed,
-                           approximate=scene.debug_mode == 0),
-        scene.max_steps,
-        debug_mode=scene.debug_mode,
-        bh_pos=scene.black_hole_position,
-        rs=scene.schwarzschild_radius,
-        camera_position=camera.position,
-        disk_params=disk_params,
-        blackbody_lut=lut,
-        tonemap=None if tonemap == "passthrough" else tm,
-        half_up=False,
-    )
-    if out is not None:
-        frame = out.copy_(frame)
-    return frame if packed else unpack_frame(frame)
+    with tracing.span("epilogue"):
+        tm = TONEMAPS[tonemap]
+        frame = shade_planes_packed(
+            result,
+            texture_background(skybox, result, texture_filter=texture_filter,
+                               texture_subsample=texture_subsample, seed=seed,
+                               approximate=scene.debug_mode == 0),
+            scene.max_steps,
+            debug_mode=scene.debug_mode,
+            bh_pos=scene.black_hole_position,
+            rs=scene.schwarzschild_radius,
+            camera_position=camera.position,
+            disk_params=disk_params,
+            blackbody_lut=lut,
+            tonemap=None if tonemap == "passthrough" else tm,
+            half_up=False,
+        )
+        if out is not None:
+            frame = out.copy_(frame)
+        return frame if packed else unpack_frame(frame)
 
 
 class BlackHoleRenderer:
@@ -477,7 +479,8 @@ class BlackHoleRenderer:
         None without the disk. Built by fill kernels: no host sync."""
         if not self.config.disk:
             return None
-        return DiskParams.for_scene(on_device(scene.schwarzschild_radius, self.device))
+        with tracing.span("epilogue"):
+            return DiskParams.for_scene(on_device(scene.schwarzschild_radius, self.device))
 
     def shade_kwargs(self) -> dict:
         """shade_image's and render_image's texture arguments."""

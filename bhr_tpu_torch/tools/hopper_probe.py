@@ -63,13 +63,8 @@ import sys
 import numpy as np
 import torch
 
-from ..utils import build
+from ..utils import build, tracing
 from ..utils.timing import device_time_ms
-
-# Kernel launches so far in this process, by variant (the names of the
-# `kernels` line of chip_smoke.py): incremented by `ieee`, `gather`, `dot`
-# and `concat` right after a successful launch, and nowhere else.
-LAUNCHES: collections.Counter = collections.Counter()
 
 IEEE_OPS = {"div": 0, "fdiv_rn": 1, "fsqrt_rn": 2, "sqrtf": 3, "frsqrt_rn": 4, "rsqrtf": 5,
             "rcp_approx": 6, "markstein": 7, "sqrt_seq": 8, "shared_div": 9, "rcp_group": 10,
@@ -367,7 +362,7 @@ def ieee(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *, n_refine: i
                             out.data_ptr(), n, int(n_refine), int(fixup), int(fma), device,
                             stream)
     _raise(lib, rc, f"probe_ieee<{op}>")
-    LAUNCHES[f"probe_ieee<{op}>"] += 1
+    tracing.COUNTS[f"launch.probe_ieee<{op}>"] += 1
     return out
 
 
@@ -476,7 +471,7 @@ def gather(src: str, table: torch.Tensor, idx: torch.Tensor | None = None, *, sh
                               GATHER_PATTERNS[pattern], seed & 0xFFFFFFFF, h, w, out.data_ptr(),
                               device, stream)
     _raise(lib, rc, f"probe_gather<{src}>")
-    LAUNCHES[f"probe_gather<{src}>"] += 1
+    tracing.COUNTS[f"launch.probe_gather<{src}>"] += 1
     return out
 
 
@@ -546,7 +541,7 @@ def dot(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None, *,
                            bias.data_ptr() if bias is not None else None, out.data_ptr(), m, k,
                            n, device, stream)
     _raise(lib, rc, f"probe_dot<{prec}>")
-    LAUNCHES[f"probe_dot<{prec}>"] += 1
+    tracing.COUNTS[f"launch.probe_dot<{prec}>"] += 1
     return out
 
 
@@ -584,7 +579,7 @@ def concat(plane: torch.Tensor, n_rows: int, period: int | None = None, *,
                               plane.shape[1], period or n_rows, device, stream)
     name = f"probe_concat<{'bf16' if bf16 else 'fp32'}>"
     _raise(lib, rc, name)
-    LAUNCHES[name] += 1
+    tracing.COUNTS[f"launch.{name}"] += 1
     return out
 
 
@@ -1308,7 +1303,7 @@ def main(argv=None) -> int:
                          "torch": torch.__version__, "cuda": torch.version.cuda}))
     run = run_probes(args.device, small=args.small, emit=emit)
     for name, rec in sorted(run.kernels.items()):
-        emit(json.dumps({"kernel": name, "launches": LAUNCHES[name], **rec}))
+        emit(json.dumps({"kernel": name, "launches": tracing.COUNTS[f"launch.{name}"], **rec}))
     emit(json.dumps({"failed": run.failed}))
     if args.out:
         with open(args.out, "w") as fh:

@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from . import tracing
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bhr_tpu_torch"
 NVCC_FLAGS = (
@@ -105,63 +107,67 @@ def build(name: str, sources=RENDER_MONO_SOURCES, include: str = "") -> BuildInf
     of a header included before each source (-include; its own #include
     lines find csrc/). Raises CalledProcessError with nvcc's output when
     the build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    digest = _source_hash(sources, include)
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.exists():
-        return BuildInfo(lib, 0.0, "")
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    extra = []
-    if include:
-        header = BUILD_DIR / f"{name}-{digest}.cuh"
-        header.write_text(include)
-        extra = ["-I", str(CSRC_DIR), "-include", str(header)]
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in sources)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise subprocess.CalledProcessError(
-            proc.returncode, cmd, output=proc.stdout, stderr=proc.stderr
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+    with tracing.span("setup.build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        digest = _source_hash(sources, include)
+        lib = BUILD_DIR / f"lib{name}-{digest}.so"
+        if lib.exists():
+            return BuildInfo(lib, 0.0, "")
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        extra = []
+        if include:
+            header = BUILD_DIR / f"{name}-{digest}.cuh"
+            header.write_text(include)
+            extra = ["-I", str(CSRC_DIR), "-include", str(header)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+               *(str(CSRC_DIR / s) for s in sources)]
+        t0 = time.perf_counter()
+        with tracing.span("setup.nvcc"):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise subprocess.CalledProcessError(
+                proc.returncode, cmd, output=proc.stdout, stderr=proc.stderr
+            )
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+        return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
 
 
 @functools.cache
 def load_render_mono() -> ctypes.CDLL:
     """Build (at first use) and load the monolithic render kernel's library,
     with the C signatures of csrc/render_mono.cu declared."""
-    lib = ctypes.CDLL(str(build("render_mono").path))
-    lib.bhr_render_mono.argtypes = [
-        KernelParams,  # params, by value
-        ctypes.c_uint32,  # seed_term
-        ctypes.c_int,  # fast
-        ctypes.c_int,  # integrator
-        ctypes.c_int,  # flags
-        ctypes.c_int,  # height
-        ctypes.c_int,  # width
-        ctypes.c_int,  # max_steps
-        ctypes.c_int,  # device
-        ctypes.c_void_p,  # out
-        ctypes.c_void_p,  # stream
-    ]
-    lib.bhr_render_mono.restype = ctypes.c_int
-    lib.bhr_set_disk_lut.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-    lib.bhr_set_disk_lut.restype = ctypes.c_int
-    lib.bhr_error_string.argtypes = [ctypes.c_int]
-    lib.bhr_error_string.restype = ctypes.c_char_p
-    return lib
+    with tracing.span("setup.load"):
+        lib = ctypes.CDLL(str(build("render_mono").path))
+        lib.bhr_render_mono.argtypes = [
+            KernelParams,  # params, by value
+            ctypes.c_uint32,  # seed_term
+            ctypes.c_int,  # fast
+            ctypes.c_int,  # integrator
+            ctypes.c_int,  # flags
+            ctypes.c_int,  # height
+            ctypes.c_int,  # width
+            ctypes.c_int,  # max_steps
+            ctypes.c_int,  # device
+            ctypes.c_void_p,  # out
+            ctypes.c_void_p,  # stream
+        ]
+        lib.bhr_render_mono.restype = ctypes.c_int
+        lib.bhr_set_disk_lut.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        lib.bhr_set_disk_lut.restype = ctypes.c_int
+        lib.bhr_error_string.argtypes = [ctypes.c_int]
+        lib.bhr_error_string.restype = ctypes.c_char_p
+        return lib
 
 
 @functools.cache
 def load_trace_planes() -> ctypes.CDLL:
     """Build (at first use) and load the staged trace kernel's library,
     with the C signatures of csrc/trace_planes.cu declared."""
-    return _declare_trace_planes(ctypes.CDLL(str(build("trace_planes",
-                                                       TRACE_PLANES_SOURCES).path)))
+    with tracing.span("setup.load"):
+        return _declare_trace_planes(ctypes.CDLL(str(build("trace_planes",
+                                                           TRACE_PLANES_SOURCES).path)))
 
 
 @functools.cache
@@ -169,8 +175,9 @@ def load_trace_planes_custom(plugin_source: str) -> ctypes.CDLL:
     """Build (at first use, once per plugin) and load trace_planes.cu with
     the plugin's acceleration: `plugin_source` is the header of
     utils/plugin.Program.cuda_source, which defines BHR_CUSTOM_ACCEL."""
-    info = build("trace_planes_custom", TRACE_PLANES_SOURCES, include=plugin_source)
-    return _declare_trace_planes(ctypes.CDLL(str(info.path)))
+    with tracing.span("setup.load"):
+        info = build("trace_planes_custom", TRACE_PLANES_SOURCES, include=plugin_source)
+        return _declare_trace_planes(ctypes.CDLL(str(info.path)))
 
 
 def _declare_trace_planes(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -200,50 +207,52 @@ def _declare_trace_planes(lib: ctypes.CDLL) -> ctypes.CDLL:
 def load_neural_mlp() -> ctypes.CDLL:
     """Build (at first use) and load the neural surrogate's kernel library,
     with the C signatures of csrc/neural_mlp.cu declared."""
-    lib = ctypes.CDLL(str(build("neural_mlp", NEURAL_MLP_SOURCES).path))
-    lib.bhr_neural_render.argtypes = [
-        KernelParams,  # params, by value
-        ctypes.c_uint32,  # seed_term
-        ctypes.c_int,  # kerr
-        ctypes.c_int,  # highest
-        ctypes.c_int,  # height
-        ctypes.c_int,  # width
-        MlpDesc,  # the MLP, by value
-        ctypes.c_int,  # device
-        ctypes.c_void_p,  # out: the packed frame, or null
-        ctypes.c_void_p,  # vel: the direction planes (N3), or null
-        ctypes.c_void_p,  # status
-        ctypes.c_void_p,  # stream
-    ]
-    lib.bhr_neural_render.restype = ctypes.c_int
-    lib.bhr_error_string.argtypes = [ctypes.c_int]
-    lib.bhr_error_string.restype = ctypes.c_char_p
-    return lib
+    with tracing.span("setup.load"):
+        lib = ctypes.CDLL(str(build("neural_mlp", NEURAL_MLP_SOURCES).path))
+        lib.bhr_neural_render.argtypes = [
+            KernelParams,  # params, by value
+            ctypes.c_uint32,  # seed_term
+            ctypes.c_int,  # kerr
+            ctypes.c_int,  # highest
+            ctypes.c_int,  # height
+            ctypes.c_int,  # width
+            MlpDesc,  # the MLP, by value
+            ctypes.c_int,  # device
+            ctypes.c_void_p,  # out: the packed frame, or null
+            ctypes.c_void_p,  # vel: the direction planes (N3), or null
+            ctypes.c_void_p,  # status
+            ctypes.c_void_p,  # stream
+        ]
+        lib.bhr_neural_render.restype = ctypes.c_int
+        lib.bhr_error_string.argtypes = [ctypes.c_int]
+        lib.bhr_error_string.restype = ctypes.c_char_p
+        return lib
 
 
 @functools.cache
 def load_probes() -> ctypes.CDLL:
     """Build (at first use) and load the probe kernels' library, with the C
     signatures of csrc/probes.cu declared."""
-    lib = ctypes.CDLL(str(build("probes", PROBE_SOURCES).path))
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    lib.bhr_probe_ieee.argtypes = [c_int, ptr, ptr, ptr, ctypes.c_int64, c_int, c_int, c_int,
-                                   c_int, ptr]
-    lib.bhr_probe_ieee.restype = c_int
-    # src, tbl, th, tw, idx, pattern, seed, height, width, out, device, stream
-    lib.bhr_probe_gather.argtypes = [c_int, ptr, c_int, c_int, ptr, c_int, ctypes.c_uint32, c_int,
-                                     c_int, ptr, c_int, ptr]
-    lib.bhr_probe_gather.restype = c_int
-    # tbl, n_tbl, device, stream
-    lib.bhr_probe_const_upload.argtypes = [ptr, c_int, c_int, ptr]
-    lib.bhr_probe_const_upload.restype = c_int
-    # prec, tanh, round_bf16, a, b, bias, out, m, k, n, device, stream
-    lib.bhr_probe_dot.argtypes = [c_int, c_int, c_int, ptr, ptr, ptr, ptr, c_int, c_int, c_int,
-                                  c_int, ptr]
-    lib.bhr_probe_dot.restype = c_int
-    # bf16_out, plane, out, n_rows, p, period, device, stream
-    lib.bhr_probe_concat.argtypes = [c_int, ptr, ptr, c_int, c_int, c_int, c_int, ptr]
-    lib.bhr_probe_concat.restype = c_int
-    lib.bhr_error_string.argtypes = [c_int]
-    lib.bhr_error_string.restype = ctypes.c_char_p
-    return lib
+    with tracing.span("setup.load"):
+        lib = ctypes.CDLL(str(build("probes", PROBE_SOURCES).path))
+        ptr, c_int = ctypes.c_void_p, ctypes.c_int
+        lib.bhr_probe_ieee.argtypes = [c_int, ptr, ptr, ptr, ctypes.c_int64, c_int, c_int, c_int,
+                                       c_int, ptr]
+        lib.bhr_probe_ieee.restype = c_int
+        # src, tbl, th, tw, idx, pattern, seed, height, width, out, device, stream
+        lib.bhr_probe_gather.argtypes = [c_int, ptr, c_int, c_int, ptr, c_int, ctypes.c_uint32,
+                                         c_int, c_int, ptr, c_int, ptr]
+        lib.bhr_probe_gather.restype = c_int
+        # tbl, n_tbl, device, stream
+        lib.bhr_probe_const_upload.argtypes = [ptr, c_int, c_int, ptr]
+        lib.bhr_probe_const_upload.restype = c_int
+        # prec, tanh, round_bf16, a, b, bias, out, m, k, n, device, stream
+        lib.bhr_probe_dot.argtypes = [c_int, c_int, c_int, ptr, ptr, ptr, ptr, c_int, c_int, c_int,
+                                      c_int, ptr]
+        lib.bhr_probe_dot.restype = c_int
+        # bf16_out, plane, out, n_rows, p, period, device, stream
+        lib.bhr_probe_concat.argtypes = [c_int, ptr, ptr, c_int, c_int, c_int, c_int, ptr]
+        lib.bhr_probe_concat.restype = c_int
+        lib.bhr_error_string.argtypes = [c_int]
+        lib.bhr_error_string.restype = ctypes.c_char_p
+        return lib

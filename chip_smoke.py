@@ -175,6 +175,11 @@ SMALL = (160, 96, 200)
 N_FRAMES = 8
 REPEATS = 5  # timed runs of N_FRAMES kernel frames; the median is reported
 BASELINE_FRAMES = 4
+# Keys of the launch counts (bhr_tpu_torch/utils/tracing.COUNTS)
+N_MONO, N_TRACE = "launch.render_mono", "launch.trace_planes"
+N_STRIDED, N_MASKED, N_CUSTOM = (f"{N_TRACE}.{v}" for v in ("strided", "masked", "custom"))
+N_NEURAL = "launch.neural_mlp"
+N_DIRS, N_BAND = f"{N_NEURAL}.dirs", f"{N_NEURAL}.band"
 # Bars of a kernel against its plain version.
 EXACT_SAME_MIN = 0.999  # bit-equal packed words (tests/test_pallas_parity.py:484-491)
 FAST_MIN = 0.995  # every channel within 1 level
@@ -696,7 +701,7 @@ def main() -> None:
     from bhr_tpu_torch.tools import hopper_probe as hp
     from bhr_tpu_torch.tools import neural_floor as nf
     from bhr_tpu_torch.tools import sass_walk
-    from bhr_tpu_torch.utils import build, plugin
+    from bhr_tpu_torch.utils import build, plugin, tracing
     from bhr_tpu_torch.utils.timing import device_time_ms
 
     # 2. build: one nvcc per library, started together; the plugin's
@@ -729,24 +734,19 @@ def main() -> None:
     var = Variants()
     side = bt.Camera.new(*SIDE)
 
+    C = tracing.COUNTS  # the launch counts, keyed by the constants N_*
+
     def reset():
-        tk.LAUNCHES = 0
-        tk.TRACE_LAUNCHES = 0
-        tk.STRIDED_LAUNCHES = 0
-        tk.MASKED_LAUNCHES = 0
-        tk.CUSTOM_LAUNCHES = 0
-        nk.NEURAL_LAUNCHES = 0
-        nk.NEURAL_DIRS_LAUNCHES = 0
-        nk.NEURAL_BAND_LAUNCHES = 0
+        C.clear()
 
     def counts():
-        return tk.LAUNCHES, tk.TRACE_LAUNCHES, nk.NEURAL_LAUNCHES
+        return C[N_MONO], C[N_TRACE], C[N_NEURAL]
 
     def all_counts():
         """(render_mono, trace_planes, of which strided, of which masked,
         neural frame, neural direction planes) launches since reset()."""
-        return (tk.LAUNCHES, tk.TRACE_LAUNCHES, tk.STRIDED_LAUNCHES, tk.MASKED_LAUNCHES,
-                nk.NEURAL_LAUNCHES, nk.NEURAL_DIRS_LAUNCHES)
+        return (C[N_MONO], C[N_TRACE], C[N_STRIDED], C[N_MASKED],
+                C[N_NEURAL], C[N_DIRS])
 
     def plain_trace(cam, scene, config, fast, rows=None):
         """The plain trace of the frame, or of its rows rows[0] .. rows[1] - 1
@@ -846,7 +846,7 @@ def main() -> None:
                         reset()
                         frame = r.render_frame(side, scene)
                         torch.cuda.synchronize()
-                        launched = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
+                        launched = (C[N_MONO], C[N_TRACE])
                         packed = frame.view(torch.int32).view(sh, sw)
                         if launched != ((1, 0) if mono else (0, 1)):
                             raise AssertionError(f"{r.config} {tonemap} launched {launched}")
@@ -879,7 +879,7 @@ def main() -> None:
         reset()
         frame = renderer.render_frame(bt.Camera.default(), full_scene)
         torch.cuda.synchronize()
-        launches = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
+        launches = (C[N_MONO], C[N_TRACE])
         if launches != (1, 0):
             raise AssertionError(f"render_frame launched {launches}, not one render_mono")
         var.launched("render_mono", fast, "euler", 1)
@@ -899,9 +899,9 @@ def main() -> None:
         reset()
         frames = anim.render_frames(N_FRAMES, packed=True)  # warm-up
         anim_ms = cuda_ms(lambda: anim.render_frames(N_FRAMES, packed=True), N_FRAMES, REPEATS)
-        launches = tk.LAUNCHES
+        launches = C[N_MONO]
         if frames.shape != (N_FRAMES, H, W) or launches != (1 + REPEATS) * N_FRAMES \
-                or tk.TRACE_LAUNCHES:
+                or C[N_TRACE]:
             raise AssertionError(f"animation gave {tuple(frames.shape)} in {launches} launches")
         var.launched("render_mono", fast, "euler", launches)
         cams = [bt.orbit_camera(t) for t in anim.frame_times(N_FRAMES)]
@@ -973,9 +973,9 @@ def main() -> None:
     for q in queries:
         renderer.render_frame(cam, full_scene, timestamp_query=q)
     torch.cuda.set_sync_debug_mode("default")
-    if (tk.LAUNCHES, tk.TRACE_LAUNCHES) != (n_q, 0):
-        raise AssertionError(f"{n_q} frames with a query launched {tk.LAUNCHES}, "
-                             f"{tk.TRACE_LAUNCHES}, not one render_mono each")
+    if (C[N_MONO], C[N_TRACE]) != (n_q, 0):
+        raise AssertionError(f"{n_q} frames with a query launched {C[N_MONO]}, "
+                             f"{C[N_TRACE]}, not one render_mono each")
     var.launched("render_mono", True, "euler", n_q)
     q_ms = statistics.median(q.gpu_time_ms for q in queries[1:])
     scratch = torch.empty((H, W), dtype=torch.int32, device="cuda")
@@ -998,8 +998,8 @@ def main() -> None:
     got = path_anim.render_frames(4, packed=True)
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    if tk.LAUNCHES != 4 or not torch.equal(got, want):
-        raise AssertionError(f"PathAnimator: {tk.LAUNCHES} launches, bit-equal to "
+    if C[N_MONO] != 4 or not torch.equal(got, want):
+        raise AssertionError(f"PathAnimator: {C[N_MONO]} launches, bit-equal to "
                              f"OrbitAnimator: {torch.equal(got, want)}")
     var.launched("render_mono", True, "euler", 4)
     reset()
@@ -1008,8 +1008,8 @@ def main() -> None:
         back = [bt.io.image.read_png(p) for p in paths]
         with open(os.path.join(tmp, "manifest.json")) as fh:
             manifest = json.load(fh)
-    if tk.LAUNCHES != 2:
-        raise AssertionError(f"render_to_dir of 2 frames launched {tk.LAUNCHES}")
+    if C[N_MONO] != 2:
+        raise AssertionError(f"render_to_dir of 2 frames launched {C[N_MONO]}")
     var.launched("render_mono", True, "euler", 2)
     for k in range(2):
         if not (torch.from_numpy(back[k]) == unpack(want[k].cpu())).all():
@@ -1028,7 +1028,7 @@ def main() -> None:
         reset()
         frame = renderer.render_frame(side, full_scene)
         torch.cuda.synchronize()
-        launches = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
+        launches = (C[N_MONO], C[N_TRACE])
         if launches != ((1, 0) if fast else (0, 1)):
             raise AssertionError(f"BASELINE 4 {tier} launched {launches}, not one {kernel}")
         var.launched(kernel, fast, "rk4", 1)
@@ -1044,10 +1044,10 @@ def main() -> None:
         bt.OrbitAnimator(renderer).render_frames(BASELINE_FRAMES, packed=True)  # warm-up
         reset()
         _, anim_ms, _ = animate(renderer, BASELINE_FRAMES)
-        n = tk.LAUNCHES if fast else tk.TRACE_LAUNCHES
-        if n != BASELINE_FRAMES or (tk.TRACE_LAUNCHES if fast else tk.LAUNCHES):
-            raise AssertionError(f"BASELINE 4 animation launched {tk.LAUNCHES}, "
-                                 f"{tk.TRACE_LAUNCHES}")
+        n = C[N_MONO] if fast else C[N_TRACE]
+        if n != BASELINE_FRAMES or (C[N_TRACE] if fast else C[N_MONO]):
+            raise AssertionError(f"BASELINE 4 animation launched {C[N_MONO]}, "
+                                 f"{C[N_TRACE]}")
         var.launched(kernel, fast, "rk4", n)
         phase("baseline4", f"{W}x{H}x{STEPS} rk4 adaptive disk {tier}: render_frame 1 {kernel} "
               f"launch ({bar(fast)}): {json.dumps(s)}; "
@@ -1067,7 +1067,7 @@ def main() -> None:
         reset()
         frame = renderer.render_frame(side, scene5)
         torch.cuda.synchronize()
-        launches = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
+        launches = (C[N_MONO], C[N_TRACE])
         if launches != ((1, 0) if fast else (0, 1)):
             raise AssertionError(f"BASELINE 5 {tier} launched {launches}, not one {kernel}")
         var.launched(kernel, fast, "euler", 1, "kerr")
@@ -1103,10 +1103,10 @@ def main() -> None:
                          "[15,5,0], 3840x2160x2000")
         reset()
         frames, anim_ms, anim = animate(renderer, CONFIG5_FRAMES)
-        n = tk.LAUNCHES if fast else tk.TRACE_LAUNCHES
-        if n != CONFIG5_FRAMES or (tk.TRACE_LAUNCHES if fast else tk.LAUNCHES):
-            raise AssertionError(f"BASELINE 5 animation launched {tk.LAUNCHES}, "
-                                 f"{tk.TRACE_LAUNCHES}")
+        n = C[N_MONO] if fast else C[N_TRACE]
+        if n != CONFIG5_FRAMES or (C[N_TRACE] if fast else C[N_MONO]):
+            raise AssertionError(f"BASELINE 5 animation launched {C[N_MONO]}, "
+                                 f"{C[N_TRACE]}")
         var.launched(kernel, fast, "euler", n, "kerr")
         band_stats = []
         for k, t in enumerate(anim.frame_times(CONFIG5_FRAMES)):
@@ -1138,7 +1138,7 @@ def main() -> None:
         reset()
         frame = renderer.render_frame(side, scene_lt)
         torch.cuda.synchronize()
-        launches = (tk.LAUNCHES, tk.TRACE_LAUNCHES)
+        launches = (C[N_MONO], C[N_TRACE])
         if launches != ((1, 0) if fast else (0, 1)):
             raise AssertionError(f"kerr_lt {tier} launched {launches}, not one {kernel}")
         var.launched(kernel, fast, "euler", 1, "kerr_lt")
@@ -1149,9 +1149,9 @@ def main() -> None:
         reset()
         hframe = renderer.render_frame(side, debug)
         torch.cuda.synchronize()
-        if (tk.LAUNCHES, tk.TRACE_LAUNCHES) != (0, 1):
-            raise AssertionError(f"kerr_lt debug frame launched {tk.LAUNCHES}, "
-                                 f"{tk.TRACE_LAUNCHES}")
+        if (C[N_MONO], C[N_TRACE]) != (0, 1):
+            raise AssertionError(f"kerr_lt debug frame launched {C[N_MONO]}, "
+                                 f"{C[N_TRACE]}")
         var.launched("trace_planes", fast, "euler", 1, "kerr_lt")
         k_res = tk.trace_image(side, debug, renderer.config, fast_math=fast, device="cuda")
         hplain, hres = plain_staged(side, debug, renderer.config, fast, renderer)
@@ -1179,8 +1179,8 @@ def main() -> None:
         reset()
         frame = renderer.render_frame(bt.Camera.default(), debug_scene)
         torch.cuda.synchronize()
-        if (tk.LAUNCHES, tk.TRACE_LAUNCHES) != (0, 1):
-            raise AssertionError(f"debug frame launched {tk.LAUNCHES}, {tk.TRACE_LAUNCHES}")
+        if (C[N_MONO], C[N_TRACE]) != (0, 1):
+            raise AssertionError(f"debug frame launched {C[N_MONO]}, {C[N_TRACE]}")
         var.launched("trace_planes", fast, "euler", 1)
         k_res = tk.trace_image(bt.Camera.default(), debug_scene, fast_math=fast, device="cuda")
         plain, plain_res = plain_staged(bt.Camera.default(), debug_scene, renderer.config,
@@ -1654,7 +1654,7 @@ def main() -> None:
     var.launched("trace_planes", True, "euler", 1)
     cached_ms = t0.elapsed_time(t1) / (N_FRAMES - 1)
     r.render_frame(default_cam, full_scene)  # another camera: a new trace
-    if tk.TRACE_LAUNCHES != 2:
+    if C[N_TRACE] != 2:
         raise AssertionError(f"a moved camera did not trace again: {all_counts()}")
     var.launched("trace_planes", True, "euler", 1)
     phase("textures_cache", f"{W}x{H}x{STEPS} euler fast, skybox bilinear, cache_deflection: "
@@ -1947,8 +1947,8 @@ def main() -> None:
         frame = shard()
         torch.cuda.synchronize()
         want = (SP, 0) if mono else (0, SP)
-        if (tk.LAUNCHES, tk.TRACE_LAUNCHES) != want:
-            raise AssertionError(f"{name} {tier} bands launched {tk.LAUNCHES}, {tk.TRACE_LAUNCHES}")
+        if (C[N_MONO], C[N_TRACE]) != want:
+            raise AssertionError(f"{name} {tier} bands launched {C[N_MONO]}, {C[N_TRACE]}")
         kernel = "render_mono" if mono else "trace_planes"
         var.launched(kernel, fast, r.config.integrator, SP)
         same = (frame == whole).all(-1).float().mean().item()
@@ -1970,8 +1970,8 @@ def main() -> None:
     frame = pm.render_frame_sharded(default_cam, full_scene, None, odd_mesh, fast_math=True)
     torch.cuda.synchronize()
     band_h = -(-H // SP_ODD)
-    if tk.LAUNCHES != SP_ODD or frame.shape != (H, W, 4) or not torch.equal(frame, whole):
-        raise AssertionError(f"{SP_ODD} bands of {band_h} rows: {tk.LAUNCHES} launches, "
+    if C[N_MONO] != SP_ODD or frame.shape != (H, W, 4) or not torch.equal(frame, whole):
+        raise AssertionError(f"{SP_ODD} bands of {band_h} rows: {C[N_MONO]} launches, "
                              f"{tuple(frame.shape)}, equal {torch.equal(frame, whole)}")
     var.launched("render_mono", True, "euler", SP_ODD)
     phase("bands_padded", f"{W}x{H}x{STEPS} main path fast on {SP_ODD} bands of {band_h} rows "
@@ -1988,8 +1988,8 @@ def main() -> None:
     frames, lums = pm.render_animation_sharded(times, full_scene, None, anim_mesh, fast_math=True)
     torch.cuda.synchronize()
     n = n_anim * ANIM_MESH[1]
-    if tk.LAUNCHES != n:
-        raise AssertionError(f"sharded animation launched {tk.LAUNCHES}, not {n}")
+    if C[N_MONO] != n:
+        raise AssertionError(f"sharded animation launched {C[N_MONO]}, not {n}")
     var.launched("render_mono", True, "euler", n)
     want = anim.render_frames(n_anim)
     g_mean = want[..., 1].float().mean(dim=(1, 2))
@@ -2021,9 +2021,9 @@ def main() -> None:
         frame = pm.render_frame_sharded(cam, scene, None, band_mesh, config=r.config,
                                         neural_params=r.neural_params, neural_precision=tier)
         torch.cuda.synchronize()
-        if (nk.NEURAL_LAUNCHES, nk.NEURAL_BAND_LAUNCHES) != (SP, SP):
-            raise AssertionError(f"neural bands {key} launched {nk.NEURAL_LAUNCHES}, "
-                                 f"{nk.NEURAL_BAND_LAUNCHES}")
+        if (C[N_NEURAL], C[N_BAND]) != (SP, SP):
+            raise AssertionError(f"neural bands {key} launched {C[N_NEURAL]}, "
+                                 f"{C[N_BAND]}")
         rec["launches"] += SP
         same = (frame.view(torch.int32).view(H, W) == whole).float().mean().item()
         if same != 1.0:
@@ -2140,9 +2140,9 @@ def main() -> None:
             reset()
             frame = r.render_frame(default_cam, full_scene)
             torch.cuda.synchronize()
-            if (tk.LAUNCHES, tk.TRACE_LAUNCHES, tk.CUSTOM_LAUNCHES) != (0, 1, 1):
-                raise AssertionError(f"custom {integ} {tier} launched {tk.LAUNCHES}, "
-                                     f"{tk.TRACE_LAUNCHES}, {tk.CUSTOM_LAUNCHES}")
+            if (C[N_MONO], C[N_TRACE], C[N_CUSTOM]) != (0, 1, 1):
+                raise AssertionError(f"custom {integ} {tier} launched {C[N_MONO]}, "
+                                     f"{C[N_TRACE]}, {C[N_CUSTOM]}")
             rec = var.other(f"trace_planes[custom]<{tier},{integ}>", "trace_planes",
                             REPLACES["custom"])
             rec["launches"] += 1
@@ -2185,7 +2185,7 @@ def main() -> None:
 
     # 20. the probes (tools/hopper_probe.py): every check and answer line,
     # each probe kernel's launches, time, plain and library time and bound
-    hp.LAUNCHES.clear()
+    C.clear()
     t0 = time.perf_counter()
     run = hp.run_probes("cuda", texture=textured["nearest"].skybox,
                         emit=lambda line: phase("probes", line))
@@ -2193,9 +2193,9 @@ def main() -> None:
         raise AssertionError(f"probe checks failed: {run.failed}")
     for name, rec in sorted(run.kernels.items()):
         r = var.other(name, "probes", REPLACES[name.split("<")[0]])
-        r.update(rec, launches=hp.LAUNCHES[name])
+        r.update(rec, launches=C[f"launch.{name}"])
     phase("probes", f"{len(run.checks)} checks passed, {len(run.answers)} answers, in "
-          f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(dict(hp.LAUNCHES))} on {smi}")
+          f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(dict(C))} on {smi}")
 
     # 21. output
     renderer = records["exact"]["renderer"]

@@ -31,9 +31,9 @@ from bhr_tpu.utils import perf as jperf
 from bhr_tpu_torch.io import image as timage
 from bhr_tpu_torch.io import native as tnative
 from bhr_tpu_torch.io import video as tvideo
-from bhr_tpu_torch.ops import trace_kernel
 from bhr_tpu_torch.utils import perf as tperf
 from bhr_tpu_torch.utils import timing as ttiming
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 FAST_MIN = 0.995
 SIZE = (48, 32, 120)
@@ -221,9 +221,9 @@ def test_path_animator_frames_are_direct_renders_and_orbit_is_a_path():
     as_path = T.PathAnimator(r, lambda t: T.orbit_camera(t))
     torch.testing.assert_close(orbit.render_frames(3, scene=scene, packed=True),
                                as_path.render_frames(3, scene=scene, packed=True), rtol=0, atol=0)
-    launches = trace_kernel.LAUNCHES
+    launches = COUNTS["launch.render_mono"]
     orbit.render_frames(2, scene=scene)
-    assert trace_kernel.LAUNCHES == launches  # the CPU path launches no kernel
+    assert COUNTS["launch.render_mono"] == launches  # the CPU path launches no kernel
 
 
 def _png(path) -> np.ndarray:
@@ -346,13 +346,13 @@ def test_timestamp_query_on_the_card_adds_no_sync():
     r.render_frame(scene=scene)
     torch.cuda.synchronize()
     q = T.TimestampQuery()
-    launches = trace_kernel.LAUNCHES
+    launches = COUNTS["launch.render_mono"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         r.render_frame(scene=scene, timestamp_query=q)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert trace_kernel.LAUNCHES == launches + 1
+    assert COUNTS["launch.render_mono"] == launches + 1
     assert q.gpu_time_ms > 0.0
     kernel_ms = ttiming.device_time_ms(lambda: r.render_frame(scene=scene), iters=4)
     assert 0.0 < kernel_ms < 10 * q.gpu_time_ms
@@ -364,9 +364,9 @@ def test_path_animator_on_the_card_equals_orbit_animator():
     r = T.BlackHoleRenderer(96, 64, device="cuda", fast_math=True)
     scene = T.SceneParams(screen_width=96, screen_height=64, max_steps=200)
     want = T.OrbitAnimator(r).render_frames(4, scene=scene, packed=True)
-    launches = trace_kernel.LAUNCHES
+    launches = COUNTS["launch.render_mono"]
     got = T.PathAnimator(r, lambda t: T.orbit_camera(t)).render_frames(4, scene=scene,
                                                                         packed=True)
     torch.cuda.synchronize()
-    assert trace_kernel.LAUNCHES == launches + 4
+    assert COUNTS["launch.render_mono"] == launches + 4
     assert torch.equal(got, want)

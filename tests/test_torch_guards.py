@@ -18,6 +18,7 @@ import bhr_tpu_torch as T
 from bhr_tpu_torch.ops import neural_kernel, trace, trace_kernel
 from bhr_tpu_torch.parallel import mesh
 from bhr_tpu_torch.utils import build
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 
 def _no_force(rel, vel, r, r2, rs, spin):
@@ -46,7 +47,7 @@ MODULES = [
     "bhr_tpu_torch.ops.neural_trace", "bhr_tpu_torch.ops.neural_kernel",
     "bhr_tpu_torch.io.skybox", "bhr_tpu_torch.io.native", "bhr_tpu_torch.ops.resample",
     "bhr_tpu_torch.ops.multires", "bhr_tpu_torch.parallel", "bhr_tpu_torch.parallel.mesh",
-    "bhr_tpu_torch.utils.plugin",
+    "bhr_tpu_torch.utils.plugin", "bhr_tpu_torch.utils.tracing",
 ]
 
 
@@ -71,13 +72,13 @@ def _need_no_cuda():
 def test_render_packed_on_cuda_raises_without_cuda():
     _need_no_cuda()
     scene = T.SceneParams(screen_width=8, screen_height=8, max_steps=4)
-    launches = trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES
+    launches = COUNTS["launch.render_mono"], COUNTS["launch.trace_planes"]
     for device in ("cuda", "cuda:0", torch.device("cuda")):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             trace_kernel.render_packed(T.Camera.default(), scene, device=device)
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             trace_kernel.trace_image(T.Camera.default(), scene, device=device)
-    assert (trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES) == launches
+    assert (COUNTS["launch.render_mono"], COUNTS["launch.trace_planes"]) == launches
 
 
 def test_cuda_context_raises_without_cuda():
@@ -162,7 +163,7 @@ def test_renderer_outside_slice_raises(args, kw, item, tmp_path):
     scene = T.SceneParams(screen_width=24, screen_height=16, max_steps=120, spin=0.9)
     cam = T.Camera.new([0.0, 3.0, 20.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
     neural = r.config.integrator == "neural"
-    counts = (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES)
+    counts = (COUNTS["launch.trace_planes"], COUNTS["launch.neural_mlp.dirs"])
     if item == "item 12":
         assert r.multires == kw["multires"]
         frame = r.render_frame_multires(cam, scene, divisor=r.multires)
@@ -185,7 +186,7 @@ def test_renderer_outside_slice_raises(args, kw, item, tmp_path):
     assert frame.shape == (16, 24, 4) and frame.dtype == torch.uint8
     assert bool((frame[..., 3] == 255).all())
     # on the CPU every wrapper ran its plain version: nothing was launched
-    assert (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES) == counts
+    assert (COUNTS["launch.trace_planes"], COUNTS["launch.neural_mlp.dirs"]) == counts
 
 
 @pytest.mark.parametrize(
@@ -368,7 +369,7 @@ def test_texture_and_multires_on_cuda_raise_without_cuda(what):
     _need_no_cuda()
     scene = T.SceneParams(screen_width=8, screen_height=8, max_steps=4)
     cam = T.Camera.default()
-    counts = (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES)
+    counts = (COUNTS["launch.trace_planes"], COUNTS["launch.neural_mlp.dirs"])
     with pytest.raises(RuntimeError, match="CUDA device"):
         if what == "strided":
             trace_kernel.trace_image(cam, scene, device="cuda", stride=2, local_shape=(4, 4))
@@ -382,7 +383,7 @@ def test_texture_and_multires_on_cuda_raise_without_cuda(what):
             T.BlackHoleRenderer(8, 8, skybox=np.zeros((4, 8, 4), np.float32))
         else:
             T.render_multires(cam, scene, device="cuda", divisor=2)
-    assert (trace_kernel.TRACE_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES) == counts
+    assert (COUNTS["launch.trace_planes"], COUNTS["launch.neural_mlp.dirs"]) == counts
 
 
 def test_plugin_and_mesh_guards_without_cuda():
@@ -398,8 +399,9 @@ def test_plugin_and_mesh_guards_without_cuda():
     _need_no_cuda()
     scene = T.SceneParams(screen_width=8, screen_height=8, max_steps=4)
     cam = T.Camera.default()
-    counts = (trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES, trace_kernel.CUSTOM_LAUNCHES,
-              neural_kernel.NEURAL_BAND_LAUNCHES)
+    keys = ("launch.render_mono", "launch.trace_planes", "launch.trace_planes.custom",
+            "launch.neural_mlp.band")
+    counts = [COUNTS[k] for k in keys]
     params, _ = T.models.neural.load_params(T.models.neural.ASSETS_DIR
                                             / "neural_schwarzschild.npz")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -414,8 +416,7 @@ def test_plugin_and_mesh_guards_without_cuda():
                 devices=["cuda"] * 2))):
         with pytest.raises(RuntimeError, match="CUDA device"):
             call()
-    assert (trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES, trace_kernel.CUSTOM_LAUNCHES,
-            neural_kernel.NEURAL_BAND_LAUNCHES) == counts
+    assert [COUNTS[k] for k in keys] == counts
 
 
 def test_render_image_tonemap_and_disk_params_take_the_staged_path():

@@ -28,6 +28,7 @@ from bhr_tpu_torch.models.disk import DiskParams
 from bhr_tpu_torch.ops import multires as tm
 from bhr_tpu_torch.ops import trace_kernel
 from bhr_tpu_torch.ops.trace import STATUS_CAPTURED, STATUS_ESCAPED
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 W, H, STEPS = 96, 66, 200  # 66 and 96 are not multiples of every divisor
 DISK_CAM = ([0.0, 3.0, 20.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
@@ -285,13 +286,13 @@ def test_strided_and_masked_kernel_match_plain_version_on_gpu(kw, fast):
     edge = None
     for what in ("strided", "masked"):
         args = (dict(stride=3, local_shape=local) if what == "strided" else dict(mask=edge))
-        counts = (trace_kernel.TRACE_LAUNCHES, trace_kernel.STRIDED_LAUNCHES,
-                  trace_kernel.MASKED_LAUNCHES)
+        counts = (COUNTS["launch.trace_planes"], COUNTS["launch.trace_planes.strided"],
+                  COUNTS["launch.trace_planes.masked"])
         got = trace_kernel.trace_image(cam, scene, cfg, fast_math=fast, device="cuda", **args)
         torch.cuda.synchronize()
-        assert (trace_kernel.TRACE_LAUNCHES, trace_kernel.STRIDED_LAUNCHES,
-                trace_kernel.MASKED_LAUNCHES) == (counts[0] + 1, counts[1] + (what == "strided"),
-                                                  counts[2] + (what == "masked"))
+        assert (COUNTS["launch.trace_planes"], COUNTS["launch.trace_planes.strided"],
+                COUNTS["launch.trace_planes.masked"]) == (
+            counts[0] + 1, counts[1] + (what == "strided"), counts[2] + (what == "masked"))
         want = trace_kernel.trace_image_reference(cam, scene, cfg, fast_math=fast, device="cuda",
                                                   **args)
         same = (got.status == want.status) & (got.steps == want.steps)
@@ -315,12 +316,12 @@ def test_render_multires_on_gpu_launches_twice():
                             skybox=_texture())
     cam = T.Camera.new(*DISK_CAM)
     scene = T.SceneParams(max_steps=300)
-    counts = (trace_kernel.TRACE_LAUNCHES, trace_kernel.STRIDED_LAUNCHES,
-              trace_kernel.MASKED_LAUNCHES, trace_kernel.LAUNCHES)
+    counts = (COUNTS["launch.trace_planes"], COUNTS["launch.trace_planes.strided"],
+              COUNTS["launch.trace_planes.masked"], COUNTS["launch.render_mono"])
     frame = r.render_frame_multires(cam, scene, divisor=2)
     torch.cuda.synchronize()
-    assert (trace_kernel.TRACE_LAUNCHES, trace_kernel.STRIDED_LAUNCHES,
-            trace_kernel.MASKED_LAUNCHES, trace_kernel.LAUNCHES) == (
+    assert (COUNTS["launch.trace_planes"], COUNTS["launch.trace_planes.strided"],
+            COUNTS["launch.trace_planes.masked"], COUNTS["launch.render_mono"]) == (
         counts[0] + 2, counts[1] + 1, counts[2] + 1, counts[3])
     full = r.render_frame(cam, scene)
     err = (frame.int() - full.int()).abs()[..., :3].float()

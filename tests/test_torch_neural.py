@@ -33,10 +33,11 @@ from bhr_tpu.ops.neural_trace import neural_trace_image as j_neural_trace_image
 from bhr_tpu.ops.sampling import unpack_frame as j_unpack
 from bhr_tpu.renderer import render_image as j_render_image
 from bhr_tpu_torch.models import neural as tn
-from bhr_tpu_torch.ops import neural_kernel, trace_kernel
+from bhr_tpu_torch.ops import neural_kernel
 from bhr_tpu_torch.ops.neural_trace import neural_trace_image
 from bhr_tpu_torch.ops.sampling import unpack_frame
 from bhr_tpu_torch.utils import build
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 ASSETS = tn.ASSETS_DIR
 W, H = 64, 48
@@ -561,11 +562,11 @@ def test_neural_kernel_on_cuda_raises_without_cuda():
                                            device="cpu")
     if torch.cuda.is_available():
         return
-    launches = neural_kernel.NEURAL_LAUNCHES
+    launches = COUNTS["launch.neural_mlp"]
     for device in ("cuda", torch.device("cuda:0")):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             neural_kernel.neural_render_packed(tp, T.Camera.default(), scene, device=device)
-    assert neural_kernel.NEURAL_LAUNCHES == launches
+    assert COUNTS["launch.neural_mlp"] == launches
     assert build.load_neural_mlp.cache_info().currsize == 0
 
 
@@ -589,10 +590,10 @@ def test_neural_kernel_matches_plain_version_on_gpu(case):
     tp = tp.to("cuda")
     cam = T.Camera.new(*SIDE) if side else T.Camera.default()
     scene = T.SceneParams(screen_width=160, screen_height=96)
-    launches = neural_kernel.NEURAL_LAUNCHES
+    launches = COUNTS["launch.neural_mlp"]
     got = neural_kernel.neural_render_packed(tp, cam, scene, precision=precision, device="cuda")
     torch.cuda.synchronize()
-    assert neural_kernel.NEURAL_LAUNCHES == launches + 1
+    assert COUNTS["launch.neural_mlp"] == launches + 1
     want = neural_kernel.neural_render_packed_reference(tp, cam, scene, precision=precision,
                                                         device="cuda")
     assert_frames_agree(unpack_frame(got).cpu(), unpack_frame(want).cpu(),
@@ -610,11 +611,11 @@ def test_neural_kernel_block_plans_on_gpu(case):
     net = random_net(model, width, seed).to("cuda")
     for side in (False, True):
         cam = T.Camera.new(*SIDE) if side else T.Camera.default()
-        launches = neural_kernel.NEURAL_LAUNCHES
+        launches = COUNTS["launch.neural_mlp"]
         got = neural_kernel.neural_render_packed(net, cam, _plan_scene(model), precision=tier,
                                                  device="cuda")
         torch.cuda.synchronize()
-        assert neural_kernel.NEURAL_LAUNCHES == launches + 1
+        assert COUNTS["launch.neural_mlp"] == launches + 1
         want = neural_kernel.neural_render_packed_reference(net, cam, _plan_scene(model),
                                                             precision=tier, device="cuda")
         assert_frames_agree(unpack_frame(got).cpu(), unpack_frame(want).cpu(),
@@ -697,12 +698,12 @@ def test_neural_animation_on_gpu():
                             neural_params=ASSETS / "neural_schwarzschild_orbit.npz")
     anim = T.OrbitAnimator(r)
     anim.render_frames(1)  # build and prepare the weights outside the checked window
-    launches = neural_kernel.NEURAL_LAUNCHES, trace_kernel.LAUNCHES
+    launches = COUNTS["launch.neural_mlp"], COUNTS["launch.render_mono"]
     torch.cuda.set_sync_debug_mode("error")
     frames = anim.render_frames(4, packed=True)
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert (neural_kernel.NEURAL_LAUNCHES, trace_kernel.LAUNCHES) == (launches[0] + 4,
+    assert (COUNTS["launch.neural_mlp"], COUNTS["launch.render_mono"]) == (launches[0] + 4,
                                                                        launches[1])
     for k, t in enumerate(anim.frame_times(4)):
         want = neural_kernel.neural_render_packed_reference(r.neural_params, T.orbit_camera(t),

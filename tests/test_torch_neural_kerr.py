@@ -27,6 +27,7 @@ from bhr_tpu_torch.models import neural_kerr as tnk
 from bhr_tpu_torch.ops import neural_kernel
 from bhr_tpu_torch.ops.neural_trace import neural_trace_image
 from bhr_tpu_torch.ops.sampling import unpack_frame
+from bhr_tpu_torch.utils.tracing import COUNTS
 from test_torch_neural import assert_frames_agree
 
 ASSETS = tn.ASSETS_DIR
@@ -247,10 +248,10 @@ def test_neural_kerr_kernel_matches_plain_version_on_gpu(case):
     tp = tp.to("cuda")
     cam = T.Camera.new(*SIDE)
     scene = T.SceneParams(screen_width=160, screen_height=96, spin=spin)
-    launches = neural_kernel.NEURAL_LAUNCHES
+    launches = COUNTS["launch.neural_mlp"]
     got = neural_kernel.neural_render_packed(tp, cam, scene, precision=precision, device="cuda")
     torch.cuda.synchronize()
-    assert neural_kernel.NEURAL_LAUNCHES == launches + 1
+    assert COUNTS["launch.neural_mlp"] == launches + 1
     want = neural_kernel.neural_render_packed_reference(tp, cam, scene, precision=precision,
                                                         device="cuda")
     assert_frames_agree(unpack_frame(got).cpu(), unpack_frame(want).cpu(),

@@ -33,6 +33,7 @@ from bhr_tpu_torch.models import neural as tn
 from bhr_tpu_torch.ops import multires, neural_kernel, trace_kernel
 from bhr_tpu_torch.ops.neural_trace import neural_trace_image
 from bhr_tpu_torch.parallel import mesh as tmesh
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 from test_torch_neural import assert_frames_agree
 
@@ -257,15 +258,15 @@ def test_sharded_seed_and_routes_equal_the_whole_frame():
     for precision, sky in (("highest", None), ("high", None), ("default", tex), ("high", tex)):
         r = T.BlackHoleRenderer(32, 24, "neural", model="kerr", neural_precision=precision,
                                 skybox=sky, device="cpu")
-        launches = neural_kernel.NEURAL_BAND_LAUNCHES, neural_kernel.NEURAL_DIRS_LAUNCHES
+        launches = COUNTS["launch.neural_mlp.band"], COUNTS["launch.neural_mlp.dirs"]
         got = tmesh.render_frame_sharded(cam, scene, r.skybox, mesh, config=r.config,
                                          neural_params=r.neural_params,
                                          neural_precision=precision)
         torch.testing.assert_close(got, r.render_frame(cam, scene), rtol=0, atol=0,
                                    msg=f"{precision}, skybox {sky is not None}")
         # plain versions: no launch
-        assert (neural_kernel.NEURAL_BAND_LAUNCHES,
-                neural_kernel.NEURAL_DIRS_LAUNCHES) == launches
+        assert (COUNTS["launch.neural_mlp.band"],
+                COUNTS["launch.neural_mlp.dirs"]) == launches
     with pytest.raises(ValueError, match="multires"):
         tmesh.render_frame_sharded(cam, scene, None, mesh, multires=2, tonemap="reinhard")
 
@@ -328,28 +329,28 @@ def test_bands_on_gpu_equal_the_whole_frame():
         params = _net(model)[1].to("cuda")
         whole = neural_kernel.neural_render_packed(params, cam, scene, precision=precision,
                                                    device="cuda")
-        n = neural_kernel.NEURAL_BAND_LAUNCHES
+        n = COUNTS["launch.neural_mlp.band"]
         band = neural_kernel.neural_render_packed_band(params, cam, scene, 40, 24,
                                                        precision=precision, device="cuda")
         torch.cuda.synchronize()
-        assert neural_kernel.NEURAL_BAND_LAUNCHES == n + 1
+        assert COUNTS["launch.neural_mlp.band"] == n + 1
         assert torch.equal(band, whole[40:64]), (model, precision)
     mesh = tmesh.make_mesh(devices=["cuda:0"] * 4, shape=(1, 4))
     r = T.BlackHoleRenderer(160, 96, "rk4", adaptive=True, disk=True, device="cuda")
     whole = r.render_frame(cam, scene)
-    launches = trace_kernel.TRACE_LAUNCHES
+    launches = COUNTS["launch.trace_planes"]
     got = tmesh.render_frame_sharded(cam, scene, None, mesh, config=r.config,
                                      disk_params=r.disk_params(scene), lut=r._lut)
     torch.cuda.synchronize()
-    assert trace_kernel.TRACE_LAUNCHES == launches + 4
+    assert COUNTS["launch.trace_planes"] == launches + 4
     torch.testing.assert_close(got, whole, rtol=0, atol=0)
     r = T.BlackHoleRenderer(160, 96, "neural", model="kerr", device="cuda",
                             skybox=T.load_skybox(None, seed=7, shape=(64, 128)))
     whole = r.render_frame(cam, scene)
-    launches = neural_kernel.NEURAL_DIRS_LAUNCHES
+    launches = COUNTS["launch.neural_mlp.dirs"]
     got = tmesh.render_frame_sharded(cam, scene, r.skybox, mesh, config=r.config,
                                      neural_params=r.neural_params,
                                      neural_precision=r.neural_precision)
     torch.cuda.synchronize()
-    assert neural_kernel.NEURAL_DIRS_LAUNCHES == launches + 4
+    assert COUNTS["launch.neural_mlp.dirs"] == launches + 4
     torch.testing.assert_close(got, whole, rtol=0, atol=0)

@@ -29,6 +29,7 @@ from bhr_tpu.utils.plugin import load_plugin as j_load_plugin
 from bhr_tpu_torch.ops import trace_kernel
 from bhr_tpu_torch.ops.trace import STATUS_CAPTURED, trace_rays
 from bhr_tpu_torch.utils import plugin
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PW_PLUGIN = REPO / "examples" / "plugins" / "paczynski_wiita.py"
@@ -278,7 +279,7 @@ def test_custom_kernel_matches_plain_version_on_gpu(integrator, fast):
     """trace_planes built with paczynski_wiita.py against its plain version
     on the card, adaptive dt and the disk: status and steps equal on >=
     99.5%, the exact tier's planes bit-equal on >= 99.9%; one launch, counted
-    in CUSTOM_LAUNCHES; the renderer's frame is that launch and the
+    in COUNTS["launch.trace_planes.custom"]; the renderer's frame is that launch and the
     epilogue."""
     _need_cuda()
     accel, cap = plugin.load_plugin(str(PW_PLUGIN))
@@ -286,10 +287,10 @@ def test_custom_kernel_matches_plain_version_on_gpu(integrator, fast):
     cam = T.Camera.new([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
     cfg = T.TraceConfig(integrator=integrator, model="custom", custom_accel=accel,
                         custom_capture_factor=cap, adaptive=True, disk=True)
-    n = trace_kernel.CUSTOM_LAUNCHES
+    n = COUNTS["launch.trace_planes.custom"]
     got = trace_kernel.trace_image(cam, scene, cfg, fast_math=fast, device="cuda")
     torch.cuda.synchronize()
-    assert trace_kernel.CUSTOM_LAUNCHES == n + 1
+    assert COUNTS["launch.trace_planes.custom"] == n + 1
     want = trace_kernel.trace_image_reference(cam, scene, cfg, fast_math=fast, device="cuda")
     same = (got.status == want.status) & (got.steps == want.steps)
     assert same.float().mean().item() >= 0.995

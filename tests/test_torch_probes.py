@@ -44,6 +44,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from bhr_tpu_torch.tools import hopper_probe as hp
+from bhr_tpu_torch.utils import tracing
 
 SCRIPTS = os.path.join(os.path.dirname(__file__), "..", "scripts")
 ROWS = 256  # ieee_probe.py:ROWS_PER_BLOCK, one block of 256 x 1024 samples
@@ -444,12 +445,15 @@ def test_hopper_probe_runs_on_the_cpu():
     versions against themselves and numpy), nothing is timed, nothing is
     launched, and each kernel variant has a record."""
     lines = []
-    before = sum(hp.LAUNCHES.values())
+    def launches():
+        return sum(n for k, n in tracing.COUNTS.items() if k.startswith("launch.probe_"))
+
+    before = launches()
     run = hp.run_probes("cpu", small=True, emit=lines.append)
     assert run.failed == [] and len(run.checks) > 60
     assert {a["answer"] for a in run.answers} >= {"ieee_correctly_rounded", "ieee_estimates",
                                                   "ieee_sequences", "dot_precision", "dot_shapes"}
-    assert sum(hp.LAUNCHES.values()) == before
+    assert launches() == before
     assert set(run.kernels) == ({f"probe_ieee<{op}>" for op in hp.IEEE_OPS}
                                 | {f"probe_dot<{p}>" for p in hp.DOT_PRECS}
                                 | {"probe_concat<fp32>", "probe_concat<bf16>"})

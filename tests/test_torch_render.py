@@ -32,6 +32,7 @@ from bhr_tpu.ops.pallas_trace import pallas_render_packed
 from bhr_tpu_torch.io import image as timage
 from bhr_tpu_torch.ops import trace_kernel
 from bhr_tpu_torch.ops.sampling import unpack_frame
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 EXACT_SAME_MIN = 0.999
@@ -85,9 +86,9 @@ def test_render_packed_matches_jax_monolithic(cam, size, fast):
     jc, js, tc, ts = _both(cam, size)
     want = np.asarray(pallas_render_packed(jc, js, J.TraceConfig(), interpret=True,
                                            fast_math=fast))
-    launches = trace_kernel.LAUNCHES
+    launches = COUNTS["launch.render_mono"]
     got = trace_kernel.render_packed(tc, ts, T.TraceConfig(), fast_math=fast, device="cpu")
-    assert trace_kernel.LAUNCHES == launches  # the CPU path launches no kernel
+    assert COUNTS["launch.render_mono"] == launches  # the CPU path launches no kernel
     assert got.shape == (size[1], size[0]) and got.dtype == torch.int32
     _assert_frames_agree(got, want, fast, EXACT_SAME_MIN if size == SIZES[0] else LARGE_SAME_MIN)
     if size[2] >= 200:
@@ -226,10 +227,10 @@ def _need_cuda():
 def test_kernel_matches_plain_version_on_gpu(cam, fast):
     _need_cuda()
     _, _, tc, ts = _both(cam, (160, 96, 200))
-    launches = trace_kernel.LAUNCHES
+    launches = COUNTS["launch.render_mono"]
     got = trace_kernel.render_packed(tc, ts, fast_math=fast, device="cuda")
     torch.cuda.synchronize()
-    assert trace_kernel.LAUNCHES == launches + 1
+    assert COUNTS["launch.render_mono"] == launches + 1
     want = trace_kernel.render_packed_reference(tc, ts, fast_math=fast, device="cuda")
     _assert_frames_agree(got, want, fast)
 
@@ -238,8 +239,8 @@ def test_kernel_matches_plain_version_on_gpu(cam, fast):
 def test_kernel_animation_on_gpu():
     _need_cuda()
     r = T.BlackHoleRenderer(64, 48, device="cuda", fast_math=True)
-    launches = trace_kernel.LAUNCHES
+    launches = COUNTS["launch.render_mono"]
     frames = T.OrbitAnimator(r).render_frames(4, packed=True)
     torch.cuda.synchronize()
-    assert trace_kernel.LAUNCHES == launches + 4
+    assert COUNTS["launch.render_mono"] == launches + 4
     assert frames.shape == (4, 48, 64) and frames.device.type == "cuda"

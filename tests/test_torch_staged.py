@@ -25,6 +25,7 @@ from bhr_tpu_torch import renderer as trenderer
 from bhr_tpu_torch.ops import trace_kernel
 from bhr_tpu_torch.ops.sampling import unpack_frame
 from bhr_tpu_torch.ops.trace import STATUS_DISK
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 W, H, STEPS = 48, 32, 160
 SIDE = ([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
@@ -138,9 +139,9 @@ def test_trace_image_equals_its_reference_and_fills_out(fast):
     scene = T.SceneParams(screen_width=24, screen_height=16, max_steps=200)
     cam = T.Camera.new(*SIDE)
     cfg = T.TraceConfig(integrator="leapfrog", adaptive=True, disk=True)
-    launches = trace_kernel.TRACE_LAUNCHES
+    launches = COUNTS["launch.trace_planes"]
     got = trace_kernel.trace_image(cam, scene, cfg, fast_math=fast, device="cpu")
-    assert trace_kernel.TRACE_LAUNCHES == launches  # the CPU path launches no kernel
+    assert COUNTS["launch.trace_planes"] == launches  # the CPU path launches no kernel
     want = trace_kernel.trace_image_reference(cam, scene, cfg, fast_math=fast, device="cpu")
     out = trace_kernel.empty_trace_result(16, 24, "cpu")
     assert trace_kernel.trace_image(cam, scene, cfg, fast_math=fast, device="cpu", out=out) is out
@@ -223,10 +224,10 @@ def test_trace_planes_matches_plain_version_on_gpu(kw, fast):
     scene = T.SceneParams(screen_width=160, screen_height=96, max_steps=200)
     cam = T.Camera.new(*DISK)
     cfg = T.TraceConfig(**kw)
-    launches = trace_kernel.TRACE_LAUNCHES
+    launches = COUNTS["launch.trace_planes"]
     got = trace_kernel.trace_image(cam, scene, cfg, fast_math=fast, device="cuda")
     torch.cuda.synchronize()
-    assert trace_kernel.TRACE_LAUNCHES == launches + 1
+    assert COUNTS["launch.trace_planes"] == launches + 1
     want = trace_kernel.trace_image_reference(cam, scene, cfg, fast_math=fast, device="cuda")
     same = (got.status == want.status) & (got.steps == want.steps)
     assert same.float().mean().item() >= 0.995

@@ -32,6 +32,7 @@ from bhr_tpu_torch.models import neural as tn
 from bhr_tpu_torch.models import neural_kerr as tnk
 from bhr_tpu_torch.ops import neural_kernel, trace_kernel
 from bhr_tpu_torch.ops.trace import STATUS_CAPTURED, STATUS_ESCAPED
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 W, H, STEPS = 64, 48, 200
 SIDE = ([15.0, 5.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
@@ -327,10 +328,10 @@ def test_dirs_kernel_matches_plain_version_on_gpu(net):
     tp = _net(asset, model)[1].to("cuda")
     scene = T.SceneParams(screen_width=160, screen_height=96, spin=spin)
     cam = T.Camera.new(*SIDE)
-    n = neural_kernel.NEURAL_DIRS_LAUNCHES, neural_kernel.NEURAL_LAUNCHES
+    n = COUNTS["launch.neural_mlp.dirs"], COUNTS["launch.neural_mlp"]
     got = neural_kernel.neural_trace_dirs(tp, cam, scene, precision=tier, device="cuda")
     torch.cuda.synchronize()
-    assert (neural_kernel.NEURAL_DIRS_LAUNCHES, neural_kernel.NEURAL_LAUNCHES) == (n[0] + 1, n[1])
+    assert (COUNTS["launch.neural_mlp.dirs"], COUNTS["launch.neural_mlp"]) == (n[0] + 1, n[1])
     want = neural_kernel.neural_trace_dirs_reference(tp, cam, scene, precision=tier,
                                                      device="cuda")
     assert (got.status == want.status).float().mean().item() >= 0.999
@@ -353,10 +354,10 @@ def test_textured_frame_on_gpu_matches_all_plain_frame(tier, small_skybox):
                             texture_filter=filt, texture_subsample=sub)
     cam = T.Camera.new(*DISK)
     scene = r.frame_scene(T.SceneParams(max_steps=200))
-    n = trace_kernel.TRACE_LAUNCHES, trace_kernel.LAUNCHES
+    n = COUNTS["launch.trace_planes"], COUNTS["launch.render_mono"]
     got = r.render_frame(cam, scene)
     torch.cuda.synchronize()
-    assert (trace_kernel.TRACE_LAUNCHES, trace_kernel.LAUNCHES) == (n[0] + 1, n[1])
+    assert (COUNTS["launch.trace_planes"], COUNTS["launch.render_mono"]) == (n[0] + 1, n[1])
     res = trace_kernel.trace_image_reference(cam, scene, r.config, device="cuda")
     want = T.shade_image(res, cam, scene, r.disk_params(scene), r._lut, tonemap="passthrough",
                          **r.shade_kwargs())

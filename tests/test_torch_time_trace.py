@@ -25,6 +25,7 @@ import bhr_tpu_torch as bt
 from bhr_tpu_torch.ops import trace_kernel
 from bhr_tpu_torch.tools import sass_walk as sw
 from bhr_tpu_torch.tools import time_trace as tt
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 DATA = Path(__file__).resolve().parent / "data"
 
@@ -262,11 +263,11 @@ def test_the_renderer_main_path_is_the_fixed_one():
 
 
 def test_cpu_wrappers_count_no_launch():
-    before = (trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES)
+    before = (COUNTS["launch.render_mono"], COUNTS["launch.trace_planes"])
     scene = bt.SceneParams(screen_width=8, screen_height=4, max_steps=5)
     trace_kernel.render_packed(bt.Camera.default(), scene, device="cpu")
     trace_kernel.trace_image(bt.Camera.default(), scene, device="cpu")
-    assert (trace_kernel.LAUNCHES, trace_kernel.TRACE_LAUNCHES) == before
+    assert (COUNTS["launch.render_mono"], COUNTS["launch.trace_planes"]) == before
 
 
 def test_time_trace_runs_as_a_script_without_the_package():

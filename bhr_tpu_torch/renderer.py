@@ -14,13 +14,15 @@ without the accretion disk, the analytic star field, the passthrough,
 reinhard or srgb tonemap and the step-count heatmap, in the fast or the
 exact math tier. A frame that the monolithic kernel can produce goes to it
 (csrc/render_mono.cu); every other one is traced by the planes kernel
-(csrc/trace_planes.cu) and shaded by the plain PyTorch epilogue
-`shade_image` on the device, as bhr_tpu/renderer.py:render_image routes
-them. The neural surrogate (integrator "neural", model schwarzschild or
-kerr) renders a frame with the analytic star field, the passthrough
-tonemap and no debug view at the default or highest precision tier in one
-csrc/neural_mlp.cu launch, and every other neural frame through the
-staged route ops/neural_trace and `shade_image`.
+(csrc/trace_planes.cu) and shaded by `shade_image` on the device, as
+bhr_tpu/renderer.py:render_image routes them: a frame of the star field
+with the passthrough tonemap and no debug view in one csrc/shade_planes.cu
+launch, any other by the plain PyTorch epilogue `shade_image_reference`.
+The neural surrogate (integrator "neural", model schwarzschild or kerr)
+renders a frame with the analytic star field, the passthrough tonemap and
+no debug view at the default or highest precision tier in one
+csrc/neural_mlp.cu launch, and every other neural frame through the staged
+route ops/neural_trace and `shade_image`.
 
 A texture skybox (`skybox=` a path or an array, e.g. io/skybox.load_skybox()
 for the procedural 2048x4096 star map) is packed once and kept on the device;
@@ -67,6 +69,7 @@ from .ops.neural_kernel import (
 )
 from .ops.neural_trace import neural_trace_image
 from .ops.sampling import luma_pack_texture, pack_texture_rgba8, unpack_frame
+from .ops.shade_kernel import kernel_planes, shade_kernel_takes, shade_planes
 from .ops.shading import shade_planes_packed, texture_background
 from .ops.trace import TraceConfig, TraceResult
 from .ops.trace_kernel import monolithic_eligible, render_packed, trace_image
@@ -238,35 +241,58 @@ def shade_image(result: TraceResult, camera: Camera, scene: SceneParams, disk_pa
                 tonemap: str, seed: int = 2020, packed: bool = False,
                 out: torch.Tensor | None = None, skybox=None, texture_filter: str = "bilinear",
                 texture_subsample=1) -> torch.Tensor:
-    """The staged path's shading epilogue (bhr_tpu/renderer.py:316-395),
-    plain PyTorch on the planes' device: the background -- the star field
-    of `seed`, or the packed `skybox` texture through its filter tier
-    (ops/shading.texture_background; a debug view switches the luma and
-    subsampled tiers off) --, the disk's emission when `disk_params` is
-    given, the tonemap, the step heatmap for scene.debug_mode == 1, and
-    round-half-to-even quantization in both tiers. Returns uint8
-    (H, W, 4), or packed int32 (H, W) when `packed`; `out`, if given,
+    """The staged path's shading epilogue (bhr_tpu/renderer.py:316-395) on
+    the planes' device. A frame that `shade_kernel_takes` (contiguous
+    planes on a CUDA device, the star field, passthrough, no debug view, no
+    disk or the (512, 3) table) is one csrc/shade_planes.cu launch
+    (ops/shade_kernel.shade_planes), bit-equal to the plain epilogue
+    `shade_image_reference`; every other frame takes the plain epilogue,
+    counted in tracing.COUNTS["epilogue.plain"] on a CUDA device. Returns
+    uint8 (H, W, 4), or packed int32 (H, W) when `packed`; `out`, if given,
     receives the packed frame."""
     with tracing.span("epilogue"):
-        tm = TONEMAPS[tonemap]
-        frame = shade_planes_packed(
-            result,
-            texture_background(skybox, result, texture_filter=texture_filter,
-                               texture_subsample=texture_subsample, seed=seed,
-                               approximate=scene.debug_mode == 0),
-            scene.max_steps,
-            debug_mode=scene.debug_mode,
-            bh_pos=scene.black_hole_position,
-            rs=scene.schwarzschild_radius,
-            camera_position=camera.position,
-            disk_params=disk_params,
-            blackbody_lut=lut,
-            tonemap=None if tonemap == "passthrough" else tm,
-            half_up=False,
-        )
-        if out is not None:
-            frame = out.copy_(frame)
+        if shade_kernel_takes(result.final_vel.device, scene, skybox=skybox, tonemap=tonemap,
+                              disk_params=disk_params, lut=lut,
+                              planes=kernel_planes(result, disk_params, out)):
+            frame = shade_planes(result, camera, scene, disk_params, lut, seed=seed, out=out)
+        else:
+            tracing.COUNTS["epilogue.plain"] += result.final_vel.device.type == "cuda"
+            frame = shade_image_reference(result, camera, scene, disk_params, lut,
+                                          tonemap=tonemap, seed=seed, skybox=skybox,
+                                          texture_filter=texture_filter,
+                                          texture_subsample=texture_subsample)
+            if out is not None:
+                frame = out.copy_(frame)
         return frame if packed else unpack_frame(frame)
+
+
+def shade_image_reference(result: TraceResult, camera: Camera, scene: SceneParams, disk_params,
+                          lut, *, tonemap: str, seed: int = 2020, skybox=None,
+                          texture_filter: str = "bilinear",
+                          texture_subsample=1) -> torch.Tensor:
+    """The plain epilogue, plain PyTorch on the planes' device -> packed
+    int32 (H, W): the background -- the star field of `seed`, or the packed
+    `skybox` texture through its filter tier (ops/shading.texture_background;
+    a debug view switches the luma and subsampled tiers off) --, the disk's
+    emission when `disk_params` is given, the tonemap, the step heatmap for
+    scene.debug_mode == 1, and round-half-to-even quantization in both
+    tiers. The CPU path, the path of every frame `shade_kernel_takes`
+    refuses, and the yardstick of csrc/shade_planes.cu."""
+    return shade_planes_packed(
+        result,
+        texture_background(skybox, result, texture_filter=texture_filter,
+                           texture_subsample=texture_subsample, seed=seed,
+                           approximate=scene.debug_mode == 0),
+        scene.max_steps,
+        debug_mode=scene.debug_mode,
+        bh_pos=scene.black_hole_position,
+        rs=scene.schwarzschild_radius,
+        camera_position=camera.position,
+        disk_params=disk_params,
+        blackbody_lut=lut,
+        tonemap=None if tonemap == "passthrough" else TONEMAPS[tonemap],
+        half_up=False,
+    )
 
 
 class BlackHoleRenderer:

@@ -20,10 +20,12 @@ and one for the run:
   stage (camera, params, launch, epilogue, the frame call's own, gc), the
   device time a frame of the operations launched inside
   "epilogue.background" (tied to their runtime calls by the trace's
-  correlation ids), how much of the issue the "host.frames" spans cover,
-  the share of the cudaLaunchKernel calls inside a program span, the idle
-  gaps named by the innermost program span open when each began, and the
-  frames whose issue stalled, with the label that took the extra time;
+  correlation ids) and, apart, of the kernel launched inside
+  "kernel.shade_planes" (each None where its span never ran), how
+  much of the issue the "host.frames" spans cover, the share of the
+  cudaLaunchKernel calls inside a program span, the idle gaps named by the
+  innermost program span open when each began, and the frames whose issue
+  stalled, with the label that took the extra time;
 - the run: the seconds of the outermost setup.* spans (`setup_program_s`,
   the package's import included, and by name) beside the run's own set-up
   time, and the on cost of recording: the mean issue of the windows with
@@ -166,6 +168,18 @@ def device_ms_in(span_name: str, device, host, where: Innermost, n_frames: int):
     return sum(ns) * 1e-6 / n_frames if ns else None
 
 
+def epilogue_device_ms(device, host, where: Innermost, n_frames: int) -> dict:
+    """Device time a frame, in ms, of the epilogue's two routes, each None
+    where its span never ran: `background_device_ms`, the ops launched
+    inside "epilogue.background" (the plain epilogue's star field or
+    texture), and `shade_kernel_device_ms`, the kernel launched inside
+    "kernel.shade_planes" (star field, disk and quantizer in one)."""
+    return {"background_device_ms": device_ms_in("epilogue.background", device, host, where,
+                                                 n_frames),
+            "shade_kernel_device_ms": device_ms_in("kernel.shade_planes", device, host, where,
+                                                   n_frames)}
+
+
 def doing(t: int, bench: Innermost, where: Innermost, calls: Innermost) -> str:
     """The host at t: the harness's span, the innermost program span and the
     runtime call open then."""
@@ -277,7 +291,7 @@ def analyse(bench_spans, device, host, spans, end_ms, readers, rec_base) -> dict
     calls = Innermost([tracing.Span(nm, a, b, None, None) for nm, a, b, _ in host], 8)
     out.update(
         stage_ms=stage_ms(spans, n),
-        background_device_ms=device_ms_in("epilogue.background", device, host, where, n),
+        **epilogue_device_ms(device, host, where, n),
         coverage=coverage(spans, issue), clock=clock(host, where),
         idle_gaps=idle_gaps(rel, rec.window_s,
                             lambda t: doing(w0 + round(t * 1e9), bench, where, calls)),

@@ -26,7 +26,10 @@ and fp32 tiers), and the kernels of csrc/probes.cu answer them here:
   the exact Kerr-Schild loop's reciprocals and roots behind its group
   guard (rcp_group, root_group) against __fdiv_rn(1, x) and __fsqrt_rn on
   every non-negative float32, and its escape threshold (esc_threshold)
-  against the root's test on every float32;
+  against the root's test on every float32; and the staged epilogue's
+  x^-3/4 (disk_power, csrc/common.cuh disk_temperature_power, the power of
+  csrc/shade_planes.cu's disk emission) bit for bit against torch.pow(x,
+  -0.75) on every float32 in [1e-6, 4];
 * `gather` (probe_gather<SRC>): exact lookups from __constant__, shared and
   device memory and by warp shuffles, on the probes' (8, 128) and (8, W)
   shapes, then 1920 x 1080 lookups, hashed (pallas_gather_bench.py's index)
@@ -68,7 +71,7 @@ from ..utils.timing import device_time_ms
 
 IEEE_OPS = {"div": 0, "fdiv_rn": 1, "fsqrt_rn": 2, "sqrtf": 3, "frsqrt_rn": 4, "rsqrtf": 5,
             "rcp_approx": 6, "markstein": 7, "sqrt_seq": 8, "shared_div": 9, "rcp_group": 10,
-            "root_group": 11, "esc_threshold": 12}
+            "root_group": 11, "esc_threshold": 12, "disk_power": 13}
 BINARY_OPS = ("div", "fdiv_rn", "markstein", "shared_div")
 # operands a group of the exact Kerr-Schild loop's group guard probes
 # (csrc/common.cuh rcp_guard, root_guard): a takes (n, width)
@@ -184,7 +187,8 @@ def ieee_reference(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *,
     quotient, as the kernel's __fdiv_rn gives it. `rcp_group` and
     `root_group` (a (n, 3), (n, 2)) and `esc_threshold` likewise
     (rcp_group_reference, root_group_reference,
-    escape_threshold_reference)."""
+    escape_threshold_reference). `disk_power` is torch.pow(a, -0.75),
+    which the kernel's power must equal on the card."""
     if op in ("div", "fdiv_rn"):
         return (a.double() / b.double()).float()
     if op == "shared_div":
@@ -195,6 +199,8 @@ def ieee_reference(op: str, a: torch.Tensor, b: torch.Tensor | None = None, *,
         return root_group_reference(a, y0)
     if op == "esc_threshold":
         return escape_threshold_reference(a)
+    if op == "disk_power":
+        return torch.pow(a, -0.75)
     if op in ("fsqrt_rn", "sqrtf"):
         return a.double().sqrt().float()
     if op in ("frsqrt_rn", "rsqrtf"):
@@ -734,6 +740,7 @@ def probe_ieee(run: Run, small: bool) -> None:
                per_sequence={k: v for k, v in sorted(seq_results.items())})
     probe_shared_div(run, small, a_np, b_np)
     probe_group_guard(run, small)
+    probe_disk_power(run, small)
 
 
 def _f32(*xs) -> np.ndarray:
@@ -977,6 +984,41 @@ def probe_group_guard(run: Run, small: bool) -> None:
                yes=all(c["ok"] for c in done), small=small,
                per_check={c["check"]: {k: v for k, v in c.items()
                                        if k not in ("probe", "check", "small")} for c in done})
+
+
+# the staged epilogue's r / r_isco, clamped below at 1e-6, lies in [1, 10 / 3]:
+# its power is held on every float32 in [1e-6, 4]
+DISK_POWER_RANGE = (1e-6, 4.0)
+
+
+def disk_power_bits() -> tuple:
+    """The float32 bit patterns of DISK_POWER_RANGE's ends, both included:
+    (lo, hi + 1)."""
+    lo, hi = (int(np.array(x, dtype=np.float32).view(np.int32)) for x in DISK_POWER_RANGE)
+    return lo, hi + 1
+
+
+def probe_disk_power(run: Run, small: bool) -> None:
+    """The staged epilogue's x^-3/4 (csrc/common.cuh disk_temperature_power)
+    bit for bit against torch.pow(x, -0.75) on the same device, on every
+    float32 in DISK_POWER_RANGE; then its time over 4M ratios in [1, 4)."""
+    dev = run.device
+    floats, mismatches = 0, 0
+    for x in _float_chunks(*disk_power_bits(), small, dev):
+        got, want = ieee("disk_power", x), ieee_reference("disk_power", x)
+        floats += x.numel()
+        mismatches += int((~_same_bits(got, want)).sum().item())
+        run.kernel("probe_ieee<disk_power>", max_abs_err=float((got - want).abs().max().item()))
+    run.check("ieee", "disk_power_every_float_in_range", mismatches == 0, small=small,
+              floats=floats, mismatches=mismatches, range=list(DISK_POWER_RANGE))
+    n = 1 << 12 if small else N_IEEE
+    g = torch.Generator(device="cpu").manual_seed(11)
+    a = (torch.rand(n, generator=g) * 3 + 1).to(dev)
+    bound_ms, by = _bound(8 * n, 0, PEAK_FP32)
+    run.kernel("probe_ieee<disk_power>", ms=run.ms(lambda: ieee("disk_power", a)),
+               plain_ms=run.ms(lambda: ieee_reference("disk_power", a)), bound_ms=bound_ms,
+               bound_by=by,
+               config=f"{n} ratios in [1, 4) (torch seed 11)")
 
 
 def probe_gather(run: Run, small: bool, texture: torch.Tensor | None) -> None:

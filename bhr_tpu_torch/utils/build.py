@@ -5,7 +5,8 @@ is one nvcc call (seconds, no PyTorch headers). The shared library lands in
 build/bhr_tpu_torch/ at the root of the checkout, named by a hash of the
 sources and flags: it is built at first use and rebuilt whenever a source
 changes. Nothing is built when the module is imported. probes.cu, the
-kernels of tools/hopper_probe.py, is a library of its own. Plugin physics
+kernels of tools/hopper_probe.py, and shade_planes.cu, the staged
+epilogue's kernel, are libraries of their own. Plugin physics
 builds trace_planes.cu once more per plugin, with the plugin's recorded
 acceleration (utils/plugin.py) written into build/ as a header and
 included first; its text is part of the hash.
@@ -35,6 +36,7 @@ NVCC_FLAGS = (
 RENDER_MONO_SOURCES = ("render_mono.cu",)
 TRACE_PLANES_SOURCES = ("trace_planes.cu",)
 NEURAL_MLP_SOURCES = ("neural_mlp.cu",)
+SHADE_PLANES_SOURCES = ("shade_planes.cu",)
 PROBE_SOURCES = ("probes.cu",)
 MAX_LAYERS = 8  # kMaxLayers of csrc/neural_mlp.cu
 
@@ -201,6 +203,31 @@ def _declare_trace_planes(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bhr_error_string.argtypes = [ctypes.c_int]
     lib.bhr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def load_shade_planes() -> ctypes.CDLL:
+    """Build (at first use) and load the staged epilogue's kernel library,
+    with the C signatures of csrc/shade_planes.cu declared."""
+    with tracing.span("setup.load"):
+        lib = ctypes.CDLL(str(build("shade_planes", SHADE_PLANES_SOURCES).path))
+        ptr, f32 = ctypes.c_void_p, ctypes.c_float
+        lib.bhr_shade_planes.argtypes = [
+            ctypes.c_int64,  # n pixels
+            ctypes.c_uint32,  # seed_term
+            ctypes.c_int,  # disk
+            f32, f32, f32, f32, f32, f32, f32,  # rs, black hole xyz, camera xyz
+            ptr, ptr, ptr,  # r_isco, r_outer, t_isco (one fp32 each, on the device)
+            ptr,  # lut (512, 3)
+            ptr, ptr, ptr,  # pos (null without the disk), vel, status
+            ptr,  # out
+            ctypes.c_int,  # device
+            ptr,  # stream
+        ]
+        lib.bhr_shade_planes.restype = ctypes.c_int
+        lib.bhr_error_string.argtypes = [ctypes.c_int]
+        lib.bhr_error_string.restype = ctypes.c_char_p
+        return lib
 
 
 @functools.cache

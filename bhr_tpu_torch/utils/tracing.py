@@ -28,8 +28,10 @@ The span names:
   kernel.render_mono    the wrappers, from entry through the ctypes
   kernel.trace_planes   call (on a CPU device, their plain versions)
   kernel.neural_mlp
+  kernel.shade_planes   ops/shade_kernel.shade_planes, inside `epilogue`
   epilogue              renderer.shade_image, BlackHoleRenderer.disk_params
   epilogue.background   the background's colours in shade_planes_packed
+                        (the plain epilogue only)
   setup.import          the package's import
   setup.load            each ctypes library's build check, CDLL and signatures
   setup.build           utils/build.build: the hash check, and nvcc...
@@ -38,7 +40,7 @@ The span names:
   setup.disk_lut        the fast kernel's blackbody table copied to the device
   gc                    a collection of the garbage collector
 
-COUNTS counts at all times, recording or not. Each key is incremented by
+COUNTS counts at all times, recording or not. Each launch key is incremented by
 a kernel's wrapper right after a successful launch, and nowhere else:
   launch.render_mono              render_packed
   launch.trace_planes             trace_image; of those, with stride != 1
@@ -48,7 +50,13 @@ a kernel's wrapper right after a successful launch, and nowhere else:
   launch.neural_mlp               neural_render_packed; of those, bands
   launch.neural_mlp.band
   launch.neural_mlp.dirs          neural_trace_dirs
+  launch.shade_planes             ops/shade_kernel.shade_planes
   launch.probe_<kernel><variant>  tools/hopper_probe.py's kernels
+and one key counts a route taken, not a launch:
+  epilogue.plain                  renderer.shade_image, for each frame on a
+                                  CUDA device that takes the plain epilogue
+launch.shade_planes over the sum of the two is the kernel's share of the
+staged frames shaded on a card.
 """
 
 from __future__ import annotations

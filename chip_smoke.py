@@ -5,7 +5,8 @@
 Builds the port's kernels from this checkout with nvcc, one nvcc per
 library started together (bhr_tpu_torch/csrc/render_mono.cu, the
 monolithic trace + shade kernel, csrc/trace_planes.cu, the staged trace
-kernel, csrc/neural_mlp.cu, the neural surrogate's kernel,
+kernel, csrc/shade_planes.cu, the staged epilogue's kernel,
+csrc/neural_mlp.cu, the neural surrogate's kernel,
 trace_planes.cu once more with the acceleration that utils/plugin.py
 records from examples/plugins/paczynski_wiita.py, and csrc/probes.cu, the
 probe kernels of tools/hopper_probe.py), holds every kernel
@@ -24,8 +25,11 @@ renderer's paths:
     OrbitAnimator's), and render_to_dir of 2 frames read back;
   * BASELINE config 4 at 1920x1080x500 (rk4, adaptive dt, accretion disk,
     camera [15,5,0]): the fast tier one render_mono launch, the exact tier
-    one trace_planes launch and the plain PyTorch epilogue, frame by frame
-    and as a 4-frame animation with no host sync;
+    one trace_planes launch and one shade_planes launch (the staged
+    epilogue's kernel, csrc/shade_planes.cu), frame by frame and as a
+    4-frame animation with no host sync; then shade_planes alone on that
+    frame's exact planes, every word against the plain epilogue, its device
+    time beside its bound and the plain epilogue's time;
   * BASELINE config 5 at 3840x2160x2000 (exact Kerr, spin 0.9, the disk,
     Euler, camera [15,5,0]): the same two routes, one frame held against
     the whole plain frame, then 2 orbit frames with no host sync, each held
@@ -180,6 +184,7 @@ N_MONO, N_TRACE = "launch.render_mono", "launch.trace_planes"
 N_STRIDED, N_MASKED, N_CUSTOM = (f"{N_TRACE}.{v}" for v in ("strided", "masked", "custom"))
 N_NEURAL = "launch.neural_mlp"
 N_DIRS, N_BAND = f"{N_NEURAL}.dirs", f"{N_NEURAL}.band"
+N_SHADE, N_PLAIN = "launch.shade_planes", "epilogue.plain"
 # Bars of a kernel against its plain version.
 EXACT_SAME_MIN = 0.999  # bit-equal packed words (tests/test_pallas_parity.py:484-491)
 FAST_MIN = 0.995  # every channel within 1 level
@@ -275,6 +280,17 @@ PLAN_NETS = (("default", "kerr", 128, 0),
              ("highest", "schwarzschild", 384, 0), ("highest", "kerr", 512, 0),
              ("highest", "schwarzschild", 640, 0), ("highest", "kerr", 768, 0),
              ("highest", "schwarzschild", 1024, 2))
+# The staged epilogue's kernel (csrc/shade_planes.cu), counted as
+# NEURAL_PIXEL_OPS is: the star field 345 and quantizing 18 a pixel of sky,
+# a disk pixel's emission 104 (its hit point 3, radius 6, Kepler speed 5,
+# tangent 10 and velocity 3, beta 6, v_hat 4, direction 9, cos 5, Doppler
+# 6, emitter's redshift 6, g 3, temperature 4 and over g 1, table index 6
+# and weights 2, beaming 3, edge 4, T / T_isco 1, intensity 5, colour 12;
+# the observer's redshift is the launch's constant) and quantizing 18; a
+# captured pixel quantizing 18. Bytes: direction 12, status 4 and the word
+# 4 a pixel, the hit point 12 more a disk pixel.
+SHADE_STAR_OPS, SHADE_DISK_OPS, SHADE_QUANT_OPS = 345, 104, 18
+SHADE_BYTES, SHADE_DISK_BYTES = 20, 12
 # Texture tiers (filter, subsample) of the small texture matrix, and the
 # bars of the direction-plane kernel (N3) against its plain version.
 TEX_TIERS = (("bilinear", 1), ("nearest", 1), ("luma", 1), ("bilinear", 2),
@@ -340,6 +356,8 @@ REPLACES = {
             ":372 and pallas_call :408; called by bhr_tpu/parallel/mesh.py:116-120)",
     "custom": "bhr_tpu/ops/pallas_trace.py:351-361 and :1521-1650 (K5 with model='custom': "
               "kernel :1335's generic body, via _pallas_trace :1746 and pallas_call :1800)",
+    "shade_planes": "no Pallas kernel: bhr_tpu leaves the staged epilogue "
+                    "(bhr_tpu/renderer.py:316-395) to XLA's fusion",
     "probe_ieee": "scripts/ieee_probe.py:70 (run_kernel: k_div :80, k_sqrt :84, k_rsqrt :88, "
                   "k_recip_approx :92, k_mark :109, k_sqrt_seq :124)",
     "probe_gather": "scripts/gather_probe2.py:30, scripts/lut_butterfly_probe.py:31 and :152, "
@@ -691,13 +709,14 @@ def main() -> None:
     from bhr_tpu_torch.models import neural as tn
     from bhr_tpu_torch.models import neural_kerr as tnk
     from bhr_tpu_torch.ops import neural_kernel as nk
+    from bhr_tpu_torch.ops import shade_kernel as sk
     from bhr_tpu_torch.ops import trace_kernel as tk
     from bhr_tpu_torch.ops.multires import deflection_edges
     from bhr_tpu_torch.ops.neural_trace import neural_trace_image
     from bhr_tpu_torch.ops.sampling import unpack_frame as unpack
     from bhr_tpu_torch.ops.trace import trace_rays
     from bhr_tpu_torch.parallel import mesh as pm
-    from bhr_tpu_torch.renderer import shade_image
+    from bhr_tpu_torch.renderer import shade_image, shade_image_reference
     from bhr_tpu_torch.tools import hopper_probe as hp
     from bhr_tpu_torch.tools import neural_floor as nf
     from bhr_tpu_torch.tools import sass_walk
@@ -709,7 +728,7 @@ def main() -> None:
     plugin_accel, plugin_cap = plugin.load_plugin(PLUGIN)
     plugin_program = plugin.record(plugin_accel)
     plugin_source = plugin.cuda_source(plugin_accel)
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         floor_job = pool.submit(nf.build_floor, build.nvcc_path(), build.NVCC_FLAGS,
                                 build.CSRC_DIR, build.BUILD_DIR / "neural_floor")
         jobs = {name: pool.submit(build.build, name, sources, *extra) for name, sources, *extra in
@@ -717,7 +736,8 @@ def main() -> None:
                  ("trace_planes", build.TRACE_PLANES_SOURCES),
                  ("neural_mlp", build.NEURAL_MLP_SOURCES),
                  ("trace_planes_custom", build.TRACE_PLANES_SOURCES, plugin_source),
-                 ("probes", build.PROBE_SOURCES))}
+                 ("probes", build.PROBE_SOURCES),
+                 ("shade_planes", build.SHADE_PLANES_SOURCES))}
         floor_paths = floor_job.result()
         for name, job in jobs.items():
             info = job.result()
@@ -728,6 +748,7 @@ def main() -> None:
     build.load_neural_mlp()
     build.load_trace_planes_custom(plugin_source)
     build.load_probes()
+    build.load_shade_planes()
     cuobjdump = sass_walk.cuobjdump_path(build.nvcc_path())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -767,11 +788,11 @@ def main() -> None:
     def plain_staged(cam, scene, config, fast, renderer, tonemap="passthrough", rows=None,
                      res=None):
         """The staged frame's plain version: the plain trace (or `res`), the
-        same epilogue."""
+        plain epilogue."""
         if res is None:
             res = plain_trace(cam, scene, config, fast, rows)
-        frame = shade_image(res, cam, scene, renderer.disk_params(scene), renderer._lut,
-                            tonemap=tonemap, seed=renderer.skybox_seed, packed=True)
+        frame = shade_image_reference(res, cam, scene, renderer.disk_params(scene),
+                                      renderer._lut, tonemap=tonemap, seed=renderer.skybox_seed)
         return frame, res
 
     def band(x, rows):
@@ -819,6 +840,20 @@ def main() -> None:
         end.record()
         torch.cuda.synchronize()
         return frames, start.elapsed_time(end) / n_frames, anim
+
+    def shade_rec() -> dict:
+        return var.other("shade_planes<exact>", "shade_planes", REPLACES["shade_planes"])
+
+    def staged_shading(what: str, fast: bool, n: int) -> None:
+        """Asserts that the n frames (or epilogues) since reset() were shaded
+        as their route says: a staged frame by one shade_planes launch each,
+        a monolithic one by none, and none by the plain epilogue; counts the
+        launches in shade_planes' `kernels` entry."""
+        want = (0 if fast else n, 0)
+        if (C[N_SHADE], C[N_PLAIN]) != want:
+            raise AssertionError(f"{what}: {C[N_SHADE]} shade_planes launches and "
+                                 f"{C[N_PLAIN]} plain epilogues, not {want}")
+        shade_rec()["launches"] += C[N_SHADE]
 
     # 3. every variant against its plain version, small: the two cameras of
     # the main path, then the matrix of integrators, dt, models, tiers and paths
@@ -1019,7 +1054,8 @@ def main() -> None:
           f"render_to_dir 2 frames: 2 launches, PNGs read back equal, manifest camera_path "
           f"{manifest['camera_path']!r}")
 
-    # 6. (a) BASELINE config 4: rk4, adaptive dt, the disk, camera [15,5,0]
+    # 6. (a) BASELINE config 4: rk4, adaptive dt, the disk, camera [15,5,0];
+    # the exact tier's frames each one trace_planes and one shade_planes launch
     cfg4 = dict(integrator="rk4", adaptive=True, disk=True)
     for fast in (True, False):
         tier = "fast" if fast else "exact"
@@ -1032,12 +1068,13 @@ def main() -> None:
         if launches != ((1, 0) if fast else (0, 1)):
             raise AssertionError(f"BASELINE 4 {tier} launched {launches}, not one {kernel}")
         var.launched(kernel, fast, "rk4", 1)
+        staged_shading("BASELINE 4", fast, 1)
         packed = frame.view(torch.int32).view(H, W)
         if fast:
             s = check_mono(side, full_scene, renderer.config, True, packed)
         else:
             s, k_res, _ = check_staged(side, full_scene, renderer.config, False, renderer, packed)
-            s["epilogue_ms"] = cuda_ms(
+            s["shade_kernel_ms"] = cuda_ms(
                 lambda: shade_image(k_res, side, full_scene, renderer.disk_params(full_scene),
                                     renderer._lut, tonemap="passthrough", packed=True),
                 1, REPEATS)
@@ -1049,10 +1086,51 @@ def main() -> None:
             raise AssertionError(f"BASELINE 4 animation launched {C[N_MONO]}, "
                                  f"{C[N_TRACE]}")
         var.launched(kernel, fast, "rk4", n)
+        staged_shading("BASELINE 4 animation", fast, n)
         phase("baseline4", f"{W}x{H}x{STEPS} rk4 adaptive disk {tier}: render_frame 1 {kernel} "
-              f"launch ({bar(fast)}): {json.dumps(s)}; "
+              f"launch{'' if fast else ' and 1 shade_planes launch'} ({bar(fast)}): "
+              f"{json.dumps(s)}; "
               f"OrbitAnimator {BASELINE_FRAMES} frames {anim_ms:.3f} ms/frame with no host sync "
               f"(CUDA events, sync debug mode 'error') on {smi}")
+
+    # 6. (b) the staged epilogue's kernel on BASELINE config 4's exact planes:
+    # one shade_planes launch through shade_image, bit-equal to the plain
+    # epilogue; its device time beside its bound, the plain epilogue's time
+    # and the host's issue of each
+    r4 = bt.BlackHoleRenderer(W, H, device="cuda", **cfg4)
+    res4 = tk.trace_image(side, full_scene, r4.config, device="cuda")
+    disk4 = r4.disk_params(full_scene)
+    shade_args = (res4, side, full_scene, disk4, r4._lut)
+    reset()
+    kframe = shade_image(*shade_args, tonemap="passthrough", packed=True)
+    torch.cuda.synchronize()
+    staged_shading("config 4's exact epilogue", False, 1)
+    plain4 = shade_image_reference(*shade_args, tonemap="passthrough")
+    differ = int((kframe != plain4).sum())
+    if differ:
+        raise AssertionError(f"shade_planes differs from the plain epilogue on {differ} words")
+    shade_ms = device_time_ms(lambda: sk.shade_planes(*shade_args))
+    shade_host_ms = host_ms(lambda: shade_image(*shade_args, tonemap="passthrough",
+                                                packed=True), REPEATS)
+    plain_shade_ms = cuda_ms(lambda: shade_image_reference(*shade_args, tonemap="passthrough"),
+                             1, REPEATS)
+    plain_host_ms = host_ms(lambda: shade_image_reference(*shade_args, tonemap="passthrough"),
+                            REPEATS)
+    n_disk = int((res4.status == STATUS_DISK).sum().item())
+    n_sky = int((res4.status != STATUS_CAPTURED).sum().item()) - n_disk
+    t_ops = (n_sky * SHADE_STAR_OPS + n_disk * SHADE_DISK_OPS
+             + W * H * SHADE_QUANT_OPS) / PEAK_FP32 * 1e3
+    t_bytes = (W * H * SHADE_BYTES + n_disk * SHADE_DISK_BYTES) / PEAK_BYTES * 1e3
+    shade_rec().update(ms=shade_ms, plain_ms=plain_shade_ms, bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       config=f"BASELINE config 4 exact planes {W}x{H}")
+    phase("shade_planes", f"{W}x{H} BASELINE config 4 exact planes ({n_disk} disk, {n_sky} sky "
+          f"pixels): shade_image 1 shade_planes launch ({N_SHADE}), the plain epilogue taken 0 "
+          f"times, 0 of {W * H} words differ from the plain epilogue; kernel {shade_ms:.4f} ms "
+          f"(device time), bound {max(t_ops, t_bytes):.4f} ms (operations {t_ops:.4f}, bytes "
+          f"{t_bytes:.4f}); the host's issue of shade_image {shade_host_ms:.3f} ms; the plain "
+          f"epilogue {plain_shade_ms:.3f} ms by events, {plain_host_ms:.3f} ms of host issue, "
+          f"on {smi}")
 
     # 7. (a) BASELINE config 5: exact Kerr at spin 0.9, the disk, Euler,
     # camera [15,5,0], 3840x2160x2000. One frame against the whole plain
@@ -1071,6 +1149,7 @@ def main() -> None:
         if launches != ((1, 0) if fast else (0, 1)):
             raise AssertionError(f"BASELINE 5 {tier} launched {launches}, not one {kernel}")
         var.launched(kernel, fast, "euler", 1, "kerr")
+        staged_shading("BASELINE 5", fast, 1)
         if frame.shape != (H5, W5, 4):
             raise AssertionError(f"BASELINE 5 frame is {tuple(frame.shape)}")
         packed = frame.view(torch.int32).view(H5, W5)
@@ -1108,6 +1187,7 @@ def main() -> None:
             raise AssertionError(f"BASELINE 5 animation launched {C[N_MONO]}, "
                                  f"{C[N_TRACE]}")
         var.launched(kernel, fast, "euler", n, "kerr")
+        staged_shading("BASELINE 5 animation", fast, n)
         band_stats = []
         for k, t in enumerate(anim.frame_times(CONFIG5_FRAMES)):
             cam = bt.orbit_camera(t)
@@ -1592,15 +1672,15 @@ def main() -> None:
             shade = lambda: shade_image(k_res, default_cam, full_scene, None, None,
                                         tonemap="passthrough", packed=True, **r.shade_kwargs())
             epilogue_ms = cuda_ms(lambda: [shade() for _ in range(3)], 3, REPEATS)
-            stars_ms = cuda_ms(lambda: [shade_image(k_res, default_cam, full_scene, None, None,
-                                                    tonemap="passthrough", packed=True)
+            stars_ms = cuda_ms(lambda: [shade_image_reference(k_res, default_cam, full_scene,
+                                                              None, None, tonemap="passthrough")
                                         for _ in range(3)], 3, REPEATS)
             frame_ms = cuda_ms(lambda: r.render_frame(default_cam, full_scene), 1, REPEATS)
             issue_ms = host_ms(lambda: r.render_frame(default_cam, full_scene), REPEATS)
             phase("textures_main", f"{W}x{H}x{STEPS} euler {tier}, skybox 2048x4096 ({words * 4} "
                   f"bytes packed on the card), filter {filt}: render_frame 1 trace_planes launch "
                   f"({bar(fast)}): {json.dumps(st)}; trace {trace_ms:.3f} ms, texture epilogue "
-                  f"{epilogue_ms:.3f} ms (the star-field epilogue on the same planes: "
+                  f"{epilogue_ms:.3f} ms (the plain star-field epilogue on the same planes: "
                   f"{stars_ms:.3f} ms), render_frame {frame_ms:.3f} ms, which the host issues in "
                   f"{issue_ms:.3f} ms (medians of {REPEATS}) on {smi}")
 
@@ -2157,8 +2237,8 @@ def main() -> None:
             torch.cuda.synchronize()
             plain_ms = t0.elapsed_time(t1)
             st = trace_compare(k_res, p_res, fast)
-            plain = shade_image(p_res, default_cam, full_scene, None, None,
-                                tonemap="passthrough", packed=True)
+            plain = shade_image_reference(p_res, default_cam, full_scene, None, None,
+                                          tonemap="passthrough")
             fs = compare(frame.view(torch.int32).view(H, W), plain, fast, k_res.status,
                          p_res.status)
             ms = cuda_ms(lambda: [tk.trace_image(default_cam, full_scene, r.config,

@@ -14,7 +14,7 @@ import torch
 
 import bhr_tpu_torch as T
 from bhr_tpu_torch.models import neural as tn
-from bhr_tpu_torch.ops import neural_kernel, trace_kernel
+from bhr_tpu_torch.ops import neural_kernel, shade_kernel, trace_kernel
 from bhr_tpu_torch.tools import frame_spans as fs
 from bhr_tpu_torch.utils import build, tracing
 from bhr_tpu_torch.utils.tracing import COUNTS, Span
@@ -131,7 +131,7 @@ def test_the_import_is_a_setup_span():
 
 KEYS = ("launch.render_mono", "launch.trace_planes", "launch.trace_planes.strided",
         "launch.trace_planes.masked", "launch.trace_planes.custom", "launch.neural_mlp",
-        "launch.neural_mlp.dirs", "launch.neural_mlp.band")
+        "launch.neural_mlp.dirs", "launch.neural_mlp.band", "launch.shade_planes")
 
 
 def _no_force(rel, vel, r, r2, rs, spin):
@@ -143,15 +143,18 @@ def fake_cuda(monkeypatch):
     """The wrappers' CUDA path on the CPU: a CUDA device by name, unchecked
     CPU outputs, and libraries whose launches succeed and do nothing."""
     lib = types.SimpleNamespace(bhr_render_mono=lambda *a: 0, bhr_trace_planes=lambda *a: 0,
-                                bhr_set_disk_lut=lambda *a: 0)
+                                bhr_set_disk_lut=lambda *a: 0, bhr_shade_planes=lambda *a: 0)
     cuda = torch.device("cuda", 0)
     for mod in (trace_kernel, neural_kernel):
         monkeypatch.setattr(mod, "_kernel_device", lambda device, name: cuda)
         monkeypatch.setattr(mod, "_check_out", lambda *a: None)
     monkeypatch.setattr(trace_kernel, "_check_mask", lambda *a: None)
+    monkeypatch.setattr(shade_kernel, "_kernel_device", lambda device, name: cuda)
+    monkeypatch.setattr(shade_kernel, "_check_planes", lambda result, *a: (6, 8, cuda))
     monkeypatch.setattr(trace_kernel, "cuda_source", lambda accel: "")
     monkeypatch.setattr(neural_kernel, "_launch", lambda *a: None)
-    for name in ("load_render_mono", "load_trace_planes", "load_trace_planes_custom"):
+    for name in ("load_render_mono", "load_trace_planes", "load_trace_planes_custom",
+                 "load_shade_planes"):
         monkeypatch.setattr(build, name, lambda *a: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
@@ -179,6 +182,7 @@ def _launch(what):
             net, cam, scene, device="cuda", row0=2, local_shape=(2, 8), out=frame[:2]),
         "dirs": lambda: neural_kernel.neural_trace_dirs(net, cam, scene, device="cuda",
                                                         out=planes),
+        "shade_planes": lambda: shade_kernel.shade_planes(planes, cam, scene, out=frame),
     }
     calls[what]()
 
@@ -192,6 +196,7 @@ def _launch(what):
     ("neural_mlp", {"launch.neural_mlp"}, "kernel.neural_mlp"),
     ("band", {"launch.neural_mlp", "launch.neural_mlp.band"}, "kernel.neural_mlp"),
     ("dirs", {"launch.neural_mlp.dirs"}, "kernel.neural_mlp"),
+    ("shade_planes", {"launch.shade_planes"}, "kernel.shade_planes"),
 ])
 def test_each_launch_counts_once_under_its_keys(fake_cuda, what, counted, kernel):
     before = {k: COUNTS[k] for k in KEYS}
@@ -201,7 +206,7 @@ def test_each_launch_counts_once_under_its_keys(fake_cuda, what, counted, kernel
     spans = tracing.drain()
     assert {k: COUNTS[k] - before[k] for k in KEYS} == {k: int(k in counted) for k in KEYS}
     assert [s.name for s in spans if s.name.startswith("kernel.")] == [kernel]
-    if kernel != "kernel.neural_mlp":  # the neural launch itself is faked
+    if kernel in ("kernel.render_mono", "kernel.trace_planes"):  # the neural launch is faked
         params = [s for s in spans if s.name == "host.params"]
         assert len(params) == 1 and spans[params[0].parent].name == kernel
 
@@ -282,6 +287,22 @@ def test_device_time_of_the_ops_launched_inside_a_span():
     clk = fs.clock(host, where)
     assert clk["launch_calls"] == 4 and clk["inside_share"] == pytest.approx(0.75)
     assert clk["largest_offset_us"] == pytest.approx(1.0e-3 * (20_000 - 11_000))
+
+
+def test_the_background_and_the_shading_kernel_read_their_own_spans():
+    spans, _ = _frames(2)
+
+    def renamed(name):
+        return [s._replace(name=name) if s.name == "epilogue.background" else s for s in spans]
+
+    host = [("cudaLaunchKernel", 500, 510, 1), ("cudaLaunchKernel", 10_450, 10_460, 2)]
+    device = [("shade_planes_kernel", 2000, 2100, 1), ("shade_planes_kernel", 12_000, 12_300, 2)]
+    ms = pytest.approx((100 + 300) * 1e-6 / 2)
+    keys = ("background_device_ms", "shade_kernel_device_ms")
+    for sp, want in ((spans, (ms, None)), (renamed("kernel.shade_planes"), (None, ms)),
+                     (renamed("other"), (None, None))):
+        got = fs.epilogue_device_ms(device, host, fs.Innermost(sp), 2)
+        assert tuple(got[k] for k in keys) == want
 
 
 def test_idle_gaps_name_the_innermost_program_span():

@@ -117,6 +117,9 @@ def build_params(camera: Camera, scene: SceneParams, config: TraceConfig, row0=0
         capture_r = rs * CAPTURE_FACTOR  # wgsl:62 literal
     elif config.model == "custom":
         capture_r = rs * host(config.custom_capture_factor)  # pallas_trace.py:1684-1685
+    elif config.model == "kerr":
+        with tracing.span("host.params.ks"):  # 1.05 r_+, a dozen host tensor ops a frame
+            capture_r = host(model_capture_radius(config.model, rs, spin))
     else:
         capture_r = host(model_capture_radius(config.model, rs, spin))
     w = torch.tensor(float(scene.screen_width), dtype=f32)
@@ -282,8 +285,10 @@ def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = Trac
 
     On a CPU device this is `render_packed_reference`. On a CUDA device it
     launches csrc/render_mono.cu on the current stream, without a host
-    sync, and raises when CUDA is not available or the launch fails.
-    `out`, if given, is a contiguous int32 (H, W) tensor on `device` that
+    sync, and raises when CUDA is not available or the launch fails; the
+    launch counts in tracing.COUNTS["launch.render_mono"], and an exact
+    Kerr (Kerr-Schild) one in ["launch.render_mono.ks"] too. `out`, if
+    given, is a contiguous int32 (H, W) tensor on `device` that
     receives the frame or band (the animation path renders into slices of
     one preallocated tensor).
     """
@@ -305,13 +310,15 @@ def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = Trac
         if out is None:
             out = torch.empty(shape, dtype=torch.int32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
+        flags = trace_flags(config)
         rc = lib.bhr_render_mono(
             _kernel_params(camera, scene, config, row0), seed_term(seed), int(bool(fast_math)),
-            INTEGRATORS.index(config.integrator), trace_flags(config), shape[0], shape[1],
+            INTEGRATORS.index(config.integrator), flags, shape[0], shape[1],
             int(scene.max_steps), device.index, out.data_ptr(), stream,
         )
         _raise_on_error(lib, rc, "render_mono launch")
         tracing.COUNTS["launch.render_mono"] += 1
+        tracing.COUNTS["launch.render_mono.ks"] += bool(flags & _FLAG_KS)
         return out
 
 
@@ -418,7 +425,8 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
     With plugin physics (config.model "custom") the kernel is built with
     the plugin's acceleration (utils/build.load_trace_planes_custom; the
     recording raises ValueError for a plugin it cannot take) and the launch
-    counts in tracing.COUNTS["launch.trace_planes.custom"] too.
+    counts in tracing.COUNTS["launch.trace_planes.custom"] too; an exact
+    Kerr (Kerr-Schild) launch counts in ["launch.trace_planes.ks"] too.
     """
     with tracing.span("kernel.trace_planes"):
         check_traceable(config)
@@ -451,9 +459,10 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
         if out is None:
             out = empty_trace_result(h, w, device)
         stream = torch.cuda.current_stream(device).cuda_stream
+        flags = trace_flags(config)
         rc = lib.bhr_trace_planes(
             _kernel_params(camera, scene, config, row0, col0, stride), int(bool(fast_math)),
-            INTEGRATORS.index(config.integrator), trace_flags(config), h, w, int(scene.max_steps),
+            INTEGRATORS.index(config.integrator), flags, h, w, int(scene.max_steps),
             device.index, None if mask is None else mask.data_ptr(), out.final_pos.data_ptr(),
             out.final_vel.data_ptr(), out.status.data_ptr(), out.steps.data_ptr(), stream,
         )
@@ -462,4 +471,5 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
         tracing.COUNTS["launch.trace_planes.strided"] += stride != 1
         tracing.COUNTS["launch.trace_planes.masked"] += mask is not None
         tracing.COUNTS["launch.trace_planes.custom"] += custom
+        tracing.COUNTS["launch.trace_planes.ks"] += bool(flags & _FLAG_KS)
         return out

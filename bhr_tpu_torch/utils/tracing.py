@@ -25,6 +25,7 @@ The span names:
   host.frames           PathAnimator.render_frames, the whole call
   host.camera           the frame times and each frame's camera_fn(t)
   host.params           the kernels' parameter vector and MLP descriptor
+  host.params.ks        its exact Kerr capture radius, 1.05 r_+
   kernel.render_mono    the wrappers, from entry through the ctypes
   kernel.trace_planes   call (on a CPU device, their plain versions)
   kernel.neural_mlp
@@ -42,11 +43,13 @@ The span names:
 
 COUNTS counts at all times, recording or not. Each launch key is incremented by
 a kernel's wrapper right after a successful launch, and nowhere else:
-  launch.render_mono              render_packed
+  launch.render_mono              render_packed; of those, exact Kerr
+  launch.render_mono.ks           (the Kerr-Schild loop, .ks)
   launch.trace_planes             trace_image; of those, with stride != 1
-  launch.trace_planes.strided     (.strided), with a mask (.masked) and
-  launch.trace_planes.masked      with plugin physics (.custom)
-  launch.trace_planes.custom
+  launch.trace_planes.strided     (.strided), with a mask (.masked), with
+  launch.trace_planes.masked      plugin physics (.custom) and exact Kerr
+  launch.trace_planes.custom      (.ks)
+  launch.trace_planes.ks
   launch.neural_mlp               neural_render_packed; of those, bands
   launch.neural_mlp.band
   launch.neural_mlp.dirs          neural_trace_dirs

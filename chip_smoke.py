@@ -182,6 +182,7 @@ BASELINE_FRAMES = 4
 # Keys of the launch counts (bhr_tpu_torch/utils/tracing.COUNTS)
 N_MONO, N_TRACE = "launch.render_mono", "launch.trace_planes"
 N_STRIDED, N_MASKED, N_CUSTOM = (f"{N_TRACE}.{v}" for v in ("strided", "masked", "custom"))
+N_MONO_KS, N_TRACE_KS = f"{N_MONO}.ks", f"{N_TRACE}.ks"  # the Kerr-Schild launches
 N_NEURAL = "launch.neural_mlp"
 N_DIRS, N_BAND = f"{N_NEURAL}.dirs", f"{N_NEURAL}.band"
 N_SHADE, N_PLAIN = "launch.shade_planes", "epilogue.plain"
@@ -1148,6 +1149,9 @@ def main() -> None:
         launches = (C[N_MONO], C[N_TRACE])
         if launches != ((1, 0) if fast else (0, 1)):
             raise AssertionError(f"BASELINE 5 {tier} launched {launches}, not one {kernel}")
+        if (C[N_MONO_KS], C[N_TRACE_KS]) != launches:
+            raise AssertionError(f"BASELINE 5 {tier} counted {C[N_MONO_KS]}, {C[N_TRACE_KS]} "
+                                 f"Kerr-Schild launches of {launches}")
         var.launched(kernel, fast, "euler", 1, "kerr")
         staged_shading("BASELINE 5", fast, 1)
         if frame.shape != (H5, W5, 4):
@@ -1186,6 +1190,9 @@ def main() -> None:
         if n != CONFIG5_FRAMES or (C[N_TRACE] if fast else C[N_MONO]):
             raise AssertionError(f"BASELINE 5 animation launched {C[N_MONO]}, "
                                  f"{C[N_TRACE]}")
+        if (C[N_MONO_KS], C[N_TRACE_KS]) != (C[N_MONO], C[N_TRACE]):
+            raise AssertionError(f"BASELINE 5 animation counted {C[N_MONO_KS]}, "
+                                 f"{C[N_TRACE_KS]} Kerr-Schild launches of {n}")
         var.launched(kernel, fast, "euler", n, "kerr")
         staged_shading("BASELINE 5 animation", fast, n)
         band_stats = []

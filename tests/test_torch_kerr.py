@@ -33,6 +33,7 @@ from bhr_tpu_torch.ops import geodesic as tgeo
 from bhr_tpu_torch.ops import trace_kernel
 from bhr_tpu_torch.ops.sampling import unpack_frame
 from bhr_tpu_torch.ops.trace import STATUS_CAPTURED, STATUS_DISK, STATUS_ESCAPED
+from bhr_tpu_torch.utils.tracing import COUNTS
 
 SPIN = 0.9
 RS = 2.0
@@ -527,3 +528,23 @@ def test_kerr_kernels_match_plain_version_on_gpu(case, fast):
             assert (d <= 1).float().mean().item() >= 0.995
         else:
             assert (k == p).float().mean().item() >= 0.999
+
+
+@pytest.mark.gpu
+def test_a_kerr_frame_counts_one_kerr_schild_launch_on_gpu():
+    """render_frame of an exact Kerr frame counts one launch under its
+    kernel's key and under the key's .ks, in either route; a Schwarzschild
+    or kerr_lt frame counts none under .ks."""
+    _need_cuda()
+    scene = T.SceneParams(screen_width=64, screen_height=48, max_steps=60, spin=SPIN)
+    keys = ("launch.render_mono", "launch.render_mono.ks", "launch.trace_planes",
+            "launch.trace_planes.ks")
+    for kw, want in ((dict(model="kerr", disk=True, fast_math=True), (1, 1, 0, 0)),
+                     (dict(model="kerr", disk=True), (0, 0, 1, 1)),
+                     (dict(disk=True, fast_math=True), (1, 0, 0, 0)),
+                     (dict(model="kerr_lt", fast_math=True), (1, 0, 0, 0))):
+        r = T.BlackHoleRenderer(64, 48, device="cuda", **kw)
+        before = [COUNTS[k] for k in keys]
+        r.render_frame(T.Camera.new(*SIDE), scene)
+        torch.cuda.synchronize()
+        assert tuple(COUNTS[k] - b for k, b in zip(keys, before)) == want, kw

@@ -129,9 +129,11 @@ def test_the_import_is_a_setup_span():
 
 # ---- the launch counts: each wrapper's CUDA path, its kernel and device faked ----
 
-KEYS = ("launch.render_mono", "launch.trace_planes", "launch.trace_planes.strided",
-        "launch.trace_planes.masked", "launch.trace_planes.custom", "launch.neural_mlp",
+KEYS = ("launch.render_mono", "launch.render_mono.ks", "launch.trace_planes",
+        "launch.trace_planes.strided", "launch.trace_planes.masked",
+        "launch.trace_planes.custom", "launch.trace_planes.ks", "launch.neural_mlp",
         "launch.neural_mlp.dirs", "launch.neural_mlp.band", "launch.shade_planes")
+KERR = T.TraceConfig(model="kerr", disk=True)
 
 
 def _no_force(rel, vel, r, r2, rs, spin):
@@ -168,7 +170,11 @@ def _launch(what):
     net = tn.NeuralSurrogate(tn.load_params(tn.ASSETS_DIR / "neural_schwarzschild.npz")[0])
     calls = {
         "render_mono": lambda: trace_kernel.render_packed(cam, scene, device="cuda", out=frame),
+        "render_mono.ks": lambda: trace_kernel.render_packed(cam, scene, KERR, device="cuda",
+                                                             out=frame),
         "trace_planes": lambda: trace_kernel.trace_image(cam, scene, device="cuda", out=planes),
+        "trace_planes.ks": lambda: trace_kernel.trace_image(cam, scene, KERR, device="cuda",
+                                                            out=planes),
         "strided": lambda: trace_kernel.trace_image(cam, scene, device="cuda", stride=2,
                                                     local_shape=(3, 4), out=planes),
         "masked": lambda: trace_kernel.trace_image(cam, scene, device="cuda", out=planes,
@@ -189,7 +195,10 @@ def _launch(what):
 
 @pytest.mark.parametrize("what, counted, kernel", [
     ("render_mono", {"launch.render_mono"}, "kernel.render_mono"),
+    ("render_mono.ks", {"launch.render_mono", "launch.render_mono.ks"}, "kernel.render_mono"),
     ("trace_planes", {"launch.trace_planes"}, "kernel.trace_planes"),
+    ("trace_planes.ks", {"launch.trace_planes", "launch.trace_planes.ks"},
+     "kernel.trace_planes"),
     ("strided", {"launch.trace_planes", "launch.trace_planes.strided"}, "kernel.trace_planes"),
     ("masked", {"launch.trace_planes", "launch.trace_planes.masked"}, "kernel.trace_planes"),
     ("custom", {"launch.trace_planes", "launch.trace_planes.custom"}, "kernel.trace_planes"),
@@ -209,6 +218,18 @@ def test_each_launch_counts_once_under_its_keys(fake_cuda, what, counted, kernel
     if kernel in ("kernel.render_mono", "kernel.trace_planes"):  # the neural launch is faked
         params = [s for s in spans if s.name == "host.params"]
         assert len(params) == 1 and spans[params[0].parent].name == kernel
+        ks = [s for s in spans if s.name == "host.params.ks"]  # the Kerr capture radius
+        assert len(ks) == what.endswith(".ks")
+        assert all(spans[s.parent].name == "host.params" for s in ks)
+
+
+def test_every_launch_key_is_registered_in_the_recorder():
+    """Each key a wrapper counts, the Kerr-Schild ones among them, is named
+    in utils/tracing's list of counters."""
+    listed = {line.split()[0] for line in tracing.__doc__.splitlines()
+              if line.startswith("  launch.")}
+    assert set(KEYS) <= listed
+    assert {"launch.render_mono.ks", "launch.trace_planes.ks"} <= listed
 
 
 def test_the_cpu_path_launches_nothing():

@@ -50,14 +50,24 @@
 // The disk is shaded in the fast tier only: an exact-tier disk frame goes
 // through trace_planes.cu and the plain PyTorch epilogue, as in bhr_tpu.
 // The Kerr-Schild loop is a template parameter (KS), so there are 2 tiers
-// x 3 integrators x 2 loops = 12 instantiations, and the 2 tiers' Euler
-// instantiations with the flags fixed at 0; a Kerr-Schild disk ray is
-// shaded with the direction evaluated at its hit point, y = 0.
+// x 3 integrators x 2 loops = 12 instantiations, the 2 tiers' Euler
+// instantiations with the flags fixed at 0, and the fast Euler Kerr-Schild
+// one with the flags fixed at kFlagKS | kFlagDisk (BASELINE config 5's
+// frame; `launch` takes it for exactly those flags): 15. A Kerr-Schild disk
+// ray is shaded with the direction evaluated at its hit point, y = 0.
 //
-// Kerr-Schild costs more a step: derivs (trace_ray.cuh ks_radii, ks_geom,
-// ks_terms) is ~150 fp32 operations against ~35 for the Schwarzschild
-// acceleration, with 3 reciprocals and 2 square roots a point; rk4 takes 4
-// points a step, leapfrog 3 (for its 5 calls), euler 1.
+// Kerr-Schild costs more a step: in the exact tier derivs (trace_ray.cuh
+// ks_radii, ks_geom, ks_terms) is ~150 fp32 operations against ~35 for the
+// Schwarzschild acceleration, with 3 reciprocals and 2 square roots a
+// point; rk4 takes 4 points a step, leapfrog 3 (for its 5 calls), euler 1.
+// The fast tier takes dp through r, with no Jacobian of l, and its roots
+// from the SFU's rsqrt: 2 rsqrt and 2 rcp a point. Config 5's fast step as
+// built went 167 SASS / 6 MUFU (flags read at run time) -> 159 (the flags
+// fixed) -> 136 (dp through r) -> 119 / 5 (the SFU's roots), and its frame
+// 15.62-15.74 -> 11.16 ms on an NVIDIA H100 80GB HBM3 (700.00 W, SM clock
+// 1980 MHz under load), 95.6% of its issue floor (10.676 ms), every other
+// instantiation's SASS unchanged; with the flags read at run time the same
+// step is 126 SASS and 11.56 ms.
 
 #include <cuda_runtime.h>
 
@@ -164,6 +174,10 @@ __global__ void __launch_bounds__(256)
   out[static_cast<int64_t>(row) * width + col] = qr | (qg << 8) | (qb << 16) | 0xFF000000u;
 }
 
+// The flags of the Kerr-Schild disk frame, whose fast Euler launch has an
+// instantiation of its own.
+constexpr int kFastKsDisk = kFlagKS | kFlagDisk;
+
 template <bool FAST, bool KS>
 void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params& params,
             uint32_t seed_term, int flags, int height, int width, int max_steps,
@@ -172,6 +186,9 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
     case kEuler:
       if (flags == 0) {  // the main path: its own instantiation, no flag tested a step
         render_mono_kernel<FAST, kEuler, false, 0><<<grid, block, 0, s>>>(
+            params, seed_term, flags, height, width, max_steps, frame);
+      } else if (FAST && KS && flags == kFastKsDisk) {  // BASELINE config 5's fast frame
+        render_mono_kernel<true, kEuler, true, kFastKsDisk><<<grid, block, 0, s>>>(
             params, seed_term, flags, height, width, max_steps, frame);
       } else {
         render_mono_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(params, seed_term, flags,
@@ -200,7 +217,8 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
 // Integrator and `flags` a TraceFlags mask of trace_ray.cuh (at most one
 // of flat, kerr_lt and Kerr-Schild); the disk flag needs `fast` and a
 // table set by bhr_set_disk_lut. An Euler launch with no flag set runs
-// the instantiation whose flags are fixed at 0 at compile time.
+// the instantiation whose flags are fixed at 0 at compile time, and a fast
+// Euler launch with exactly kFlagKS | kFlagDisk the one fixed at those.
 extern "C" int bhr_render_mono(bhr::Params params, uint32_t seed_term, int fast, int integrator,
                                int flags, int height, int width, int max_steps, int device,
                                void* out, void* stream) {

@@ -26,7 +26,8 @@
 // The integrator is a template parameter; the flat model, adaptive dt and
 // the disk are uniform runtime flags, which a kernel may fix at compile
 // time (its FLAGS template argument; the main path's Euler frame runs with
-// none set): the flag tests then fold away, and the loop a step runs is the
+// none set, BASELINE config 5's fast frame with the Kerr-Schild loop and
+// the disk): the flag tests then fold away, and the loop a step runs is the
 // same code with fewer instructions.
 //
 // Two Kerr models (ROADMAP item 9; replacing the K6 and K7 parts of the TPU
@@ -39,7 +40,9 @@
 //    Cartesian Kerr-Schild form (pallas_trace.py:548-700, loop :1005-1047,
 //    direction :1134-1146; oracle models/kerr_schild.py and
 //    ops/trace.py:_trace_rays_kerr_schild), with its own state, step and
-//    after-loop direction, so it is a loop of its own: trace_ray_ks.
+//    after-loop direction, so it is a loop of its own: trace_ray_ks. Its
+//    exact tier keeps the oracle's expression trees; its fast tier takes
+//    dp through the Kerr-Schild r (see that section).
 //
 // Plugin physics (model "custom"; K5's generic body, pallas_trace.py
 // :1521-1585 with `accel` :351-361 returning the user's acceleration): a
@@ -467,16 +470,28 @@ __device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int r
 // ---- exact Kerr: Hamiltonian geodesics in Kerr-Schild form ---------------------
 //
 // State: q, the position relative to the black hole, and p, the covariant
-// momentum with p_t = -1 (E = 1). M = rs / 2, a = a* M. Every expression
-// tree is the oracle's (models/kerr_schild.py), operation for operation:
-// the flow is chaotic near the shadow's edge, so even a regrouping that is
-// algebraically equal shows as per-pixel noise. The exact tier rounds each
-// operation correctly, uncontracted: its roots and the reciprocals 1/w,
-// 1/bb and 1/r give __fsqrt_rn's and __fdiv_rn's bits by their common paths
-// behind one guard a point (ks_radii), and its escape test compares |q|^2
-// with escape_threshold(esc) instead of |q| with esc (common.cuh). The fast
-// tier takes the reciprocals 1/w, 1/bb, 1/r and 1/E by the SFU's
-// approximate rcp, as JAX's `_recip` does, and lets nvcc contract.
+// momentum with p_t = -1 (E = 1). M = rs / 2, a = a* M.
+//
+// Exact tier: every expression tree is the oracle's (models/kerr_schild.py),
+// operation for operation: the flow is chaotic near the shadow's edge, so
+// even a regrouping that is algebraically equal shows as per-pixel noise.
+// It rounds each operation correctly, uncontracted: its roots and the
+// reciprocals 1/w, 1/bb and 1/r give __fsqrt_rn's and __fdiv_rn's bits by
+// their common paths behind one guard a point (ks_radii), and its escape
+// test compares |q|^2 with escape_threshold(esc) instead of |q| with esc
+// (common.cuh).
+//
+// Fast tier: the same flow in fewer instructions, and no bit-equality bar.
+// Its roots come from the SFU's rsqrt (1/r = rsqrt(r^2), r = r^2 rsqrt(r^2),
+// the discriminant's root disc2 rsqrt(disc2)), 1/w, 1/bb and 1/E from the SFU's
+// rcp, as JAX's `_recip` does, and nvcc contracts. Its dp = (s^2 / 2) grad f
+// + f s grad(l.p) never forms l's 3x3 Jacobian: with u = l.p at fixed p,
+// grad u = u_r grad r + e (u_r = du/dr and e the partials at fixed r), and
+// grad f = g1 grad r - g2 y e_y, so with grad r = (r / w) (r^2 x, bb y, r^2 z)
+//   dp = K (r^2 x, bb y, r^2 z) + f s e - (s^2 / 2) g2 y e_y,
+//   K = ((s^2 / 2) g1 + f s u_r) r / w
+// (tests/test_torch_ks_fast_gradient.py holds this form against
+// models/kerr_schild.derivs in float64).
 
 struct KsConst {
   float rs;   // 2M
@@ -507,27 +522,38 @@ struct KsRadii {
 // each by its common path alone and tests all five operands once, after
 // them (common.cuh: root_guard, rcp_guard); the rare point whose operands
 // leave the window takes the whole group again by the intrinsics, in the
-// same order, so every value is __fsqrt_rn's and __fdiv_rn's.
+// same order, so every value is __fsqrt_rn's and __fdiv_rn's. The fast
+// tier takes two rsqrts and two rcps of the SFU; disc2 = 0 only on the ring
+// (y = 0, |q| = a), where the clamp keeps 0 * inf out of the root.
 template <bool FAST>
 __device__ __forceinline__ KsRadii ks_radii(Vec3 q, float rho2, float a2) {
   using A = Arith<FAST>;
   const float b = A::sub(rho2, a2);
   const float y2 = A::mul(q.y, q.y);
   const float disc2 = A::add(A::mul(b, b), A::mul(A::mul(4.0f, a2), y2));
-  const auto radii = [&](auto root, auto rcp) {
-    KsRadii g;
-    g.r2 = maximum(A::mul(0.5f, A::add(b, root(disc2))), static_cast<float>(1e-12));
-    g.r = root(g.r2);
-    g.w = A::add(A::mul(g.r2, g.r2), A::mul(a2, y2));
-    g.bb = A::add(g.r2, a2);
-    g.inv_w = rcp(g.w);
-    g.inv_bb = rcp(g.bb);
-    g.inv_r = rcp(g.r);
-    return g;
-  };
   if constexpr (FAST) {
-    return radii([](float x) { return A::sqrt(x); }, [](float x) { return rcp_approx(x); });
+    KsRadii g;
+    const float disc = disc2 * rsqrt_approx(fmaxf(disc2, static_cast<float>(1e-30)));
+    g.r2 = maximum(0.5f * (b + disc), static_cast<float>(1e-12));
+    g.inv_r = rsqrt_approx(g.r2);
+    g.r = g.r2 * g.inv_r;
+    g.w = g.r2 * g.r2 + a2 * y2;
+    g.bb = g.r2 + a2;
+    g.inv_w = rcp_approx(g.w);
+    g.inv_bb = rcp_approx(g.bb);
+    return g;
   } else {
+    const auto radii = [&](auto root, auto rcp) {
+      KsRadii g;
+      g.r2 = maximum(A::mul(0.5f, A::add(b, root(disc2))), static_cast<float>(1e-12));
+      g.r = root(g.r2);
+      g.w = A::add(A::mul(g.r2, g.r2), A::mul(a2, y2));
+      g.bb = A::add(g.r2, a2);
+      g.inv_w = rcp(g.w);
+      g.inv_bb = rcp(g.bb);
+      g.inv_r = rcp(g.r);
+      return g;
+    };
     KsRadii g = radii([](float x) { return sqrt_rn_seq(x); },
                       [](float x) { return rcp_rn_shared(x); });
     if (turned_away(root_guard(disc2) | root_guard(g.r2) | rcp_guard(g.w) | rcp_guard(g.bb) |
@@ -539,24 +565,46 @@ __device__ __forceinline__ KsRadii ks_radii(Vec3 q, float rho2, float a2) {
 }
 
 // What models/kerr_schild.py derivs (pallas_trace.py ks_all :563-614)
-// computes at q alone: f, l and their gradients.
-struct KsGeom {
+// computes at q alone, in each tier's form: f, l and what dp needs.
+template <bool FAST>
+struct KsGeom;
+
+// The exact tier: f, l and their gradients, as the oracle forms them.
+template <>
+struct KsGeom<false> {
   float f;           // the metric function f
   Vec3 l;            // the null vector l
   Vec3 df;           // df/dq
   Vec3 dl_x, dl_y, dl_z;  // dl/dx, dl/dy, dl/dz
 };
 
+// The fast tier: f, l and the gradient through r.
+template <>
+struct KsGeom<true> {
+  float f;          // the metric function f
+  Vec3 l;           // the null vector l
+  float x, z;       // the point's x and z
+  float r, a;       // the Kerr-Schild r, and a
+  float inv_r, inv_bb;
+  float g1, g2y;    // grad f = g1 grad r - g2y e_y
+  float r_w;        // r / w
+  Vec3 dr;          // (r^2 x, bb y, r^2 z) = grad r / (r / w)
+};
+
 template <bool FAST>
-__device__ __forceinline__ KsGeom ks_geom(Vec3 q, const KsRadii& g, const KsConst& k) {
-  using A = Arith<FAST>;
+__device__ __forceinline__ KsGeom<FAST> ks_geom(Vec3 q, const KsRadii& g, const KsConst& k);
+
+template <>
+__device__ __forceinline__ KsGeom<false> ks_geom<false>(Vec3 q, const KsRadii& g,
+                                                        const KsConst& k) {
+  using A = Arith<false>;
   const float x = q.x, y = q.y, z = q.z;
   const float a = k.a, a2 = k.a2;
   const float r2 = g.r2, r = g.r, w = g.w, bb = g.bb;
   const float inv_w = g.inv_w, inv_bb = g.inv_bb, inv_r = g.inv_r;
   const float r3 = A::mul(r2, r);
   const float two_m = A::mul(2.0f, k.m);
-  KsGeom t;
+  KsGeom<false> t;
   t.f = A::mul(A::mul(two_m, r3), inv_w);
   const float lx = A::mul(A::add(A::mul(r, x), A::mul(a, z)), inv_bb);
   const float ly = A::mul(y, inv_r);
@@ -596,9 +644,34 @@ __device__ __forceinline__ KsGeom ks_geom(Vec3 q, const KsRadii& g, const KsCons
   return t;
 }
 
+// f = 2M r^3 / w, l, and with w = r^4 + a^2 y^2 the derivative
+// g1 = df/dr = 2M r^2 (3 a^2 y^2 - r^4) / w^2 and g2 y = 4M a^2 r^3 y / w^2.
+template <>
+__device__ __forceinline__ KsGeom<true> ks_geom<true>(Vec3 q, const KsRadii& g,
+                                                      const KsConst& k) {
+  const float x = q.x, y = q.y, z = q.z;
+  const float a = k.a, r2 = g.r2, r = g.r, inv_w = g.inv_w, inv_bb = g.inv_bb;
+  const float r3 = r2 * r;
+  const float inv_w2 = inv_w * inv_w;
+  KsGeom<true> t;
+  t.f = (2.0f * k.m) * r3 * inv_w;
+  t.l = {(r * x + a * z) * inv_bb, y * g.inv_r, (r * z - a * x) * inv_bb};
+  t.x = x;
+  t.z = z;
+  t.r = r;
+  t.a = a;
+  t.inv_r = g.inv_r;
+  t.inv_bb = inv_bb;
+  t.g1 = (2.0f * k.m) * r2 * (3.0f * (k.a2 * (y * y)) - r2 * r2) * inv_w2;
+  t.g2y = ((4.0f * k.m) * k.a2) * r3 * inv_w2 * y;
+  t.r_w = r * inv_w;
+  t.dr = {r2 * x, g.bb * y, r2 * z};
+  return t;
+}
+
 // The geometry at a point of its own: its radii, then f, l and gradients.
 template <bool FAST>
-__device__ __forceinline__ KsGeom ks_geom_at(Vec3 q, const KsConst& k) {
+__device__ __forceinline__ KsGeom<FAST> ks_geom_at(Vec3 q, const KsConst& k) {
   return ks_geom<FAST>(q, ks_radii<FAST>(q, dot<FAST>(q, q), k.a2), k);
 }
 
@@ -608,9 +681,8 @@ struct KsTerms {
 
 // The rest of pallas_trace.py ks_all, on p: s = 1 + l.p, dq = p - f s l,
 // dp = (s^2 / 2) df + f s (dl . p).
-template <bool FAST>
-__device__ __forceinline__ KsTerms ks_terms(const KsGeom& g, Vec3 p) {
-  using A = Arith<FAST>;
+__device__ __forceinline__ KsTerms ks_terms(const KsGeom<false>& g, Vec3 p) {
+  using A = Arith<false>;
   const float s =
       A::add(A::add(A::add(1.0f, A::mul(g.l.x, p.x)), A::mul(g.l.y, p.y)), A::mul(g.l.z, p.z));
   const float fs = A::mul(g.f, s);
@@ -618,9 +690,31 @@ __device__ __forceinline__ KsTerms ks_terms(const KsGeom& g, Vec3 p) {
   KsTerms t;
   t.dq = {A::sub(p.x, A::mul(fs, g.l.x)), A::sub(p.y, A::mul(fs, g.l.y)),
           A::sub(p.z, A::mul(fs, g.l.z))};
-  t.dp = {A::add(A::mul(hs2, g.df.x), A::mul(fs, dot<FAST>(g.dl_x, p))),
-          A::add(A::mul(hs2, g.df.y), A::mul(fs, dot<FAST>(g.dl_y, p))),
-          A::add(A::mul(hs2, g.df.z), A::mul(fs, dot<FAST>(g.dl_z, p)))};
+  t.dp = {A::add(A::mul(hs2, g.df.x), A::mul(fs, dot<false>(g.dl_x, p))),
+          A::add(A::mul(hs2, g.df.y), A::mul(fs, dot<false>(g.dl_y, p))),
+          A::add(A::mul(hs2, g.df.z), A::mul(fs, dot<false>(g.dl_z, p)))};
+  return t;
+}
+
+// The fast tier's: dq as above, dp through r (see the top of this section).
+// u = l.p = uxz + ly py with uxz = lx px + lz pz = (r P1 + a P2) / bb, P1 =
+// x px + z pz, P2 = z px - x pz; so u_r = (P1 - 2 r uxz) / bb - ly py / r,
+// and e = ((r px - a pz) / bb, py / r, (r pz + a px) / bb).
+__device__ __forceinline__ KsTerms ks_terms(const KsGeom<true>& g, Vec3 p) {
+  const float uxz = g.l.x * p.x + g.l.z * p.z;
+  const float uy = g.l.y * p.y;
+  const float s = 1.0f + uxz + uy;
+  const float fs = g.f * s;
+  const float hs2 = 0.5f * s * s;
+  KsTerms t;
+  t.dq = {p.x - fs * g.l.x, p.y - fs * g.l.y, p.z - fs * g.l.z};
+  const float p1 = g.x * p.x + g.z * p.z;
+  const float u_r = (p1 - 2.0f * g.r * uxz) * g.inv_bb - uy * g.inv_r;
+  const float kk = (hs2 * g.g1 + fs * u_r) * g.r_w;
+  const float fs_bb = fs * g.inv_bb;
+  t.dp = {kk * g.dr.x + fs_bb * (g.r * p.x - g.a * p.z),
+          kk * g.dr.y + fs * (p.y * g.inv_r) - hs2 * g.g2y,
+          kk * g.dr.z + fs_bb * (g.r * p.z + g.a * p.x)};
   return t;
 }
 
@@ -630,24 +724,24 @@ __device__ __forceinline__ KsTerms ks_terms(const KsGeom& g, Vec3 p) {
 // which it would compute bit for bit alike: Euler takes 1 geometry, rk4 4,
 // leapfrog 3 for its 5 calls.
 template <bool FAST, int INTEG>
-__device__ __forceinline__ void ks_step(Vec3 q, Vec3 p, const KsGeom& gq, float dt,
+__device__ __forceinline__ void ks_step(Vec3 q, Vec3 p, const KsGeom<FAST>& gq, float dt,
                                         const KsConst& k, Vec3& nq, Vec3& np) {
   using A = Arith<FAST>;
   if constexpr (INTEG == kEuler) {
     // semi-implicit (pallas_trace.py ks_substep :616-626): p' from dp(q, p),
     // then q' from dq(q, p')
-    np = axpy<FAST>(p, ks_terms<FAST>(gq, p).dp, dt);
-    nq = axpy<FAST>(q, ks_terms<FAST>(gq, np).dq, dt);
+    np = axpy<FAST>(p, ks_terms(gq, p).dp, dt);
+    nq = axpy<FAST>(q, ks_terms(gq, np).dq, dt);
   } else if constexpr (INTEG == kRk4) {
     // classic RK4 on (q, p) (ks_rk4 :628-650), summed k1 + 2k2 + 2k3 + k4
     const float half = A::mul(0.5f, dt);
-    const KsTerms k1 = ks_terms<FAST>(gq, p);
+    const KsTerms k1 = ks_terms(gq, p);
     const Vec3 q2 = axpy<FAST>(q, k1.dq, half);
-    const KsTerms k2 = ks_terms<FAST>(ks_geom_at<FAST>(q2, k), axpy<FAST>(p, k1.dp, half));
+    const KsTerms k2 = ks_terms(ks_geom_at<FAST>(q2, k), axpy<FAST>(p, k1.dp, half));
     const Vec3 q3 = axpy<FAST>(q, k2.dq, half);
-    const KsTerms k3 = ks_terms<FAST>(ks_geom_at<FAST>(q3, k), axpy<FAST>(p, k2.dp, half));
+    const KsTerms k3 = ks_terms(ks_geom_at<FAST>(q3, k), axpy<FAST>(p, k2.dp, half));
     const Vec3 q4 = axpy<FAST>(q, k3.dq, dt);
-    const KsTerms k4 = ks_terms<FAST>(ks_geom_at<FAST>(q4, k), axpy<FAST>(p, k3.dp, dt));
+    const KsTerms k4 = ks_terms(ks_geom_at<FAST>(q4, k), axpy<FAST>(p, k3.dp, dt));
     const float sixth = A::mul(dt, static_cast<float>(1.0 / 6.0));
     auto sum = [&](Vec3 a1, Vec3 a2, Vec3 a3, Vec3 a4) -> Vec3 {
       return {A::add(A::add(A::add(a1.x, A::mul(2.0f, a2.x)), A::mul(2.0f, a3.x)), a4.x),
@@ -660,12 +754,12 @@ __device__ __forceinline__ void ks_step(Vec3 q, Vec3 p, const KsGeom& gq, float 
     // kick-drift-kick with a midpoint-corrected drift and a corrector on the
     // final kick (ks_leapfrog :652-666)
     const float half = A::mul(0.5f, dt);
-    const Vec3 ph = axpy<FAST>(p, ks_terms<FAST>(gq, p).dp, half);
-    const Vec3 q_mid = axpy<FAST>(q, ks_terms<FAST>(gq, ph).dq, half);
-    nq = axpy<FAST>(q, ks_terms<FAST>(ks_geom_at<FAST>(q_mid, k), ph).dq, dt);
-    const KsGeom gn = ks_geom_at<FAST>(nq, k);
-    const Vec3 p_pred = axpy<FAST>(ph, ks_terms<FAST>(gn, ph).dp, half);
-    np = axpy<FAST>(ph, ks_terms<FAST>(gn, p_pred).dp, half);
+    const Vec3 ph = axpy<FAST>(p, ks_terms(gq, p).dp, half);
+    const Vec3 q_mid = axpy<FAST>(q, ks_terms(gq, ph).dq, half);
+    nq = axpy<FAST>(q, ks_terms(ks_geom_at<FAST>(q_mid, k), ph).dq, dt);
+    const KsGeom<FAST> gn = ks_geom_at<FAST>(nq, k);
+    const Vec3 p_pred = axpy<FAST>(ph, ks_terms(gn, ph).dp, half);
+    np = axpy<FAST>(ph, ks_terms(gn, p_pred).dp, half);
   }
 }
 
@@ -705,7 +799,7 @@ __device__ __forceinline__ Vec3 ks_init_p(Vec3 q, Vec3 d, const KsConst& k) {
 template <bool FAST>
 __device__ __forceinline__ Vec3 ks_direction(Vec3 q, Vec3 p, const KsConst& k) {
   using A = Arith<FAST>;
-  const Vec3 dq = ks_terms<FAST>(ks_geom_at<FAST>(q, k), p).dq;
+  const Vec3 dq = ks_terms(ks_geom_at<FAST>(q, k), p).dq;
   if constexpr (FAST) {
     return vnorm<true>(dq);
   } else {
@@ -760,17 +854,14 @@ __device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row,
     const float rho2 = dot<FAST>(ray.rel, ray.rel);
     if (rho2 > esc_bound) { ray.status = kEscaped; break; }
     const KsRadii g = ks_radii<FAST>(ray.rel, rho2, k.a2);
-    float rc;
     if constexpr (FAST) {
       if (g.r2 < cap2) { ray.status = kCaptured; break; }
-      rc = g.r2 * rsqrt_approx(g.r2);
     } else {
-      rc = g.r;
-      if (rc < cap) { ray.status = kCaptured; break; }
+      if (g.r < cap) { ray.status = kCaptured; break; }
     }
     float dt = base_dt;
     if (adaptive) {
-      dt = A::mul(base_dt, fminf(fmaxf(A::mul(A::sub(rc, k.rs), static_cast<float>(0.1)),
+      dt = A::mul(base_dt, fminf(fmaxf(A::mul(A::sub(g.r, k.rs), static_cast<float>(0.1)),
                                        static_cast<float>(0.01)), 1.0f));
     }
     Vec3 nq, np;

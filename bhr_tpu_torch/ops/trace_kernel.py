@@ -286,8 +286,9 @@ def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = Trac
     On a CPU device this is `render_packed_reference`. On a CUDA device it
     launches csrc/render_mono.cu on the current stream, without a host
     sync, and raises when CUDA is not available or the launch fails; the
-    launch counts in tracing.COUNTS["launch.render_mono"], and an exact
-    Kerr (Kerr-Schild) one in ["launch.render_mono.ks"] too. `out`, if
+    launch counts in tracing.COUNTS["launch.render_mono"], an exact Kerr
+    (Kerr-Schild) one in ["launch.render_mono.ks"] too, and one of those
+    in the fast tier in ["launch.render_mono.ks.fast"] as well. `out`, if
     given, is a contiguous int32 (H, W) tensor on `device` that
     receives the frame or band (the animation path renders into slices of
     one preallocated tensor).
@@ -319,6 +320,7 @@ def render_packed(camera: Camera, scene: SceneParams, config: TraceConfig = Trac
         _raise_on_error(lib, rc, "render_mono launch")
         tracing.COUNTS["launch.render_mono"] += 1
         tracing.COUNTS["launch.render_mono.ks"] += bool(flags & _FLAG_KS)
+        tracing.COUNTS["launch.render_mono.ks.fast"] += bool(flags & _FLAG_KS and fast_math)
         return out
 
 
@@ -426,7 +428,8 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
     the plugin's acceleration (utils/build.load_trace_planes_custom; the
     recording raises ValueError for a plugin it cannot take) and the launch
     counts in tracing.COUNTS["launch.trace_planes.custom"] too; an exact
-    Kerr (Kerr-Schild) launch counts in ["launch.trace_planes.ks"] too.
+    Kerr (Kerr-Schild) launch counts in ["launch.trace_planes.ks"] too, and
+    in ["launch.trace_planes.ks.fast"] as well in the fast tier.
     """
     with tracing.span("kernel.trace_planes"):
         check_traceable(config)
@@ -472,4 +475,5 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
         tracing.COUNTS["launch.trace_planes.masked"] += mask is not None
         tracing.COUNTS["launch.trace_planes.custom"] += custom
         tracing.COUNTS["launch.trace_planes.ks"] += bool(flags & _FLAG_KS)
+        tracing.COUNTS["launch.trace_planes.ks.fast"] += bool(flags & _FLAG_KS and fast_math)
         return out

@@ -27,7 +27,9 @@ render_mono in both tiers and trace_planes fast on the same frame,
 BASELINE config 4's trace_planes rk4 exact and render_mono fast, the
 other exact instantiations, config 5's Kerr-Schild
 trace_planes exact and render_mono fast at 3840x2160x2000, the exact
-Kerr-Schild rk4 and leapfrog traces and Euler frame at 1920x1080x500, and
+Kerr-Schild rk4 and leapfrog traces and Euler frame at 1920x1080x500, the
+fast Kerr-Schild rk4 and leapfrog frames and Euler trace with the disk at
+1920x1080x500, and
 the paczynski_wiita.py plugin, and multires's strided low pass and masked
 pass of the main path's frame at divisor 3 in both tiers): the median of
 REPEATS runs of 3 launches by CUDA events (utils/timing.device_time_ms:
@@ -109,6 +111,9 @@ CASES = (
     ("ks_rk4_exact", "trace_planes", False, "rk4", "kerr", "side", dict(disk=True)),
     ("ks_leapfrog_exact", "trace_planes", False, "leapfrog", "kerr", "side", dict(disk=True)),
     ("ks_mono_euler_exact", "render_mono", False, "euler", "kerr", "side", {}),
+    ("ks_rk4_fast", "render_mono", True, "rk4", "kerr", "side", dict(disk=True)),
+    ("ks_leapfrog_fast", "render_mono", True, "leapfrog", "kerr", "side", dict(disk=True)),
+    ("ks_planes_euler_fast", "trace_planes", True, "euler", "kerr", "side", dict(disk=True)),
     # multires's two launches of the main path's frame at divisor 3: the
     # strided low pass and the masked pass over its edge mask
     ("strided_euler_fast", "trace_planes", True, "euler", "schwarzschild", "default",
@@ -141,6 +146,9 @@ FLAGS_OF_CASE = {
     "ks_rk4_exact": (False, "rk4", FLAG_DISK | FLAG_KS),
     "ks_leapfrog_exact": (False, "leapfrog", FLAG_DISK | FLAG_KS),
     "ks_mono_euler_exact": (False, "euler", FLAG_KS),
+    "ks_rk4_fast": (True, "rk4", FLAG_DISK | FLAG_KS),
+    "ks_leapfrog_fast": (True, "leapfrog", FLAG_DISK | FLAG_KS),
+    "ks_planes_euler_fast": (True, "euler", FLAG_DISK | FLAG_KS),
     "strided_euler_fast": (True, "euler", 0), "masked_euler_fast": (True, "euler", 0),
     "strided_euler_exact": (False, "euler", 0), "masked_euler_exact": (False, "euler", 0),
 }

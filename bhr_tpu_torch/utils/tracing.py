@@ -44,12 +44,14 @@ The span names:
 COUNTS counts at all times, recording or not. Each launch key is incremented by
 a kernel's wrapper right after a successful launch, and nowhere else:
   launch.render_mono              render_packed; of those, exact Kerr
-  launch.render_mono.ks           (the Kerr-Schild loop, .ks)
+  launch.render_mono.ks           (the Kerr-Schild loop, .ks), and of
+  launch.render_mono.ks.fast      those the fast tier's (.ks.fast)
   launch.trace_planes             trace_image; of those, with stride != 1
   launch.trace_planes.strided     (.strided), with a mask (.masked), with
   launch.trace_planes.masked      plugin physics (.custom) and exact Kerr
-  launch.trace_planes.custom      (.ks)
-  launch.trace_planes.ks
+  launch.trace_planes.custom      (.ks), and of the last the fast tier's
+  launch.trace_planes.ks          (.ks.fast)
+  launch.trace_planes.ks.fast
   launch.neural_mlp               neural_render_packed; of those, bands
   launch.neural_mlp.band
   launch.neural_mlp.dirs          neural_trace_dirs

@@ -34,7 +34,10 @@ renderer's paths:
     Euler, camera [15,5,0]): the same two routes, one frame held against
     the whole plain frame, then 2 orbit frames with no host sync, each held
     against the plain version on a band of 256 rows through the shadow and
-    the disk (the whole plain frame takes about a minute);
+    the disk (the whole plain frame takes about a minute); each fast frame
+    one launch.render_mono.ks.fast; the fast launch's loop step as built
+    (the instantiation with the flags fixed at 20) and its issue floor
+    beside the kernel's time;
   * kerr_lt at 1920x1080x500, spin 0.9, camera [15,5,0]: fast monolithic,
     exact staged, and its step heatmap;
   * the debug step heatmap (one trace_planes launch and the epilogue);
@@ -183,6 +186,7 @@ BASELINE_FRAMES = 4
 N_MONO, N_TRACE = "launch.render_mono", "launch.trace_planes"
 N_STRIDED, N_MASKED, N_CUSTOM = (f"{N_TRACE}.{v}" for v in ("strided", "masked", "custom"))
 N_MONO_KS, N_TRACE_KS = f"{N_MONO}.ks", f"{N_TRACE}.ks"  # the Kerr-Schild launches
+N_MONO_KS_FAST, N_TRACE_KS_FAST = f"{N_MONO_KS}.fast", f"{N_TRACE_KS}.fast"  # fast tier's
 N_NEURAL = "launch.neural_mlp"
 N_DIRS, N_BAND = f"{N_NEURAL}.dirs", f"{N_NEURAL}.band"
 N_SHADE, N_PLAIN = "launch.shade_planes", "epilogue.plain"
@@ -223,6 +227,14 @@ PEAK_BYTES = 3.35e12
 #    leapfrog dp at (q, p) 128, dq at (q, p_half) on the same geometry 13,
 #    dq alone at q_mid 47, dp at (q', p_half) 128, dp at (q', p_pred) on the
 #    same geometry 33, 5 axpys. The exact tier adds the escape test's |q| 1.
+#    The fast tier's own form (dp through r, SFU roots): the geometry at q
+#    49 (|q|^2 5, radii 19 with two rsqrts and two rcps, f and l 12, the
+#    gradient through r 13), dq's terms at p 13 as above, dp's 41 (s 6, f s
+#    1, s^2/2 2, u_r and K 14, the three components 18). Euler: 49 + 41 +
+#    axpy 6 + 13 + axpy 6; rk4 4 (49 + 41 + 6) + 8 axpys + 2 weighted sums
+#    of 15; leapfrog dp at (q, p) 90, dq at (q, p_half) 13, dq alone at q_mid
+#    (the geometry without its gradient, 36) 49, dp at (q', p_half) 90, dp
+#    at (q', p_pred) on the same geometry 41, 5 axpys.
 OPS_PER_STEP = {
     ("schwarzschild", "exact", "euler"): 57, ("schwarzschild", "exact", "rk4"): 235,
     ("schwarzschild", "exact", "leapfrog"): 126, ("schwarzschild", "fast", "euler"): 50,
@@ -231,12 +243,13 @@ OPS_PER_STEP = {
     ("kerr_lt", "exact", "leapfrog"): 126 + 2 * 23 + 12, ("kerr_lt", "fast", "euler"): 50 - 1 + 29,
     ("kerr_lt", "fast", "rk4"): 213 + 4 * 26, ("kerr_lt", "fast", "leapfrog"): 115 + 2 * 26 + 12,
     ("kerr", "exact", "euler"): 154, ("kerr", "exact", "rk4"): 615,
-    ("kerr", "exact", "leapfrog"): 380, ("kerr", "fast", "euler"): 153,
-    ("kerr", "fast", "rk4"): 614, ("kerr", "fast", "leapfrog"): 379,
+    ("kerr", "exact", "leapfrog"): 380, ("kerr", "fast", "euler"): 115,
+    ("kerr", "fast", "rk4"): 462, ("kerr", "fast", "leapfrog"): 313,
 }
 # Adaptive dt: 5 operations on the loop's radius, the fast tier's radius
-# r^2 rsqrt(r^2) (1 where the step has the rsqrt, 2 for Kerr-Schild), and
-# the dt-scaled step sizes the integrator rebuilds every step.
+# r^2 rsqrt(r^2) (1 where the step has the rsqrt; none for Kerr-Schild,
+# whose geometry takes r so), and the dt-scaled step sizes the integrator
+# rebuilds every step.
 ADAPTIVE_STEP_SIZES = {"euler": 0, "rk4": 2, "leapfrog": 1}  # dt/2, dt/6
 DISK_OPS = 1  # the crossing test's sign product
 # packed word; 6 fp32 + 2 int32 planes; the masked launch also reads its fp32 mask
@@ -436,7 +449,7 @@ def step_ops(model: str, fast: bool, integrator: str, *, adaptive: bool, disk: b
         return n + (DISK_OPS if disk else 0)
     n = OPS_PER_STEP[(model, "fast" if fast else "exact", integrator)]
     if adaptive:
-        n += 5 + ADAPTIVE_STEP_SIZES[integrator] + (0 if not fast else 2 if model == "kerr" else 1)
+        n += 5 + ADAPTIVE_STEP_SIZES[integrator] + (1 if fast and model != "kerr" else 0)
     return n + (DISK_OPS if disk else 0)
 
 
@@ -827,6 +840,27 @@ def main() -> None:
         s.update(shares(plain_res))
         return s, k_res, plain_res
 
+    def issue(name, what, fast, flags, ws, ms, launch):
+        """The `name` line: the loop step a render_mono Euler launch with
+        these flags runs as built (tools/sass_walk.py route_step on the built
+        library's SASS), and the issue floor of `ws` warp-steps at the SM
+        clock read while launch() (about `ms` each) runs, against `ms`."""
+        if cuobjdump is None:
+            phase(name, "not measured: no cuobjdump on PATH or beside nvcc to read the "
+                  "built library's SASS")
+            return
+        listing = sass_walk.sass_of(build.build("render_mono").path, cuobjdump)
+        route = sass_walk.route_step(sass_walk.parse_sass(listing), "render_mono", fast, "euler",
+                                     flags)
+        clock = sass_walk.sm_clock_under_load(launch, ms)
+        floor = sass_walk.issue_floor_ms(route["step_instructions"], ws, sms,
+                                         float(clock.split(",")[0]))
+        phase(name, f"{route['function']} on {what}: {route['step_instructions']} SASS "
+              f"/ {route['step_mufu']} MUFU a loop step as built (walked along flags {flags}), "
+              f"{ws} warp-steps/frame, SM clock {clock.split(',')[0].strip()} MHz under load: "
+              f"issue floor {floor:.3f} ms against the kernel's {ms:.3f} ms, {floor / ms:.1%} "
+              f"of the issue rate, on {smi}")
+
     def animate(renderer, n_frames):
         """n_frames orbit frames with no host sync (sync debug mode
         'error'), timed by CUDA events: (frames, ms/frame)."""
@@ -976,23 +1010,10 @@ def main() -> None:
               f"on {smi}")
         # the loop step the launch really runs, from the built library's SASS
         # (tools/sass_walk.py route_step, flags 0), and its share of the issue rate
-        if cuobjdump is None:
-            phase("issue", "not measured: no cuobjdump on PATH or beside nvcc to read the "
-                  "built library's SASS")
-            continue
-        listing = sass_walk.sass_of(build.build("render_mono").path, cuobjdump)
-        route = sass_walk.route_step(sass_walk.parse_sass(listing), "render_mono", fast, "euler", 0)
         ws = sum(sass_walk.warp_steps(torch, r.steps) for r in plain_res) // N_FRAMES
-        clock = sass_walk.sm_clock_under_load(
-            lambda: tk.render_packed(cams[0], full_scene, fast_math=fast, device="cuda",
-                                     out=scratch), ms)
-        floor = sass_walk.issue_floor_ms(route["step_instructions"], ws, sms,
-                                         float(clock.split(",")[0]))
-        phase("issue", f"{route['function']} on the main path: {route['step_instructions']} SASS "
-              f"/ {route['step_mufu']} MUFU a loop step as built (walked along flags 0), {ws} "
-              f"warp-steps/frame, SM clock {clock.split(',')[0].strip()} MHz under load: issue "
-              f"floor {floor:.3f} ms against the kernel's {ms:.3f} ms, {floor / ms:.1%} of the "
-              f"issue rate, on {smi}")
+        issue("issue", "the main path", fast, 0, ws, ms,
+              lambda: tk.render_packed(cams[0], full_scene, fast_math=fast, device="cuda",
+                                       out=scratch))
 
     # 5b. the front end on the main path, fast tier. (a) render_frame with a
     # TimestampQuery: frames issued back to back, so that each query's
@@ -1149,9 +1170,11 @@ def main() -> None:
         launches = (C[N_MONO], C[N_TRACE])
         if launches != ((1, 0) if fast else (0, 1)):
             raise AssertionError(f"BASELINE 5 {tier} launched {launches}, not one {kernel}")
-        if (C[N_MONO_KS], C[N_TRACE_KS]) != launches:
+        if (C[N_MONO_KS], C[N_TRACE_KS]) != launches or \
+                (C[N_MONO_KS_FAST], C[N_TRACE_KS_FAST]) != (launches if fast else (0, 0)):
             raise AssertionError(f"BASELINE 5 {tier} counted {C[N_MONO_KS]}, {C[N_TRACE_KS]} "
-                                 f"Kerr-Schild launches of {launches}")
+                                 f"Kerr-Schild launches ({C[N_MONO_KS_FAST]}, "
+                                 f"{C[N_TRACE_KS_FAST]} fast) of {launches}")
         var.launched(kernel, fast, "euler", 1, "kerr")
         staged_shading("BASELINE 5", fast, 1)
         if frame.shape != (H5, W5, 4):
@@ -1184,15 +1207,20 @@ def main() -> None:
                   ray_steps=ray_steps, pixels=W5 * H5, disk=True,
                   config="BASELINE config 5: kerr spin 0.9, euler, fixed dt, disk, camera "
                          "[15,5,0], 3840x2160x2000")
+        if fast:  # warp-steps from the plain frame's steps, as the main path's line
+            issue("issue5", "BASELINE config 5", True, tk.trace_flags(renderer.config),
+                  sass_walk.warp_steps(torch, plain[1].steps), ms, launch)
         reset()
         frames, anim_ms, anim = animate(renderer, CONFIG5_FRAMES)
         n = C[N_MONO] if fast else C[N_TRACE]
         if n != CONFIG5_FRAMES or (C[N_TRACE] if fast else C[N_MONO]):
             raise AssertionError(f"BASELINE 5 animation launched {C[N_MONO]}, "
                                  f"{C[N_TRACE]}")
-        if (C[N_MONO_KS], C[N_TRACE_KS]) != (C[N_MONO], C[N_TRACE]):
+        if (C[N_MONO_KS], C[N_TRACE_KS]) != (C[N_MONO], C[N_TRACE]) or \
+                C[N_MONO_KS_FAST] + C[N_TRACE_KS_FAST] != (n if fast else 0):
             raise AssertionError(f"BASELINE 5 animation counted {C[N_MONO_KS]}, "
-                                 f"{C[N_TRACE_KS]} Kerr-Schild launches of {n}")
+                                 f"{C[N_TRACE_KS]} Kerr-Schild launches ({C[N_MONO_KS_FAST]}, "
+                                 f"{C[N_TRACE_KS_FAST]} fast) of {n}")
         var.launched(kernel, fast, "euler", n, "kerr")
         staged_shading("BASELINE 5 animation", fast, n)
         band_stats = []

@@ -267,8 +267,9 @@ TRACES = [(m, i, v) for m in ("kerr", "kerr_lt") for i in ("euler", "rk4", "leap
 
 
 def _cfg(model, integ, variant):
-    return dict(integrator=integ, model=model, adaptive=variant != "fixed",
-                disk=variant != "fixed")
+    """fixed: fixed dt, no disk; adaptive-disk; disk: fixed dt with the disk."""
+    return dict(integrator=integ, model=model, adaptive="adaptive" in variant,
+                disk="disk" in variant)
 
 
 @pytest.mark.parametrize("model,integ,variant", TRACES, ids=["-".join(t) for t in TRACES])
@@ -490,8 +491,11 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
 
 
+# kerr-euler-disk has BASELINE config 5's flags: its fast frame runs the
+# render_mono instantiation with the flags fixed at 20
 GPU_CASES = ["kerr-euler-fixed", "kerr-rk4-adaptive-disk", "kerr-leapfrog-fixed",
-             "kerr_lt-euler-adaptive-disk", "kerr_lt-rk4-fixed", "kerr_lt-leapfrog-fixed"]
+             "kerr_lt-euler-adaptive-disk", "kerr_lt-rk4-fixed", "kerr_lt-leapfrog-fixed",
+             "kerr-euler-disk", "kerr-rk4-disk", "kerr-leapfrog-adaptive-disk"]
 
 
 @pytest.mark.gpu
@@ -533,16 +537,19 @@ def test_kerr_kernels_match_plain_version_on_gpu(case, fast):
 @pytest.mark.gpu
 def test_a_kerr_frame_counts_one_kerr_schild_launch_on_gpu():
     """render_frame of an exact Kerr frame counts one launch under its
-    kernel's key and under the key's .ks, in either route; a Schwarzschild
-    or kerr_lt frame counts none under .ks."""
+    kernel's key and under the key's .ks, in either route, and under .ks.fast
+    in the fast tier (none an exact frame); a Schwarzschild or kerr_lt frame
+    counts none under .ks."""
     _need_cuda()
     scene = T.SceneParams(screen_width=64, screen_height=48, max_steps=60, spin=SPIN)
-    keys = ("launch.render_mono", "launch.render_mono.ks", "launch.trace_planes",
-            "launch.trace_planes.ks")
-    for kw, want in ((dict(model="kerr", disk=True, fast_math=True), (1, 1, 0, 0)),
-                     (dict(model="kerr", disk=True), (0, 0, 1, 1)),
-                     (dict(disk=True, fast_math=True), (1, 0, 0, 0)),
-                     (dict(model="kerr_lt", fast_math=True), (1, 0, 0, 0))):
+    keys = ("launch.render_mono", "launch.render_mono.ks", "launch.render_mono.ks.fast",
+            "launch.trace_planes", "launch.trace_planes.ks", "launch.trace_planes.ks.fast")
+    for kw, want in ((dict(model="kerr", disk=True, fast_math=True), (1, 1, 1, 0, 0, 0)),
+                     (dict(model="kerr", disk=True), (0, 0, 0, 1, 1, 0)),
+                     (dict(model="kerr", disk=True, fast_math=True, tonemap="srgb"),
+                      (0, 0, 0, 1, 1, 1)),
+                     (dict(disk=True, fast_math=True), (1, 0, 0, 0, 0, 0)),
+                     (dict(model="kerr_lt", fast_math=True), (1, 0, 0, 0, 0, 0))):
         r = T.BlackHoleRenderer(64, 48, device="cuda", **kw)
         before = [COUNTS[k] for k in keys]
         r.render_frame(T.Camera.new(*SIDE), scene)

@@ -158,9 +158,12 @@ MANGLED = ("_ZN3bhr47_GLOBAL__N__0_14_render_mono_cu_0818render_mono_kernelIL{}"
     ("b0ELi1ELb1E", ("render_mono", False, "rk4", True, None)),
     ("b1ELi0ELb0ELin1E", ("render_mono", True, "euler", False, None)),
     ("b0ELi0ELb0ELi0E", ("render_mono", False, "euler", False, 0)),
+    ("b1ELi0ELb1ELi20E", ("render_mono", True, "euler", True, 20)),
 ])
 def test_kernel_tag(args, tag):
     assert sw.kernel_tag(MANGLED.format(args)) == tag
+    if tag[4] == 20:
+        assert sw.tag_text(tag) == "render_mono<fast,euler,ks,flags=20>"
 
 
 def test_launched_function_prefers_the_fixed_instantiation():
@@ -218,26 +221,33 @@ def test_warp_steps_take_each_warps_longest_ray():
 # ---- which instantiation the route walk takes for each driven configuration -------
 
 PLUGIN_CONFIG = dict(model="custom", custom_accel=lambda *a: a[:3])
-# every configuration chip_smoke.py traces, with whether its launch runs the
-# instantiation with the flags fixed at 0: the C entries launch it for an
-# Euler frame with no flag set (the main path, the debug heatmap, textures
-# and multires at Euler, the plugin at Euler)
+# every configuration chip_smoke.py traces, with the flags fixed in the
+# instantiation its launch runs in the fast and in the exact tier (None: the
+# one that reads them at run time). The C entries launch the one fixed at 0
+# for an Euler frame with no flag set (the main path, the debug heatmap,
+# textures and multires at Euler, the plugin at Euler), and the one fixed at
+# 20 for a fast Euler Kerr-Schild frame with the disk alone (config 5).
+MAIN, RUNTIME, CONFIG5 = (0, 0), (None, None), (20, None)
 DRIVEN = (
-    [(dict(integrator=i, model=m, adaptive=a), i == "euler" and m == "schwarzschild" and not a)
+    [(dict(integrator=i, model=m, adaptive=a),
+      MAIN if i == "euler" and m == "schwarzschild" and not a else RUNTIME)
      for i in ("euler", "rk4", "leapfrog") for a in (False, True)
      for m in ("schwarzschild", "flat", "kerr", "kerr_lt")]  # the 160x96 matrix
-    + [(dict(), True),  # the main path, its front end, debug, textures, multires, bands
-       (dict(integrator="rk4", adaptive=True, disk=True), False),  # config 4
-       (dict(model="kerr", disk=True), False),  # config 5
-       (dict(model="kerr_lt"), False),
-       (dict(disk=True), False)]
-    + [(dict(integrator=i, **PLUGIN_CONFIG), i == "euler") for i in ("euler", "rk4", "leapfrog")]
+    + [(dict(), MAIN),  # the main path, its front end, debug, textures, multires, bands
+       (dict(integrator="rk4", adaptive=True, disk=True), RUNTIME),  # config 4
+       (dict(model="kerr", disk=True), CONFIG5),  # config 5
+       (dict(model="kerr_lt"), RUNTIME),
+       (dict(disk=True), RUNTIME)]
+    + [(dict(integrator=i, **PLUGIN_CONFIG), MAIN if i == "euler" else RUNTIME)
+       for i in ("euler", "rk4", "leapfrog")]
 )
 # every instantiation render_mono.cu builds: the 12 that read their flags at
-# run time and the 2 Euler ones with the flags fixed at 0
+# run time, the 2 Euler ones with the flags fixed at 0 and the fast Euler
+# Kerr-Schild one with the flags fixed at 20
 BUILT = {MANGLED.format(f"b{fast}ELi{i}ELb{ks}E{fl}"): []
          for fast in (0, 1) for i in range(3) for ks in (0, 1)
-         for fl in (("Lin1E", "Li0E") if i == 0 and not ks else ("Lin1E",))}
+         for fl in (("Lin1E", "Li0E") if i == 0 and not ks else
+                    ("Lin1E", "Li20E") if i == 0 and fast else ("Lin1E",))}
 
 
 def _launched(config, fast=True):
@@ -248,12 +258,12 @@ def _launched(config, fast=True):
 @pytest.mark.parametrize("kw,fixed", DRIVEN, ids=[str(i) for i in range(len(DRIVEN))])
 def test_launched_function_for_every_driven_configuration(kw, fixed):
     cfg = bt.TraceConfig(**kw)
-    for fast in (True, False):
+    for fast, want in zip((True, False), fixed):
         _name, tag = _launched(cfg, fast)
         assert tag[:4] == ("render_mono", fast, cfg.integrator, cfg.model == "kerr")
-        assert tag[4] == (0 if fixed else None)
-    if fixed:
-        assert trace_kernel.trace_flags(cfg) == 0 and cfg.integrator == "euler"
+        assert tag[4] == want
+        if want is not None:
+            assert trace_kernel.trace_flags(cfg) == want and cfg.integrator == "euler"
 
 
 def test_the_renderer_main_path_is_the_fixed_one():

@@ -129,9 +129,10 @@ def test_the_import_is_a_setup_span():
 
 # ---- the launch counts: each wrapper's CUDA path, its kernel and device faked ----
 
-KEYS = ("launch.render_mono", "launch.render_mono.ks", "launch.trace_planes",
-        "launch.trace_planes.strided", "launch.trace_planes.masked",
-        "launch.trace_planes.custom", "launch.trace_planes.ks", "launch.neural_mlp",
+KEYS = ("launch.render_mono", "launch.render_mono.ks", "launch.render_mono.ks.fast",
+        "launch.trace_planes", "launch.trace_planes.strided", "launch.trace_planes.masked",
+        "launch.trace_planes.custom", "launch.trace_planes.ks", "launch.trace_planes.ks.fast",
+        "launch.neural_mlp",
         "launch.neural_mlp.dirs", "launch.neural_mlp.band", "launch.shade_planes")
 KERR = T.TraceConfig(model="kerr", disk=True)
 
@@ -172,9 +173,13 @@ def _launch(what):
         "render_mono": lambda: trace_kernel.render_packed(cam, scene, device="cuda", out=frame),
         "render_mono.ks": lambda: trace_kernel.render_packed(cam, scene, KERR, device="cuda",
                                                              out=frame),
+        "render_mono.ks.exact": lambda: trace_kernel.render_packed(
+            cam, scene, T.TraceConfig(model="kerr"), fast_math=False, device="cuda", out=frame),
         "trace_planes": lambda: trace_kernel.trace_image(cam, scene, device="cuda", out=planes),
         "trace_planes.ks": lambda: trace_kernel.trace_image(cam, scene, KERR, device="cuda",
                                                             out=planes),
+        "trace_planes.ks.fast": lambda: trace_kernel.trace_image(
+            cam, scene, KERR, fast_math=True, device="cuda", out=planes),
         "strided": lambda: trace_kernel.trace_image(cam, scene, device="cuda", stride=2,
                                                     local_shape=(3, 4), out=planes),
         "masked": lambda: trace_kernel.trace_image(cam, scene, device="cuda", out=planes,
@@ -195,10 +200,15 @@ def _launch(what):
 
 @pytest.mark.parametrize("what, counted, kernel", [
     ("render_mono", {"launch.render_mono"}, "kernel.render_mono"),
-    ("render_mono.ks", {"launch.render_mono", "launch.render_mono.ks"}, "kernel.render_mono"),
+    ("render_mono.ks", {"launch.render_mono", "launch.render_mono.ks",
+                        "launch.render_mono.ks.fast"}, "kernel.render_mono"),
+    ("render_mono.ks.exact", {"launch.render_mono", "launch.render_mono.ks"},
+     "kernel.render_mono"),
     ("trace_planes", {"launch.trace_planes"}, "kernel.trace_planes"),
     ("trace_planes.ks", {"launch.trace_planes", "launch.trace_planes.ks"},
      "kernel.trace_planes"),
+    ("trace_planes.ks.fast", {"launch.trace_planes", "launch.trace_planes.ks",
+                              "launch.trace_planes.ks.fast"}, "kernel.trace_planes"),
     ("strided", {"launch.trace_planes", "launch.trace_planes.strided"}, "kernel.trace_planes"),
     ("masked", {"launch.trace_planes", "launch.trace_planes.masked"}, "kernel.trace_planes"),
     ("custom", {"launch.trace_planes", "launch.trace_planes.custom"}, "kernel.trace_planes"),
@@ -219,7 +229,7 @@ def test_each_launch_counts_once_under_its_keys(fake_cuda, what, counted, kernel
         params = [s for s in spans if s.name == "host.params"]
         assert len(params) == 1 and spans[params[0].parent].name == kernel
         ks = [s for s in spans if s.name == "host.params.ks"]  # the Kerr capture radius
-        assert len(ks) == what.endswith(".ks")
+        assert len(ks) == (".ks" in what)
         assert all(spans[s.parent].name == "host.params" for s in ks)
 
 
@@ -229,7 +239,8 @@ def test_every_launch_key_is_registered_in_the_recorder():
     listed = {line.split()[0] for line in tracing.__doc__.splitlines()
               if line.startswith("  launch.")}
     assert set(KEYS) <= listed
-    assert {"launch.render_mono.ks", "launch.trace_planes.ks"} <= listed
+    assert {"launch.render_mono.ks", "launch.trace_planes.ks", "launch.render_mono.ks.fast",
+            "launch.trace_planes.ks.fast"} <= listed
 
 
 def test_the_cpu_path_launches_nothing():

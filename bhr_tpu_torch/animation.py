@@ -5,21 +5,17 @@ reference app's orbit (src/main.rs:851-869: angle = t * 0.3 rad/s, radius
 15, height 5, looking at the origin).
 
 Where bhr_tpu fuses the frames into one lax.scan, the port renders frame
-by frame into one preallocated (F, H, W) tensor: one monolithic kernel
-launch per frame (one neural_mlp launch for a neural renderer), or, for a
-staged configuration, one planes-kernel launch into trace planes reused
-across frames (the neural staged route for a neural one) and an epilogue
-that writes its packed words into frames[k]. A frame with a texture skybox
-is staged (one trace_planes launch, or the neural kernel's direction-plane
-output, into the reused planes, then the texture epilogue); a renderer
-with `multires = d` renders each frame by ops/multires.render_multires,
-two trace_planes launches (strided, then masked). The cameras and kernel
-parameters are computed on the host and passed by value, and the
-epilogue's per-frame scalars reach the device as fill-kernel arguments, so
-no frame waits for the device. The animation is a pure function of the
-frame index, so `start_frame` resumes a run exactly, and `render_to_dir`
-resumes a PNG sequence from the first missing frame (its manifest.json
-refuses a resume under another configuration).
+by frame into one preallocated (F, H, W) tensor. The renderer decides the
+frames' route once a call (renderer._FramePlan: one render_mono or
+neural_mlp launch a frame; a staged trace into planes reused across the
+frames, then an epilogue that writes its packed words into frames[k]; or,
+with `multires = d`, ops/multires' two trace_planes launches), and the
+loop runs it. The cameras and kernel parameters are computed on the host
+and passed by value, and the epilogue's per-frame scalars reach the device
+as fill-kernel arguments, so no frame waits for the device. The animation
+is a pure function of the frame index, so `start_frame` resumes a run
+exactly, and `render_to_dir` resumes a PNG sequence from the first missing
+frame (its manifest.json refuses a resume under another configuration).
 """
 
 from __future__ import annotations
@@ -33,10 +29,7 @@ import torch
 
 from .core.camera import orbit_camera
 from .ops.sampling import unpack_frame
-from .ops.multires import render_multires
-from .ops.neural_kernel import dirs_kernel_takes
-from .ops.trace_kernel import empty_trace_result, monolithic_eligible
-from .renderer import BlackHoleRenderer, render_image
+from .renderer import BlackHoleRenderer
 from .utils import tracing
 
 
@@ -63,19 +56,9 @@ class PathAnimator:
         spans of frame k carry start_frame + k."""
         with tracing.span("host.frames"):
             r = self.renderer
-            scene = r.frame_scene(scene)
-            disk_params = r.disk_params(scene)
+            plan = r._frame_setup(scene)
             frames = torch.empty((n_frames, r.height, r.width), dtype=torch.int32,
                                  device=r.device)
-            neural = r.config.integrator == "neural"
-            if neural:  # the direction-plane kernel writes into planes; the staged route does not
-                staged = r.skybox is not None and dirs_kernel_takes(
-                    r.neural_params, scene, dtype=r.neural_dtype, precision=r.neural_precision)
-            else:
-                staged = not r.multires and not monolithic_eligible(
-                    r.config, scene, fast_math=r.fast_math, skybox=r.skybox,
-                    disk_params=disk_params, tonemap=r.tonemap)
-            planes = empty_trace_result(r.height, r.width, r.device) if staged else None
             with tracing.span("host.camera"):
                 times = self.frame_times(n_frames, fps, start_frame)
             try:
@@ -83,15 +66,7 @@ class PathAnimator:
                     tracing.set_frame(start_frame + k)
                     with tracing.span("host.camera"):
                         cam = self.camera_fn(t)
-                    if r.multires and not neural:
-                        render_multires(cam, scene, packed=True, out=frames[k],
-                                        **r.multires_kwargs(scene, r.multires))
-                    else:
-                        render_image(cam, scene, config=r.config, fast_math=r.fast_math,
-                                     device=r.device, tonemap=r.tonemap, seed=r.skybox_seed,
-                                     packed=True, disk_params=disk_params, lut=r._lut,
-                                     out=frames[k], planes=planes, **r.shade_kwargs(),
-                                     **r.neural_kwargs())
+                    plan.render(cam, out=frames[k])
             finally:
                 tracing.set_frame(None)
             return frames if packed else unpack_frame(frames)

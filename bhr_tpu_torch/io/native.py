@@ -2,9 +2,9 @@
 and native/bhr_exr.cpp, built into native/libbhr_native.so by
 native/Makefile): the port's own copy of bhr_tpu/io/native.py.
 
-The library is built with `make` at first use. The PNG writer and its
-frame queue (`write_png`, `submit_frame`, `drain`, `pending`) write frames
-on the library's worker threads; where the library is missing,
+The library is built with `make` at first use (`_build_and_open`). The
+PNG writer and its frame queue (`write_png`, `submit_frame`, `drain`,
+`pending`) write frames on the library's worker threads; where it is missing,
 `submit_frame` writes through the pure-Python PNG codec of io/image.py
 (`write_png_fallback`) and `write_png` raises. Where the toolchain or the
 system OpenEXR is missing, `exr_available()` is False and io/skybox.py
@@ -16,6 +16,7 @@ disables the library explicitly.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -33,6 +34,26 @@ _tried = False
 EXR_COMPRESSION = {"none": 0, "rle": 1, "zips": 2, "zip": 3, "piz": 4}
 
 
+def _build_and_open() -> ctypes.CDLL:
+    """The library, where it opens as it is; else built under an exclusive
+    lock on native/.build.lock, by make into a temporary name renamed into
+    place, so that no process opens a half-written file."""
+    try:
+        return ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        pass  # missing, or half-written by bhr_tpu's unlocked in-place build
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return ctypes.CDLL(_LIB_PATH)  # built while this process waited
+        except OSError:
+            tmp = f".libbhr_native.{os.getpid()}.so"
+            subprocess.run(["make", "-s", f"TARGET={tmp}"], cwd=_NATIVE_DIR, check=True,
+                           capture_output=True, timeout=120)
+            os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+            return ctypes.CDLL(_LIB_PATH)
+
+
 def _load():
     """The loaded library with its signatures declared, or None. Tried once
     per process."""
@@ -43,14 +64,8 @@ def _load():
         _tried = True
         if os.environ.get("BHR_NO_NATIVE"):
             return None
-        if not os.path.exists(_LIB_PATH):
-            try:
-                subprocess.run(["make", "-s"], cwd=_NATIVE_DIR, check=True, capture_output=True,
-                               timeout=120)
-            except Exception:
-                return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = _build_and_open()
             png_args = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
                         ctypes.c_int]
             lib.bhr_write_png.argtypes = png_args
@@ -59,8 +74,8 @@ def _load():
             lib.bhr_submit_frame.restype = ctypes.c_int
             lib.bhr_drain.restype = ctypes.c_int
             lib.bhr_pending.restype = ctypes.c_int
-        except (OSError, AttributeError):
-            return None
+        except (OSError, subprocess.SubprocessError, AttributeError):
+            return None  # no toolchain, a failed build, or a library without the PNG writer
         try:
             c_float_p = ctypes.POINTER(ctypes.c_float)
             c_int_p = ctypes.POINTER(ctypes.c_int)

@@ -22,9 +22,9 @@ devices runs every plain version.
 
 bhr_tpu's `use_pallas`, `tile` and `interpret` arguments and its jit caches
 (`_frame_program`, `_animation_program`) have no counterpart: each band
-goes through renderer.render_image (or ops/multires.render_multires_band),
-whose kernel wrappers launch the kernel on a CUDA device and run the plain
-version on the CPU.
+runs the route its whole frame takes (renderer._FramePlan, one a device and
+call), whose kernel wrappers launch the kernel on a CUDA device and run the
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -36,11 +36,10 @@ import torch
 from ..core.camera import orbit_camera
 from ..models.disk import DiskParams
 from ..models.neural import NeuralSurrogate
-from ..ops.multires import render_multires_band
 from ..ops.neural_kernel import as_surrogate, weights_stamp
 from ..ops.sampling import unpack_frame
 from ..ops.trace import TraceConfig
-from ..renderer import render_image
+from ..renderer import _FramePlan
 
 
 class Mesh:
@@ -115,57 +114,37 @@ def _on(x, device: torch.device):
     raise TypeError(f"cannot place a {type(x).__name__} on a device")
 
 
-def _render_band(camera, scene, skybox, disk_params, lut, row0: int, band_h: int, *,
-                 config: TraceConfig, fast_math: bool, tonemap: str, device, seed: int = 2020,
-                 texture_filter: str = "bilinear", neural_params=None,
-                 neural_precision: str = "default", multires: int = 0) -> torch.Tensor:
-    """Rows [row0, row0 + band_h) of the frame -> packed int32 (band_h, W)
-    on `device` (bhr_tpu/parallel/mesh.py:59-197): multires through
-    render_multires_band, any other frame through renderer.render_image's
-    band, so a band takes the route its whole frame takes -- for the
-    surrogate the neural kernel's band (N4) where `kernel_takes` the net at
-    `neural_precision` (Kerr nets too, and at the renderer's tier, where
-    bhr_tpu's band tests 16/2 shapes and drops the tier), with a skybox its
-    direction planes (N3's band). `skybox` is a packed texture (or the luma
-    tables) on `device`, or None for the star field. The luma tier's chroma
-    grid anchors at the band's first row, as bhr_tpu's band does (under 1
-    px of chroma off the whole frame's).
-    """
-    if multires:
-        return render_multires_band(camera, scene, skybox, disk_params, row0=row0,
-                                    band_h=band_h, config=config, device=device,
-                                    divisor=multires, texture_filter=texture_filter, seed=seed,
-                                    fast_math=fast_math)
-    return render_image(camera, scene, config=config, fast_math=fast_math, device=device,
-                        tonemap=tonemap, seed=seed, packed=True, skybox=skybox,
-                        disk_params=disk_params, lut=lut, texture_filter=texture_filter,
-                        neural_params=neural_params, neural_precision=neural_precision,
-                        row0=row0, local_shape=(band_h, scene.screen_width))
-
-
-def _check_multires(multires: int, config: TraceConfig, tonemap: str) -> None:
-    if multires and (config.integrator == "neural" or tonemap != "passthrough"):
-        raise ValueError("sharded multires supports geodesic integrators with passthrough "
-                         "tonemap only")
-
-
 class _Bands:
-    """The bands of one call: the band height, and each device's copy of
-    the inputs (made once a call; the surrogate's, once a mesh)."""
+    """The bands of one call (bhr_tpu/parallel/mesh.py:59-197): each
+    device's renderer._FramePlan, so a band takes its whole frame's route --
+    for the surrogate N4 where `kernel_takes` the net at `neural_precision`
+    (Kerr nets too; bhr_tpu's band tests 16/2 shapes and drops the tier),
+    with a skybox N3's band. The luma tier's chroma grid anchors at the
+    band's first row, as bhr_tpu's band does."""
 
-    def __init__(self, mesh: Mesh, scene, inputs: dict):
+    def __init__(self, mesh: Mesh, scene, *, multires: int, neural_params, **plan):
+        if multires and (plan["config"].integrator == "neural"
+                         or plan["tonemap"] != "passthrough"):
+            raise ValueError("sharded multires supports geodesic integrators with passthrough "
+                             "tonemap only")
         self.mesh = mesh
+        self.scene = scene
         self.n_sp = mesh.shape["sp"]
         self.band_h = -(-scene.screen_height // self.n_sp)  # ceil: the last band is padded
-        self.inputs = inputs
-        self.placed = {}
+        self.plan = dict(plan, divisor=multires, neural_params=(
+            None if neural_params is None else as_surrogate(neural_params)))
+        self.plans = {}
 
-    def on(self, device: torch.device) -> dict:
-        if device not in self.placed:
-            self.placed[device] = {
-                k: (self.mesh.surrogate_on(v, device) if isinstance(v, NeuralSurrogate)
-                    else _on(v, device)) for k, v in self.inputs.items()}
-        return self.placed[device]
+    def render(self, camera, j: int, device: torch.device) -> torch.Tensor:
+        """Band j of the frame of `camera` on `device` -> packed int32
+        (band_h, W) there."""
+        if device not in self.plans:
+            placed = {k: (self.mesh.surrogate_on(v, device) if isinstance(v, NeuralSurrogate)
+                          else _on(v, device) if k in ("skybox", "disk_params", "lut") else v)
+                      for k, v in self.plan.items()}
+            self.plans[device] = _FramePlan(self.scene, device=device, **placed)
+        return self.plans[device].render(camera, row0=j * self.band_h,
+                                         local_shape=(self.band_h, self.scene.screen_width))
 
 
 def render_frame_sharded(camera, scene, skybox, mesh: Mesh, *,
@@ -187,20 +166,12 @@ def render_frame_sharded(camera, scene, skybox, mesh: Mesh, *,
     Each input is copied once a call to each device that needs it; the
     surrogate once a mesh (Mesh.surrogate_on).
     """
-    _check_multires(multires, config, tonemap)
-    if neural_params is not None:
-        neural_params = as_surrogate(neural_params)
-    bands = _Bands(mesh, scene, dict(skybox=skybox, disk_params=disk_params, lut=lut,
-                                     neural_params=neural_params))
+    bands = _Bands(mesh, scene, skybox=skybox, config=config, disk_params=disk_params, lut=lut,
+                   fast_math=fast_math, tonemap=tonemap, seed=seed, texture_filter=texture_filter,
+                   neural_params=neural_params, neural_precision=neural_precision,
+                   multires=multires)
     first = mesh.devices[0][0]
-    parts = []
-    for j, device in enumerate(mesh.devices[0]):
-        band = _render_band(camera, scene, row0=j * bands.band_h, band_h=bands.band_h,
-                            config=config, fast_math=fast_math, tonemap=tonemap, device=device,
-                            seed=seed, texture_filter=texture_filter,
-                            neural_precision=neural_precision, multires=multires,
-                            **bands.on(device))
-        parts.append(band)
+    parts = [bands.render(camera, j, device) for j, device in enumerate(mesh.devices[0])]
     frame = torch.cat([p.to(first) for p in parts])[:scene.screen_height]
     return unpack_frame(frame)
 
@@ -226,16 +197,15 @@ def render_animation_sharded(times, scene, skybox, mesh: Mesh, *, orbit=(0.3, 15
     of the mesh, so every device has work queued; nothing waits for a
     device.
     """
-    _check_multires(multires, config, tonemap)
     times = torch.as_tensor(times, dtype=torch.float32).cpu()
     n_dp = mesh.shape["dp"]
     n_frames = times.shape[0]
     if n_frames % n_dp:
         raise ValueError(f"len(times)={n_frames} must divide over dp={n_dp}")
-    if neural_params is not None:
-        neural_params = as_surrogate(neural_params)
-    bands = _Bands(mesh, scene, dict(skybox=skybox, disk_params=disk_params, lut=lut,
-                                     neural_params=neural_params))
+    bands = _Bands(mesh, scene, skybox=skybox, config=config, disk_params=disk_params, lut=lut,
+                   fast_math=fast_math, tonemap=tonemap, seed=seed, texture_filter=texture_filter,
+                   neural_params=neural_params, neural_precision=neural_precision,
+                   multires=multires)
     height, width = scene.screen_height, scene.screen_width
     band_h = bands.band_h
     first = mesh.devices[0][0]
@@ -249,11 +219,7 @@ def render_animation_sharded(times, scene, skybox, mesh: Mesh, *, orbit=(0.3, 15
             cam = orbit_camera(times[f], radius=radius, height=cam_h, rotation_speed=speed)
             for j, device in enumerate(row):
                 row0 = j * band_h
-                band = _render_band(cam, scene, row0=row0, band_h=band_h, config=config,
-                                    fast_math=fast_math, tonemap=tonemap, device=device,
-                                    seed=seed, texture_filter=texture_filter,
-                                    neural_precision=neural_precision, multires=multires,
-                                    **bands.on(device))
+                band = bands.render(cam, j, device)
                 if with_stats:
                     green = ((band >> 8) & 0xFF).to(torch.float32)
                     rows = torch.arange(row0, row0 + band_h, device=band.device)

@@ -12,17 +12,16 @@ dt, on the Schwarzschild, exact Kerr ("kerr", Kerr-Schild Hamiltonian
 geodesics), Lense-Thirring Kerr ("kerr_lt") or flat metric, with or
 without the accretion disk, the analytic star field, the passthrough,
 reinhard or srgb tonemap and the step-count heatmap, in the fast or the
-exact math tier. A frame that the monolithic kernel can produce goes to it
-(csrc/render_mono.cu); every other one is traced by the planes kernel
-(csrc/trace_planes.cu) and shaded by `shade_image` on the device, as
-bhr_tpu/renderer.py:render_image routes them: a frame of the star field
-with the passthrough tonemap and no debug view in one csrc/shade_planes.cu
-launch, any other by the plain PyTorch epilogue `shade_image_reference`.
-The neural surrogate (integrator "neural", model schwarzschild or kerr)
-renders a frame with the analytic star field, the passthrough tonemap and
-no debug view at the default or highest precision tier in one
-csrc/neural_mlp.cu launch, and every other neural frame through the staged
-route ops/neural_trace and `shade_image`.
+exact math tier. A frame takes the route `frame_route` gives it, as
+bhr_tpu/renderer.py:render_image routes it: one csrc/render_mono.cu launch
+where the monolithic kernel can produce it, one csrc/neural_mlp.cu launch
+for a star-field frame of the neural surrogate (integrator "neural", model
+schwarzschild or kerr) at the default or highest tier, else a staged trace
+shaded by `shade_image` on the device (one csrc/shade_planes.cu launch for
+the star field with the passthrough tonemap and no debug view, the plain
+PyTorch epilogue `shade_image_reference` for any other). One plan a call
+(`_FramePlan`) runs the route for render_image, the renderer, the
+animation and the mesh's bands.
 
 A texture skybox (`skybox=` a path or an array, e.g. io/skybox.load_skybox()
 for the procedural 2048x4096 star map) is packed once and kept on the device;
@@ -45,6 +44,7 @@ here.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import inspect
 import logging
 
@@ -59,7 +59,7 @@ from .io.skybox import load_skybox
 from .models import neural, neural_kerr
 from .models.disk import DiskParams, blackbody_lut
 from .ops.display import TONEMAPS
-from .ops.multires import render_multires
+from .ops.multires import render_multires, render_multires_band
 from .ops.neural_kernel import (
     as_surrogate,
     dirs_kernel_takes,
@@ -72,7 +72,7 @@ from .ops.sampling import luma_pack_texture, pack_texture_rgba8, unpack_frame
 from .ops.shade_kernel import kernel_planes, shade_kernel_takes, shade_planes
 from .ops.shading import shade_planes_packed, texture_background
 from .ops.trace import TraceConfig, TraceResult
-from .ops.trace_kernel import monolithic_eligible, render_packed, trace_image
+from .ops.trace_kernel import empty_trace_result, monolithic_eligible, render_packed, trace_image
 from .utils import tracing
 from .utils.plugin import cuda_source, load_plugin
 
@@ -153,30 +153,114 @@ def _check_neural(model: str, adaptive: bool, disk: bool, multires: int) -> None
                          "skips integration; there is no low-res geodesic pass to save)")
 
 
-def trace_frame(camera: Camera, scene: SceneParams, *, config: TraceConfig, fast_math: bool,
-                device, planes: TraceResult | None = None, textured: bool = False,
-                neural_params=None, neural_dtype: str = "float32",
-                neural_precision: str = "default", row0: int = 0,
-                local_shape=None) -> TraceResult:
-    """The staged path's trace of one frame on `device`: one trace_planes
-    launch into `planes` (if given), or for config.integrator "neural" the
-    surrogate's deflection field -- one neural_mlp launch with its
-    direction-plane output where the frame is `textured` and
-    `dirs_kernel_takes` it (bhr_tpu/renderer.py:210-239), else the staged
-    route at `neural_dtype` and `neural_precision`. With `local_shape`
-    (band_h, W), the band of rows [row0, row0 + band_h) of that trace."""
-    band = dict(row0=row0, local_shape=local_shape)
+def frame_route(config: TraceConfig, scene: SceneParams, *, fast_math: bool, tonemap: str, skybox,
+                disk_params, neural_params, neural_dtype: str, neural_precision: str,
+                staged: bool = False) -> str:
+    """Which kernels render the frame (bhr_tpu/renderer.py:127-239; the frame
+    path's one caller of their predicates): "mono" (render_mono), "neural"
+    (neural_mlp), or, and always where `staged`, a trace then `shade_image`:
+    "planes" (trace_planes), "dirs" (neural_mlp's direction planes) or
+    "neural_staged" (ops/neural_trace)."""
     if config.integrator != "neural":
-        return trace_image(camera, scene, config, fast_math=fast_math, device=device, out=planes,
-                           **band)
+        mono = monolithic_eligible(config, scene, fast_math=fast_math, skybox=skybox,
+                                   disk_params=disk_params, tonemap=tonemap)
+        return "mono" if mono and not staged else "planes"
     if neural_params is None:
         raise ValueError("integrator='neural' needs neural_params")
-    if textured and dirs_kernel_takes(neural_params, scene, dtype=neural_dtype,
-                                      precision=neural_precision):
-        return neural_trace_dirs(neural_params, camera, scene, precision=neural_precision,
-                                 device=device, out=planes, **band)
-    return neural_trace_image(neural_params, camera, scene, device=device, dtype=neural_dtype,
-                              precision=neural_precision, **band)
+    if skybox is None:
+        if not staged and kernel_takes(neural_params, scene, tonemap=tonemap,
+                                       precision=neural_precision):
+            return "neural"
+    elif dirs_kernel_takes(neural_params, scene, dtype=neural_dtype, precision=neural_precision):
+        return "dirs"
+    return "neural_staged"
+
+
+@dataclasses.dataclass(frozen=True, eq=False, slots=True)
+class _FramePlan:
+    """The frames of one call: their `route`, decided once from the other
+    fields (`frame_route`, or "multires" at `divisor`), and every input it
+    reads. `planes`, if given, receive the "planes" and "dirs" routes'
+    trace."""
+
+    scene: SceneParams
+    config: TraceConfig
+    fast_math: bool
+    device: torch.device
+    tonemap: str = "passthrough"
+    seed: int = 2020
+    skybox: object = None
+    disk_params: DiskParams | None = None
+    lut: torch.Tensor | None = None
+    texture_filter: str = "bilinear"
+    texture_subsample: object = 1
+    neural_params: object = None
+    neural_dtype: str = "float32"
+    neural_precision: str = "default"
+    planes: TraceResult | None = None
+    divisor: int = 0
+    staged: bool = False
+    route: str = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        if self.tonemap not in TONEMAPS:
+            raise ValueError(f"unknown tonemap {self.tonemap!r}; have {sorted(TONEMAPS)}")
+        object.__setattr__(self, "route", "multires" if self.divisor else frame_route(
+            self.config, self.scene, fast_math=self.fast_math, tonemap=self.tonemap,
+            skybox=self.skybox, disk_params=self.disk_params, neural_params=self.neural_params,
+            neural_dtype=self.neural_dtype, neural_precision=self.neural_precision,
+            staged=self.staged))
+
+    def render(self, camera: Camera, *, out: torch.Tensor | None = None, row0: int = 0,
+               local_shape=None, **multires) -> torch.Tensor:
+        """The packed int32 frame of `camera` (into `out` if given), or with
+        `local_shape` (band_h, W) its band of rows from `row0`. `multires`
+        keywords (edge_fix, edge_threshold, texture_subsample) go to
+        ops/multires, and only there."""
+        band = dict(row0=row0, local_shape=local_shape)
+        if self.route == "multires":
+            kw = dict(config=self.config, device=self.device, divisor=self.divisor,
+                      texture_filter=self.texture_filter, seed=self.seed, fast_math=self.fast_math,
+                      **{"texture_subsample": self.texture_subsample, **multires})
+            if local_shape is None:
+                return render_multires(camera, self.scene, self.skybox, self.disk_params,
+                                       packed=True, out=out, **kw)
+            return render_multires_band(camera, self.scene, self.skybox, self.disk_params,
+                                        row0=row0, band_h=local_shape[0], **kw)
+        if multires:
+            raise TypeError(f"the {self.route!r} route takes no {sorted(multires)}")
+        if self.route == "mono":
+            return render_packed(camera, self.scene, self.config, seed=self.seed,
+                                 fast_math=self.fast_math, device=self.device, out=out, **band)
+        if self.route == "neural":
+            return neural_render_packed(self.neural_params, camera, self.scene, seed=self.seed,
+                                        precision=self.neural_precision, device=self.device,
+                                        out=out, **band)
+        return self.shade(self.trace(camera, **band), camera, out=out)
+
+    def trace(self, camera: Camera, *, row0: int = 0, local_shape=None) -> TraceResult:
+        """The staged route's trace of `camera` (or of its band)."""
+        band = dict(row0=row0, local_shape=local_shape)
+        if self.route == "planes":
+            return trace_image(camera, self.scene, self.config, fast_math=self.fast_math,
+                               device=self.device, out=self.planes, **band)
+        if self.route == "dirs":
+            return neural_trace_dirs(self.neural_params, camera, self.scene,
+                                     precision=self.neural_precision, device=self.device,
+                                     out=self.planes, **band)
+        if self.route == "neural_staged":
+            return neural_trace_image(self.neural_params, camera, self.scene, device=self.device,
+                                      dtype=self.neural_dtype, precision=self.neural_precision,
+                                      **band)
+        raise ValueError(f"the {self.route!r} route has no staged trace")
+
+    def shade(self, result: TraceResult, camera: Camera, *,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+        """`shade_image` of `result` with the plan's inputs -> packed int32."""
+        return shade_image(result, camera, self.scene, self.disk_params, self.lut,
+                           tonemap=self.tonemap, seed=self.seed, packed=True, out=out,
+                           skybox=self.skybox, texture_filter=self.texture_filter,
+                           texture_subsample=self.texture_subsample)
 
 
 def render_image(camera: Camera, scene: SceneParams, *, config: TraceConfig, fast_math: bool,
@@ -193,48 +277,22 @@ def render_image(camera: Camera, scene: SceneParams, *, config: TraceConfig, fas
     refers to the frame's size; a texture's chroma and subsample grids
     anchor at the band's first row).
 
-    A frame that `monolithic_eligible` admits is one render_mono launch;
-    any other is one trace_planes launch followed by `shade_image`. With
-    config.disk, `disk_params` (models/disk.DiskParams on `device`) and
-    the (512, 3) `lut` shade the disk in the staged epilogue. `skybox` is
-    None for the analytic star field of `seed`, or the packed int32
-    texture on `device` (ops/sampling.pack_texture_rgba8; for
-    texture_filter "luma", luma_pack_texture's pair), sampled by
-    `texture_filter` and `texture_subsample`; a textured frame is always
-    staged. `out`, if given, receives the packed frame; `planes`
-    (ops/trace_kernel.empty_trace_result) are reused for the staged
-    path's trace.
-
-    With config.integrator "neural", `neural_params` (a NeuralSurrogate on
-    `device`) predicts the deflection field: one neural_mlp launch where
-    `kernel_takes` the frame (no skybox) or `dirs_kernel_takes` it (with
-    one), else the staged route at `neural_dtype` and `neural_precision`
-    ("default", "high" or "highest"), then shade_image.
-    """
-    if tonemap not in TONEMAPS:
-        raise ValueError(f"unknown tonemap {tonemap!r}; have {sorted(TONEMAPS)}")
-    band = dict(row0=row0, local_shape=local_shape)
-    if config.integrator == "neural":
-        if neural_params is None:
-            raise ValueError("integrator='neural' needs neural_params")
-        if skybox is None and kernel_takes(neural_params, scene, tonemap=tonemap,
-                                           precision=neural_precision):
-            frame = neural_render_packed(neural_params, camera, scene, seed=seed,
-                                         precision=neural_precision, device=device, out=out,
-                                         **band)
-            return frame if packed else unpack_frame(frame)
-    elif monolithic_eligible(config, scene, fast_math=fast_math, skybox=skybox,
-                             disk_params=disk_params, tonemap=tonemap):
-        frame = render_packed(camera, scene, config, seed=seed, fast_math=fast_math,
-                              device=device, out=out, **band)
-        return frame if packed else unpack_frame(frame)
-    result = trace_frame(camera, scene, config=config, fast_math=fast_math, device=device,
-                         planes=planes, textured=skybox is not None,
-                         neural_params=neural_params, neural_dtype=neural_dtype,
-                         neural_precision=neural_precision, **band)
-    return shade_image(result, camera, scene, disk_params, lut, tonemap=tonemap, seed=seed,
-                       packed=packed, out=out, skybox=skybox, texture_filter=texture_filter,
-                       texture_subsample=texture_subsample)
+    The frame takes the route `frame_route` gives it. With config.disk,
+    `disk_params` (models/disk.DiskParams on `device`) and the (512, 3)
+    `lut` shade the disk in the staged epilogue. `skybox` is None for the
+    analytic star field of `seed`, or the packed int32 texture on `device`
+    (ops/sampling.pack_texture_rgba8; for texture_filter "luma",
+    luma_pack_texture's pair). `out`, if given, receives the packed frame;
+    `planes` (ops/trace_kernel.empty_trace_result) the staged trace. With
+    config.integrator "neural", `neural_params` (a NeuralSurrogate on
+    `device`) predicts the deflection field at `neural_dtype` and
+    `neural_precision` ("default", "high" or "highest")."""
+    plan = _FramePlan(scene, config, fast_math, device, tonemap=tonemap, seed=seed, skybox=skybox,
+                      disk_params=disk_params, lut=lut, texture_filter=texture_filter,
+                      texture_subsample=texture_subsample, neural_params=neural_params,
+                      neural_dtype=neural_dtype, neural_precision=neural_precision, planes=planes)
+    frame = plan.render(camera, out=out, row0=row0, local_shape=local_shape)
+    return frame if packed else unpack_frame(frame)
 
 
 def shade_image(result: TraceResult, camera: Camera, scene: SceneParams, disk_params, lut, *,
@@ -438,14 +496,6 @@ class BlackHoleRenderer:
             scene = scene.replace(screen_width=self.width, screen_height=self.height)
         return scene
 
-    def neural_kwargs(self) -> dict:
-        """render_image's neural arguments for this renderer (none for the
-        geodesic integrators)."""
-        if self.config.integrator != "neural":
-            return {}
-        return dict(neural_params=self.neural_params, neural_dtype=self.neural_dtype,
-                    neural_precision=self.neural_precision)
-
     def _load_neural(self, model: str, params) -> None:
         """Load the surrogate (the model's default asset when `params` is
         None, an npz path, a NeuralSurrogate or (W, b) pairs) onto the
@@ -508,10 +558,29 @@ class BlackHoleRenderer:
         with tracing.span("epilogue"):
             return DiskParams.for_scene(on_device(scene.schwarzschild_radius, self.device))
 
-    def shade_kwargs(self) -> dict:
-        """shade_image's and render_image's texture arguments."""
-        return dict(skybox=self.skybox, texture_filter=self.texture_filter,
-                    texture_subsample=self.texture_subsample)
+    def _frame_plan(self, scene: SceneParams | None = None, *, divisor: int = 0,
+                    staged: bool = False, reuse_planes: bool = False) -> _FramePlan:
+        """The plan of this renderer's frames of `scene` (default: the last
+        one), at the multires `divisor` if given, staged if `staged`. Where
+        the route shades in an epilogue, the plan gets the disk's parameters
+        and, with `reuse_planes`, planes its trace fills frame by frame."""
+        scene = self.frame_scene(scene)
+        plan = _FramePlan(scene, self.config, self.fast_math, self.device, tonemap=self.tonemap,
+                          seed=self.skybox_seed, skybox=self.skybox, lut=self._lut,
+                          texture_filter=self.texture_filter,
+                          texture_subsample=self.texture_subsample,
+                          neural_params=self.neural_params, neural_dtype=self.neural_dtype,
+                          neural_precision=self.neural_precision, divisor=divisor, staged=staged)
+        if plan.route in ("mono", "neural"):
+            return plan
+        reuse = reuse_planes and plan.route in ("planes", "dirs")
+        return dataclasses.replace(
+            plan, disk_params=self.disk_params(scene),
+            planes=empty_trace_result(self.height, self.width, self.device) if reuse else None)
+
+    def _frame_setup(self, scene: SceneParams | None = None) -> _FramePlan:
+        """An animation's plan: at the `multires` divisor, with reused planes."""
+        return self._frame_plan(scene, divisor=self.multires, reuse_planes=True)
 
     def render_frame(self, camera: Camera | None = None, scene: SceneParams | None = None,
                      timestamp_query=None) -> torch.Tensor:
@@ -530,14 +599,9 @@ class BlackHoleRenderer:
         if timestamp_query is not None:
             timestamp_query.begin(self.device)
         if self.cache_deflection and scene.debug_mode == 0:
-            frame = self._render_cached(camera, scene)
+            frame = self._render_cached(camera, self._frame_plan(scene, staged=True))
         else:
-            frame = render_image(
-                camera, scene, config=self.config, fast_math=self.fast_math,
-                device=self.device, tonemap=self.tonemap, seed=self.skybox_seed,
-                disk_params=self.disk_params(scene), lut=self._lut, **self.shade_kwargs(),
-                **self.neural_kwargs(),
-            )
+            frame = unpack_frame(self._frame_plan(scene).render(camera))
         if timestamp_query is not None:
             timestamp_query.end()
         self.camera = camera
@@ -556,22 +620,16 @@ class BlackHoleRenderer:
                 scene.max_steps, scene.screen_width, scene.screen_height, self.config,
                 self.fast_math)
 
-    def _render_cached(self, camera: Camera, scene: SceneParams) -> torch.Tensor:
+    def _render_cached(self, camera: Camera, plan: _FramePlan) -> torch.Tensor:
         """Trace once per camera and scene geometry, shade every frame
-        (bhr_tpu/renderer.py:805-850; the reference roadmap's Phase 4-4).
-        The frame always takes the staged path, so cached and uncached
-        staged frames are the same: on the card one trace_planes (or
-        neural_mlp direction-plane) launch when the key changes, then none
-        until it changes again."""
-        key = self._static_key(camera, scene)
+        (bhr_tpu/renderer.py:805-850; the reference roadmap's Phase 4-4) by
+        the staged `plan`: on the card one trace launch when the key
+        changes, then none until it changes again."""
+        key = self._static_key(camera, plan.scene)
         if key != self._deflection_key:
-            self._deflection_result = trace_frame(
-                camera, scene, config=self.config, fast_math=self.fast_math, device=self.device,
-                textured=self.skybox is not None, **self.neural_kwargs())
+            self._deflection_result = plan.trace(camera)
             self._deflection_key = key
-        return shade_image(self._deflection_result, camera, scene, self.disk_params(scene),
-                           self._lut, tonemap=self.tonemap, seed=self.skybox_seed,
-                           **self.shade_kwargs())
+        return unpack_frame(plan.shade(self._deflection_result, camera))
 
     def render_frame_multires(self, camera: Camera | None = None,
                               scene: SceneParams | None = None, *, divisor: int = 3,
@@ -584,24 +642,19 @@ class BlackHoleRenderer:
         masked. A disk interpolates the hit positions the same way; debug
         views are refused. Extra keywords (edge_fix, edge_threshold,
         texture_subsample) go to render_multires."""
+        if int(divisor) < 1:
+            raise ValueError("multires divisor must be >= 1")
         if self.config.integrator == "neural":
             raise ValueError("multires is not supported with integrator='neural'")
         if self.config.model == "custom":
             raise ValueError("custom physics has no multires mode: use render_frame")
         camera = camera if camera is not None else self.camera
-        scene = self.frame_scene(scene)
-        frame = render_multires(camera, scene, **{**self.multires_kwargs(scene, divisor), **kw})
+        plan = self._frame_plan(scene, divisor=divisor)
+        frame = unpack_frame(plan.render(camera, **kw))
         self.camera = camera
-        self.scene = scene
+        self.scene = plan.scene
         self._last_frame = frame
         return frame
-
-    def multires_kwargs(self, scene: SceneParams, divisor: int) -> dict:
-        """render_multires's arguments for this renderer."""
-        return dict(skybox=self.skybox, disk_params=self.disk_params(scene), config=self.config,
-                    device=self.device, divisor=divisor, texture_filter=self.texture_filter,
-                    texture_subsample=self.texture_subsample, seed=self.skybox_seed,
-                    fast_math=self.fast_math)
 
     # -- readback & I/O (lib.rs:613-702) ------------------------------------
 

@@ -805,8 +805,9 @@ def main() -> None:
         plain epilogue."""
         if res is None:
             res = plain_trace(cam, scene, config, fast, rows)
-        frame = shade_image_reference(res, cam, scene, renderer.disk_params(scene),
-                                      renderer._lut, tonemap=tonemap, seed=renderer.skybox_seed)
+        plan = renderer._frame_plan(scene, staged=True)
+        frame = shade_image_reference(res, cam, scene, plan.disk_params, plan.lut,
+                                      tonemap=tonemap, seed=plan.seed)
         return frame, res
 
     def band(x, rows):
@@ -910,9 +911,7 @@ def main() -> None:
                     for tonemap in ("passthrough", "srgb"):
                         r = bt.BlackHoleRenderer(sw, sh, integ, model=model, adaptive=adaptive,
                                                  fast_math=fast, tonemap=tonemap, device="cuda")
-                        mono = tk.monolithic_eligible(r.config, scene, fast_math=fast,
-                                                      skybox=None, disk_params=None,
-                                                      tonemap=tonemap)
+                        mono = r._frame_plan(scene).route == "mono"
                         reset()
                         frame = r.render_frame(side, scene)
                         torch.cuda.synchronize()
@@ -1096,9 +1095,10 @@ def main() -> None:
             s = check_mono(side, full_scene, renderer.config, True, packed)
         else:
             s, k_res, _ = check_staged(side, full_scene, renderer.config, False, renderer, packed)
+            lut = renderer._frame_plan(full_scene).lut
             s["shade_kernel_ms"] = cuda_ms(
                 lambda: shade_image(k_res, side, full_scene, renderer.disk_params(full_scene),
-                                    renderer._lut, tonemap="passthrough", packed=True),
+                                    lut, tonemap="passthrough", packed=True),
                 1, REPEATS)
         bt.OrbitAnimator(renderer).render_frames(BASELINE_FRAMES, packed=True)  # warm-up
         reset()
@@ -1121,8 +1121,8 @@ def main() -> None:
     # and the host's issue of each
     r4 = bt.BlackHoleRenderer(W, H, device="cuda", **cfg4)
     res4 = tk.trace_image(side, full_scene, r4.config, device="cuda")
-    disk4 = r4.disk_params(full_scene)
-    shade_args = (res4, side, full_scene, disk4, r4._lut)
+    plan4 = r4._frame_plan(full_scene)
+    shade_args = (res4, side, full_scene, plan4.disk_params, plan4.lut)
     reset()
     kframe = shade_image(*shade_args, tonemap="passthrough", packed=True)
     torch.cuda.synchronize()
@@ -1650,8 +1650,7 @@ def main() -> None:
                 if all_counts() != (0, 1, 0, 0, 0, 0):
                     raise AssertionError(f"textured {r.config} frame launched {all_counts()}")
                 var.launched("trace_planes", fast, r.config.integrator, 1, r.config.model)
-                plain = shade_image(plain_res, side, scene, r.disk_params(scene), r._lut,
-                                    tonemap="passthrough", packed=True, **r.shade_kwargs())
+                plain = r._frame_plan(scene).shade(plain_res, side)
                 k_status = tk.trace_image(side, scene, r.config, fast_math=fast,
                                           device="cuda").status
                 st = compare(frame.view(torch.int32).view(sh, sw), plain, fast, k_status,
@@ -1694,8 +1693,8 @@ def main() -> None:
             if plain_res is None:
                 plain_res = records[tier]["plain_res"] = plain_trace(default_cam, full_scene,
                                                                      r.config, fast)
-            plain = shade_image(plain_res, default_cam, full_scene, None, None,
-                                tonemap="passthrough", packed=True, **r.shade_kwargs())
+            plan = r._frame_plan(full_scene)
+            plain = plan.shade(plain_res, default_cam)
             k_res = tk.trace_image(default_cam, full_scene, r.config, fast_math=fast,
                                    device="cuda", out=planes)
             st = compare(frame.view(torch.int32).view(H, W), plain, fast, k_res.status,
@@ -1704,8 +1703,7 @@ def main() -> None:
             trace_ms = cuda_ms(lambda: [tk.trace_image(default_cam, full_scene, r.config,
                                                        fast_math=fast, device="cuda", out=planes)
                                         for _ in range(3)], 3, REPEATS)
-            shade = lambda: shade_image(k_res, default_cam, full_scene, None, None,
-                                        tonemap="passthrough", packed=True, **r.shade_kwargs())
+            shade = lambda: plan.shade(k_res, default_cam)
             epilogue_ms = cuda_ms(lambda: [shade() for _ in range(3)], 3, REPEATS)
             stars_ms = cuda_ms(lambda: [shade_image_reference(k_res, default_cam, full_scene,
                                                               None, None, tonemap="passthrough")
@@ -1730,18 +1728,14 @@ def main() -> None:
             raise AssertionError(f"textured BASELINE 4 {tier} launched {all_counts()}")
         var.launched("trace_planes", fast, "rk4", 1)
         plain_res = plain_trace(side, full_scene, r.config, fast)
-        plain = shade_image(plain_res, side, full_scene, r.disk_params(full_scene), r._lut,
-                            tonemap="passthrough", packed=True, **r.shade_kwargs())
+        plain = r._frame_plan(full_scene).shade(plain_res, side)
         k_res = tk.trace_image(side, full_scene, r.config, fast_math=fast, device="cuda",
                                out=planes)
         st = compare(frame.view(torch.int32).view(H, W), plain, fast, k_res.status,
                      plain_res.status)
         var.err("trace_planes", fast, "rk4", st["max_abs_err"])
         st.update(shares(plain_res))
-        epilogue_ms = cuda_ms(
-            lambda: shade_image(k_res, side, full_scene, r.disk_params(full_scene), r._lut,
-                                tonemap="passthrough", packed=True, **r.shade_kwargs()),
-            1, REPEATS)
+        epilogue_ms = cuda_ms(lambda: r._frame_plan(full_scene).shade(k_res, side), 1, REPEATS)
         frame_ms = cuda_ms(lambda: r.render_frame(side, full_scene), 1, REPEATS)
         phase("textures_baseline4", f"{W}x{H}x{STEPS} rk4 adaptive disk {tier}, skybox 2048x4096 "
               f"bilinear: render_frame 1 trace_planes launch ({bar(fast)}): {json.dumps(st)}; "
@@ -1787,8 +1781,7 @@ def main() -> None:
     for k, t in enumerate(anim.frame_times(N_FRAMES)):
         cam = bt.orbit_camera(t)
         plain_res = plain_trace(cam, full_scene, want.config, True)
-        plain = shade_image(plain_res, cam, full_scene, None, None, tonemap="passthrough",
-                            packed=True, **want.shade_kwargs())
+        plain = want._frame_plan(full_scene).shade(plain_res, cam)
         k_status = tk.trace_image(cam, full_scene, want.config, fast_math=True, device="cuda",
                                   out=planes).status
         st = compare(frames[k], plain, True, k_status, plain_res.status)
@@ -1956,8 +1949,7 @@ def main() -> None:
             p = nk.neural_trace_dirs_reference(r.neural_params, cam, scene, precision=tier,
                                                device="cuda")
             st = dirs_compare(k, p, highest)
-            plain = shade_image(p, cam, scene, None, None, tonemap="passthrough", packed=True,
-                                **r.shade_kwargs())
+            plain = r._frame_plan(scene).shade(p, cam)
             fs = textured_neural_compare(frame.view(torch.int32).view(sh, sw), plain, highest)
             rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
             w = worst.setdefault(tier, {})
@@ -2009,15 +2001,13 @@ def main() -> None:
         torch.cuda.synchronize()
         plain_ms = t0.elapsed_time(t1)
         st = dirs_compare(k, p, highest)
-        plain = shade_image(p, cam, scene, None, None, tonemap="passthrough", packed=True,
-                            **r.shade_kwargs())
+        plan = r._frame_plan(scene)
+        plain = plan.shade(p, cam)
         fs = textured_neural_compare(frame.view(torch.int32).view(H, W), plain, highest)
         ms = cuda_ms(lambda: [nk.neural_trace_dirs(r.neural_params, cam, scene, precision=tier,
                                                    device="cuda", out=out) for _ in range(3)],
                      3, REPEATS)
-        epilogue_ms = cuda_ms(lambda: shade_image(k, cam, scene, None, None,
-                                                  tonemap="passthrough", packed=True,
-                                                  **r.shade_kwargs()), 1, REPEATS)
+        epilogue_ms = cuda_ms(lambda: plan.shade(k, cam), 1, REPEATS)
         frame_ms = cuda_ms(lambda: r.render_frame(cam, scene), 1, REPEATS)
         b, by = neural_bound(r.neural_params, model, highest, W * H, dirs=True)
         desc = (f"{NEURAL_ASSETS[key][1]} (hidden {r.neural_params.widths}), {tier}, spin {spin}, "
@@ -2052,12 +2042,12 @@ def main() -> None:
                                 ("BASELINE config 4", cfg4, side, False)):
         tier = "fast" if fast else "exact"
         r = bt.BlackHoleRenderer(W, H, fast_math=fast, device="cuda", **kw)
-        mono = tk.monolithic_eligible(r.config, full_scene, fast_math=fast, skybox=None,
-                                      disk_params=r.disk_params(full_scene), tonemap="passthrough")
+        plan = r._frame_plan(full_scene)
+        mono = plan.route == "mono"
         whole = r.render_frame(cam, full_scene)
         shard = lambda: pm.render_frame_sharded(
             cam, full_scene, None, band_mesh, config=r.config, fast_math=fast,
-            disk_params=r.disk_params(full_scene), lut=r._lut)
+            disk_params=plan.disk_params, lut=plan.lut)
         reset()
         frame = shard()
         torch.cuda.synchronize()

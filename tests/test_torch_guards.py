@@ -104,7 +104,7 @@ def test_no_fallback_in_the_cuda_path():
     for fn in (trace_kernel.render_packed, trace_kernel.trace_image, trace_kernel._set_disk_lut,
                neural_kernel.neural_render_packed, neural_kernel.neural_trace_dirs,
                neural_kernel._launch, neural_kernel.neural_render_packed_band, T.render_multires,
-               T.ops.multires.render_multires_band, mesh._render_band,
+               T.ops.multires.render_multires_band, T.renderer._FramePlan.render, mesh._Bands.render,
                mesh.render_frame_sharded, mesh.render_animation_sharded, build.build,
                build.load_render_mono, build.load_trace_planes, build.load_trace_planes_custom,
                build.load_neural_mlp):

@@ -351,9 +351,9 @@ def test_exact_kerr_disk_direction_at_the_oracles_hit_point(monkeypatch):
     assert not differs[~disk].any()
     assert int(disk.sum()) == 525 and int(differs.sum()) == 0, (disk.sum(), differs.sum())
     assert (at_y0 - res.final_vel).abs().max() < 3e-7
-    r = T.BlackHoleRenderer(W, H, device="cpu", model="kerr", disk=True)
+    plan = T.BlackHoleRenderer(W, H, device="cpu", model="kerr", disk=True)._frame_plan(ts)
     frames = [trenderer.shade_image(T.TraceResult(res.final_pos, v, res.status, res.steps), cam,
-                                    ts, r.disk_params(ts), r._lut, tonemap="passthrough")
+                                    ts, plan.disk_params, plan.lut, tonemap="passthrough")
               for v in (res.final_vel, at_y0)]
     assert int((frames[0] != frames[1]).any(-1).sum()) == 0
 

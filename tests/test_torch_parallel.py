@@ -249,9 +249,10 @@ def test_sharded_seed_and_routes_equal_the_whole_frame():
                       ({}, 1)):
         r = T.BlackHoleRenderer(32, 24, device="cpu", **kw)
         sc = scene.replace(debug_mode=debug)
+        plan = r._frame_plan(sc)
         got = tmesh.render_frame_sharded(cam, sc, None, mesh, config=r.config,
                                          fast_math=r.fast_math, tonemap=r.tonemap,
-                                         disk_params=r.disk_params(sc), lut=r._lut,
+                                         disk_params=plan.disk_params, lut=plan.lut,
                                          seed=r.skybox_seed)
         torch.testing.assert_close(got, r.render_frame(cam, sc), rtol=0, atol=0, msg=str(kw))
     tex = T.load_skybox(None, seed=7, shape=(64, 128))
@@ -339,8 +340,9 @@ def test_bands_on_gpu_equal_the_whole_frame():
     r = T.BlackHoleRenderer(160, 96, "rk4", adaptive=True, disk=True, device="cuda")
     whole = r.render_frame(cam, scene)
     launches = COUNTS["launch.trace_planes"]
+    plan = r._frame_plan(scene)
     got = tmesh.render_frame_sharded(cam, scene, None, mesh, config=r.config,
-                                     disk_params=r.disk_params(scene), lut=r._lut)
+                                     disk_params=plan.disk_params, lut=plan.lut)
     torch.cuda.synchronize()
     assert COUNTS["launch.trace_planes"] == launches + 4
     torch.testing.assert_close(got, whole, rtol=0, atol=0)

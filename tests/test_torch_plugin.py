@@ -300,5 +300,6 @@ def test_custom_kernel_matches_plain_version_on_gpu(integrator, fast):
     r = T.BlackHoleRenderer(160, 96, integrator, custom_physics=str(PW_PLUGIN), adaptive=True,
                             disk=True, fast_math=fast, device="cuda")
     frame = r.render_frame(cam, scene)
-    torch.testing.assert_close(frame, T.shade_image(got, cam, scene, r.disk_params(scene), r._lut,
+    plan = r._frame_plan(scene)
+    torch.testing.assert_close(frame, T.shade_image(got, cam, scene, plan.disk_params, plan.lut,
                                                     tonemap="passthrough"), rtol=0, atol=0)

@@ -216,7 +216,8 @@ def test_config4_orbit_frames_match_the_plain_epilogue(frame, seed, fast):
     cam, scene = _orbit_camera(r, frame), r.frame_scene()
     res = trace_kernel.trace_image(cam, scene, r.config, fast_math=fast, device="cuda")
     out = torch.empty((1080, 1920), dtype=torch.int32, device="cuda") if frame == 419 else None
-    _both(res, cam, scene, r.disk_params(scene), r._lut, seed, out=out)
+    plan = r._frame_plan(scene, staged=True)  # the fast tier's frame is monolithic
+    _both(res, cam, scene, plan.disk_params, plan.lut, seed, out=out)
 
 
 @pytest.mark.gpu
@@ -228,7 +229,8 @@ def test_an_exact_kerr_disk_frame_matches_the_plain_epilogue():
     cam = T.Camera.new(*SIDE)
     res = trace_kernel.trace_image(cam, scene, r.config, device="cuda")
     assert bool((res.status == 3).any())
-    _both(res, cam, scene, r.disk_params(scene), r._lut, 2020)
+    plan = r._frame_plan(scene)
+    _both(res, cam, scene, plan.disk_params, plan.lut, 2020)
 
 
 @pytest.mark.gpu
@@ -254,9 +256,10 @@ def test_a_band_matches_the_plain_epilogue_and_the_frame():
     scene, cam = r.frame_scene(), T.Camera.new(*SIDE)
     band = trace_kernel.trace_image(cam, scene, r.config, device="cuda", row0=100,
                                     local_shape=(70, 480))
-    got = _both(band, cam, scene, r.disk_params(scene), r._lut, 2020)
+    plan = r._frame_plan(scene)
+    got = _both(band, cam, scene, plan.disk_params, plan.lut, 2020)
     whole = T.renderer.render_image(cam, scene, config=r.config, fast_math=False,
-                                    device="cuda", disk_params=r.disk_params(scene), lut=r._lut,
+                                    device="cuda", disk_params=plan.disk_params, lut=plan.lut,
                                     packed=True)
     assert torch.equal(got, whole[100:170])
 
@@ -272,8 +275,9 @@ def test_a_cache_deflection_reshade_matches_the_plain_epilogue():
     frame = r.render_frame(cam)  # the same geometry: shaded again, not traced
     torch.cuda.synchronize()
     assert (COUNTS["launch.trace_planes"], COUNTS[KERNEL]) == (traces, launches + 1)
-    want = shade_image_reference(r._deflection_result, cam, r.scene, r.disk_params(r.scene),
-                                 r._lut, tonemap="passthrough", seed=r.skybox_seed)
+    plan = r._frame_plan()
+    want = shade_image_reference(r._deflection_result, cam, r.scene, plan.disk_params, plan.lut,
+                                 tonemap="passthrough", seed=r.skybox_seed)
     assert int((frame.view(torch.int32).view(270, 480) != want).sum()) == 0
 
 
@@ -284,7 +288,8 @@ def test_strided_planes_or_out_take_the_plain_epilogue(strided):
     r = T.BlackHoleRenderer(480, 270, "rk4", adaptive=True, disk=True, device="cuda")
     scene, cam = r.frame_scene(), T.Camera.new(*SIDE)
     res = trace_kernel.trace_image(cam, scene, r.config, device="cuda")
-    want = shade_image_reference(res, cam, scene, r.disk_params(scene), r._lut,
+    plan = r._frame_plan(scene)
+    want = shade_image_reference(res, cam, scene, plan.disk_params, plan.lut,
                                  tonemap="passthrough", seed=2020)
     out = None
     if strided == "planes":
@@ -293,7 +298,7 @@ def test_strided_planes_or_out_take_the_plain_epilogue(strided):
     else:
         out = torch.empty((480, 270), dtype=torch.int32, device="cuda").t()
     before = (COUNTS[KERNEL], COUNTS[PLAIN])
-    got = shade_image(res, cam, scene, r.disk_params(scene), r._lut, tonemap="passthrough",
+    got = shade_image(res, cam, scene, plan.disk_params, plan.lut, tonemap="passthrough",
                       seed=2020, packed=True, out=out)
     torch.cuda.synchronize()
     assert (COUNTS[KERNEL], COUNTS[PLAIN]) == (before[0], before[1] + 1)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import bhr_tpu_torch as T
+from bhr_tpu.io import native as jnative
 from bhr_tpu.io import skybox as jsky
 from bhr_tpu.ops.sampling import luma_pack_texture as j_luma_pack
 from bhr_tpu.ops.sampling import pack_texture_rgba8 as j_pack
@@ -23,6 +24,18 @@ from bhr_tpu_torch.io import skybox as tsky
 from bhr_tpu_torch.ops.sampling import luma_pack_texture, pack_texture_rgba8
 
 LINES = {"none": (0, 1), "zips": (2, 1), "zip": (3, 16)}  # scheme: (enum, lines per block)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def native_built():
+    """native/libbhr_native.so built before the tests, through the port's
+    loader (one build at a time, renamed into place when whole). bhr_tpu's
+    loader remembers its first answer for the life of the process; where
+    that was a failure from before the library was whole, it is asked
+    once more."""
+    if tnative.available() and jnative._load() is None:
+        jnative._tried = False
+        jnative._load()
 
 
 def write_exr_scanline(path, hdr, scheme):
@@ -210,6 +223,18 @@ def test_piz_skybox_loads_and_renders(tmp_path):
     np.testing.assert_array_equal(T.load_skybox(p), jsky.load_skybox(p))
     r = T.BlackHoleRenderer(16, 8, skybox=p, device="cpu")
     assert r.render_frame().shape == (8, 16, 4)
+
+
+def test_a_built_library_opens_without_the_build_lock(monkeypatch):
+    """The port's loader opens a library that is already whole without
+    taking native/.build.lock, so a read-only checkout with a built library
+    loads it and no load waits for a build it does not need."""
+    assert tnative.available()  # built by the module fixture
+
+    def no_lock(*a):
+        raise AssertionError("took the build lock for a library that opens")
+    monkeypatch.setattr(tnative.fcntl, "flock", no_lock)
+    assert hasattr(tnative._build_and_open(), "bhr_write_png")
 
 
 def test_native_zip_matches_python_reader(tmp_path):

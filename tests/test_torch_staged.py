@@ -189,7 +189,9 @@ def test_renderer_options():
     r = T.BlackHoleRenderer.new(16, 8, "src/ray_tracer_rk4.wgsl", device="cpu", adaptive=True,
                                 disk=True, dt=0.05, tonemap="reinhard")
     assert r.config == T.TraceConfig(integrator="rk4", adaptive=True, disk=True, dt=0.05)
-    assert r.disk_params(r.scene).r_isco.item() == 6.0 and r._lut.shape == (512, 3)
+    plan = r._frame_plan()
+    assert plan.route == "planes" and plan.disk_params.r_isco.item() == 6.0
+    assert plan.lut.shape == (512, 3)
     assert T.BlackHoleRenderer(8, 8, "leapfrog", device="cpu", model="flat").config.model == "flat"
     assert T.BlackHoleRenderer(8, 8, device="cpu").disk_params(T.SceneParams()) is None
     with pytest.raises(ValueError, match="tonemap"):
@@ -253,12 +255,12 @@ def test_render_mono_variants_match_plain_version_on_gpu(kw, fast):
     scene = T.SceneParams(screen_width=160, screen_height=96, max_steps=200)
     cam = T.Camera.new(*DISK)
     if cfg.disk and not fast:
-        r = T.BlackHoleRenderer(160, 96, device="cuda", **kw)
+        plan = T.BlackHoleRenderer(160, 96, device="cuda", **kw)._frame_plan(scene)
         got = T.render_image(cam, scene, config=cfg, fast_math=False, device="cuda", packed=True,
-                             disk_params=r.disk_params(scene), lut=r._lut)
+                             disk_params=plan.disk_params, lut=plan.lut)
         want = trenderer.shade_image(
             trace_kernel.trace_image_reference(cam, scene, cfg, device="cuda"), cam, scene,
-            r.disk_params(scene), r._lut, tonemap="passthrough", packed=True)
+            plan.disk_params, plan.lut, tonemap="passthrough", packed=True)
     else:
         got = trace_kernel.render_packed(cam, scene, cfg, fast_math=fast, device="cuda")
         want = trace_kernel.render_packed_reference(cam, scene, cfg, fast_math=fast,
@@ -269,3 +271,147 @@ def test_render_mono_variants_match_plain_version_on_gpu(kw, fast):
         assert (d <= 1).float().mean().item() >= 0.995
     else:
         assert (got == want).float().mean().item() >= 0.999
+
+
+# ---- one route for every entry point -----------------------------------------
+
+SKY = T.load_skybox(None, 7, (64, 128))
+KERNELS = ("render_packed", "trace_image", "neural_render_packed", "neural_trace_dirs",
+           "neural_trace_image", "render_multires", "render_multires_band")
+# (id, renderer kwargs, the route, the kernel wrapper it calls, a caller's disk on a no-disk config)
+ONE_ROUTE = [
+    ("mono-fast", dict(fast_math=True), "mono", "render_packed", False),
+    ("staged-exact-disk", dict(integrator="rk4", adaptive=True, disk=True), "planes",
+     "trace_image", False),
+    ("textured", dict(skybox=SKY), "planes", "trace_image", False),
+    ("neural-kernel", dict(integrator="neural"), "neural", "neural_render_packed", False),
+    ("neural-textured", dict(integrator="neural", skybox=SKY), "dirs", "neural_trace_dirs",
+     False),
+    ("neural-high", dict(integrator="neural", neural_precision="high"), "neural_staged",
+     "neural_trace_image", False),
+    ("multires", dict(multires=2), "multires", "render_multires", False),
+    ("caller-disk", dict(fast_math=True), "planes", "trace_image", True),
+]
+
+
+def _kernel_spy(monkeypatch):
+    calls = dict.fromkeys(KERNELS, 0)
+
+    def wrap(name, fn):
+        def inner(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return inner
+
+    for name in KERNELS:
+        monkeypatch.setattr(trenderer, name, wrap(name, getattr(trenderer, name)))
+
+    def since(before):
+        return {k: calls[k] - before[k] for k in calls if calls[k] != before[k]}
+    return calls, since
+
+
+@pytest.mark.parametrize("kw,route,kernel,caller_disk", [c[1:] for c in ONE_ROUTE],
+                         ids=[c[0] for c in ONE_ROUTE])
+def test_one_route_for_the_animation_the_frame_render_image_and_the_mesh(
+        kw, route, kernel, caller_disk, monkeypatch):
+    """renderer.frame_route decides the route; PathAnimator.render_frames,
+    render_frame (render_frame_multires at the animation's divisor),
+    render_image and a one-band mesh each launch that route's kernel once
+    a frame, and their frames are equal."""
+    from bhr_tpu_torch.models.disk import DiskParams
+    from bhr_tpu_torch.parallel import mesh as pm
+
+    calls, since = _kernel_spy(monkeypatch)
+    r = T.BlackHoleRenderer(24, 16, device="cpu", **kw)
+    scene = r.frame_scene(T.SceneParams(max_steps=60))
+    anim = T.OrbitAnimator(r)
+    cam = anim.camera_fn(anim.frame_times(1, fps=10.0, start_frame=3)[0])
+    plan = r._frame_plan(scene, divisor=r.multires)
+    disk = DiskParams.for_scene(scene.schwarzschild_radius) if caller_disk else plan.disk_params
+    assert plan.route == ("mono" if caller_disk else route)
+    frames = {}
+    if not caller_disk:
+        before = dict(calls)
+        frames["animation"] = anim.render_frames(1, fps=10.0, start_frame=3, scene=scene,
+                                                 packed=True)[0]
+        assert since(before) == {kernel: 1}
+        before = dict(calls)
+        one = (r.render_frame_multires(cam, scene, divisor=r.multires) if r.multires
+               else r.render_frame(cam, scene))
+        frames["render_frame"] = one.view(torch.int32).view(16, 24)
+        assert since(before) == {kernel: 1}
+    if not r.multires:
+        before = dict(calls)
+        frames["render_image"] = T.render_image(
+            cam, scene, config=r.config, fast_math=r.fast_math, device="cpu", tonemap=r.tonemap,
+            seed=r.skybox_seed, packed=True, skybox=r.skybox, disk_params=disk, lut=plan.lut,
+            texture_filter=r.texture_filter, texture_subsample=r.texture_subsample,
+            neural_params=r.neural_params, neural_dtype=r.neural_dtype,
+            neural_precision=r.neural_precision)
+        assert since(before) == {kernel: 1}
+    before = dict(calls)
+    sharded = pm.render_frame_sharded(
+        cam, scene, r.skybox, pm.make_mesh(devices=["cpu"]), config=r.config,
+        disk_params=disk, lut=plan.lut, fast_math=r.fast_math, tonemap=r.tonemap,
+        seed=r.skybox_seed, neural_params=r.neural_params, neural_precision=r.neural_precision,
+        multires=r.multires)
+    frames["mesh"] = sharded.view(torch.int32).view(16, 24)
+    # a band of a multires frame is ops/multires' band of its rows
+    assert since(before) == {"render_multires_band" if r.multires else kernel: 1}
+    first = next(iter(frames.values()))
+    for name, frame in frames.items():
+        torch.testing.assert_close(frame, first, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "exact"])
+def test_a_monolithic_disk_animation_builds_no_disk_params(fast, monkeypatch):
+    """The fast disk frame shades its disk in-kernel: its animation builds
+    no DiskParams. The exact one is staged and builds them once a call."""
+    from bhr_tpu_torch.models.disk import DiskParams
+
+    built = []
+    for_scene = DiskParams.for_scene
+    monkeypatch.setattr(DiskParams, "for_scene", lambda rs: built.append(rs) or for_scene(rs))
+    r = T.BlackHoleRenderer(24, 16, "rk4", adaptive=True, disk=True, fast_math=fast,
+                            device="cpu")
+    calls, since = _kernel_spy(monkeypatch)
+    T.OrbitAnimator(r).render_frames(2, scene=T.SceneParams(max_steps=60), packed=True)
+    assert since(dict.fromkeys(KERNELS, 0)) == {"render_packed" if fast else "trace_image": 2}
+    assert len(built) == (0 if fast else 1)
+
+
+def test_a_plan_decides_its_route_once_and_keeps_it():
+    """The plan's route comes from its own inputs alone: no caller passes
+    one, and nothing in the plan changes after it is decided. A monolithic
+    disk frame's plan holds no disk parameters; a staged one's does."""
+    import dataclasses
+
+    fast = T.BlackHoleRenderer(24, 16, "rk4", disk=True, fast_math=True, device="cpu")
+    exact = T.BlackHoleRenderer(24, 16, "rk4", disk=True, device="cpu")
+    mono, staged = fast._frame_plan(), exact._frame_plan()
+    assert (mono.route, mono.disk_params, mono.planes) == ("mono", None, None)
+    assert staged.route == "planes" and staged.disk_params is not None
+    assert exact._frame_setup().planes is not None and staged.planes is None
+    with pytest.raises(TypeError):
+        trenderer._FramePlan(mono.scene, mono.config, True, mono.device, route="planes")
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        mono.route = "planes"
+
+
+def test_multires_keywords_go_to_the_multires_route_only():
+    """render_frame_multires's keywords reach ops/multires; any other route
+    refuses them instead of dropping them, and a divisor below 1 is refused."""
+    r = T.BlackHoleRenderer(24, 16, device="cpu")
+    scene = T.SceneParams(max_steps=40)
+    cam = T.Camera.default()
+    with pytest.raises(TypeError, match="edge_fix"):
+        r._frame_plan(scene).render(cam, edge_fix=False)
+    with pytest.raises(ValueError, match="divisor"):
+        r.render_frame_multires(cam, scene, divisor=0, edge_fix=False)
+    fixed = r.render_frame_multires(cam, scene, divisor=2)
+    want = T.render_multires(cam, r.frame_scene(scene), config=r.config, device="cpu",
+                             divisor=2, fast_math=False, edge_fix=False)
+    torch.testing.assert_close(r.render_frame_multires(cam, scene, divisor=2, edge_fix=False),
+                               want, rtol=0, atol=0)
+    assert (fixed != want).any()  # the keyword took effect

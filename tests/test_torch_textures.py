@@ -31,6 +31,7 @@ from bhr_tpu_torch import renderer as trenderer
 from bhr_tpu_torch.models import neural as tn
 from bhr_tpu_torch.models import neural_kerr as tnk
 from bhr_tpu_torch.ops import neural_kernel, trace_kernel
+from bhr_tpu_torch.ops.sampling import unpack_frame
 from bhr_tpu_torch.ops.trace import STATUS_CAPTURED, STATUS_ESCAPED
 from bhr_tpu_torch.utils.tracing import COUNTS
 
@@ -359,6 +360,5 @@ def test_textured_frame_on_gpu_matches_all_plain_frame(tier, small_skybox):
     torch.cuda.synchronize()
     assert (COUNTS["launch.trace_planes"], COUNTS["launch.render_mono"]) == (n[0] + 1, n[1])
     res = trace_kernel.trace_image_reference(cam, scene, r.config, device="cuda")
-    want = T.shade_image(res, cam, scene, r.disk_params(scene), r._lut, tonemap="passthrough",
-                         **r.shade_kwargs())
+    want = unpack_frame(r._frame_plan(scene).shade(res, cam))
     assert (got == want).all(-1).float().mean().item() >= 0.999

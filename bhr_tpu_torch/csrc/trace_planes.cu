@@ -7,9 +7,11 @@
 // leapfrog integrators, fixed or adaptive dt, the Schwarzschild, exact
 // Kerr (Kerr-Schild, K6), Lense-Thirring Kerr (K7) or flat metric, with or
 // without the accretion disk, in both math tiers (the Kerr-Schild loop a
-// template parameter: 12 instantiations, and 2 more of Euler with the
-// flags fixed at 0, which a frame with no flag set launches, as
-// render_mono.cu describes). One
+// template parameter: 12 instantiations, 2 more of Euler with the flags
+// fixed at 0, which a frame with no flag set launches, as render_mono.cu
+// describes, and 1 of the exact tier's rk4 with the flags fixed at
+// adaptive | disk, which BASELINE config 4's exact frame launches: 15).
+// One
 // thread traces one pixel (trace_ray.cuh) and writes its TraceResult:
 // final position and unit direction as fp32 (H, W, 3), status and step
 // count as int32 (H, W). On a TPU tile the step count cost a scratch plane
@@ -92,6 +94,10 @@ __global__ void __launch_bounds__(256)
   steps[i] = ray.steps;
 }
 
+// The flags of BASELINE config 4's exact frame (rk4, adaptive dt, the
+// disk), whose launch has an instantiation of its own.
+constexpr int kExactRk4Disk = kFlagAdaptive | kFlagDisk;
+
 template <bool FAST, bool KS>
 void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params& params,
             int flags, int height, int width, int max_steps, const float* mask, float* pos,
@@ -107,8 +113,13 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
       }
       break;
     case kRk4:
-      trace_planes_kernel<FAST, kRk4, KS><<<grid, block, 0, s>>>(
-          params, flags, height, width, max_steps, mask, pos, vel, status, steps);
+      if (!FAST && !KS && flags == kExactRk4Disk) {  // config 4's exact frame
+        trace_planes_kernel<false, kRk4, false, kExactRk4Disk><<<grid, block, 0, s>>>(
+            params, flags, height, width, max_steps, mask, pos, vel, status, steps);
+      } else {
+        trace_planes_kernel<FAST, kRk4, KS><<<grid, block, 0, s>>>(
+            params, flags, height, width, max_steps, mask, pos, vel, status, steps);
+      }
       break;
     default:
       trace_planes_kernel<FAST, kLeapfrog, KS><<<grid, block, 0, s>>>(
@@ -129,7 +140,9 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
 // success); does not synchronise. `integrator` is an Integrator and `flags`
 // a TraceFlags mask of trace_ray.cuh (at most one of flat, kerr_lt and
 // Kerr-Schild). An Euler launch with no flag set runs the instantiation
-// whose flags are fixed at 0 at compile time.
+// whose flags are fixed at 0 at compile time, and an exact rk4 launch with
+// exactly kFlagAdaptive | kFlagDisk the one fixed at those (strided and
+// masked launches alike).
 extern "C" int bhr_trace_planes(bhr::Params params, int fast, int integrator, int flags,
                                 int height, int width, int max_steps, int device,
                                 const void* mask, void* pos, void* vel, void* status,

@@ -14,8 +14,11 @@
 //    oracle's operation order (bhr_tpu/ops/geodesic.py euler_step, rk4_step,
 //    leapfrog_step, adaptive_dt; models/schwarzschild.py:acceleration;
 //    models/disk.py:intersect_equatorial), termination on the sqrt'd radius;
-//    the quotients by a shared denominator (rel / r, rs / r, v / |v|) take
-//    one reciprocal and give __fdiv_rn's bits (common.cuh div_shared);
+//    each acceleration's root and quotients (r, rel / r, rs / r, the
+//    factor) and each renormalisation's (|v|, v / |v|) are one group: the
+//    common paths of __fsqrt_rn and __fdiv_rn, a reciprocal a denominator,
+//    and one guard a group that sends the rare group outside their window
+//    to the intrinsics (common.cuh), so every value has their bits;
 //  * fast (FAST = true): the folded forms of pallas_trace.py
 //    (physics_substep :793-834, sl_deriv :469-497, sl_rk4 :499-530,
 //    sl_leapfrog :532-546) with rsqrt and an approximate reciprocal,
@@ -115,17 +118,25 @@ struct Ray {
 
 template <bool FAST>
 __device__ __forceinline__ Vec3 vnorm(Vec3 v) {
-  using A = Arith<FAST>;
   if constexpr (FAST) {
     const float s = rsqrt_approx(dot<true>(v, v));
     return {v.x * s, v.y * s, v.z * s};
   } else {
-    // three quotients by one |v|: one reciprocal (common.cuh div_shared)
-    const float s = A::sqrt(dot<false>(v, v));
-    const float num[3] = {v.x, v.y, v.z};
-    float q[3];
-    div_shared(num, s, q);
-    return {q[0], q[1], q[2]};
+    // |v| and three quotients by it as one group behind one guard
+    // (common.cuh): the root's common path, one reciprocal of |v|; the rare
+    // vector the guard turns away takes __fsqrt_rn and __fdiv_rn
+    const float x = dot<false>(v, v);
+    float s = sqrt_rn_seq(x);
+    const float y = rcp_rn_shared(s);
+    Vec3 q = {div_by_rcp(v.x, s, y), div_by_rcp(v.y, s, y), div_by_rcp(v.z, s, y)};
+    if (quotient_group_outside(magnitude_window(x) | magnitude_window(s) |
+                                   magnitude_window(v.x) | magnitude_window(v.y) |
+                                   magnitude_window(v.z),
+                               s)) {
+      s = __fsqrt_rn(x);
+      q = {__fdiv_rn(v.x, s), __fdiv_rn(v.y, s), __fdiv_rn(v.z, s)};
+    }
+    return q;
   }
 }
 
@@ -139,35 +150,98 @@ __device__ __forceinline__ Vec3 axpy(Vec3 a, Vec3 b, float s) {
 
 // ---- exact tier -------------------------------------------------------------
 
+// geodesic.py _radius_guard: 1.0001 * max(rs, 1e-6)
+__device__ __forceinline__ float radius_guard(float rs) {
+  return __fmul_rn(static_cast<float>(1.0001), fmaxf(rs, static_cast<float>(1e-6)));
+}
+
 #ifdef BHR_CUSTOM_ACCEL
 constexpr bool kCustomAccel = true;
 
-// ops/trace.py:custom_accel_arrays: the plugin's acceleration at radius r,
+// What the plugin's accelerations at one point share: the point and its
+// radius r, given or (accel_point_at) the guarded max(|rel|, guard).
+struct AccelPoint {
+  Vec3 rel;
+  float r;
+};
+
+__device__ __forceinline__ AccelPoint accel_point(Vec3 rel, float r, const Phys&) {
+  return {rel, r};
+}
+
+__device__ __forceinline__ AccelPoint accel_point_at(Vec3 rel, float guard, const Phys&) {
+  return {rel, fmaxf(__fsqrt_rn(dot<false>(rel, rel)), guard)};
+}
+
+// ops/trace.py:custom_accel_arrays: the plugin's acceleration at the point,
 // with r2 = r * r
-__device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, const Phys& ph) {
-  return plugin_acceleration(rel, vel, r, __fmul_rn(r, r), ph.rs, ph.spin);
+__device__ __forceinline__ Vec3 accel_exact(const AccelPoint& at, Vec3 vel, const Phys& ph) {
+  return plugin_acceleration(at.rel, vel, at.r, __fmul_rn(at.r, at.r), ph.rs, ph.spin);
 }
 #else
 constexpr bool kCustomAccel = false;
 
-// models/schwarzschild.py:acceleration in its literal order; zero for flat.
-// For kerr_lt, plus models/kerr.py's drag in its literal order:
-// B_g = (j / (r r r)) (3 jdotr r_hat - J_hat), j = (a* M) M, jdotr =
-// r_hat.y (the oracle's sum adds two zeros to it), a = a_schw + v x B_g.
-__device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, const Phys& ph) {
+// What models/schwarzschild.py:acceleration takes at a point rel, whatever
+// the velocity: r, rel / r, rs / r and factor = rs / (2 r r (1 - rs / r)).
+// Accelerations at one point share them.
+struct AccelPoint {
+  float r;
+  Vec3 r_vec;  // rel / r
+  float rs_over_r, one_m;
+  float den;     // 2 r r one_m
+  float factor;  // rs / den
+};
+
+// The radius given (ROOT false: x is r) or taken from x = |rel|^2 (ROOT
+// true: r = max(sqrt(x), guard), geodesic.py's guarded radius), then the
+// quotients, as one group behind one guard (common.cuh): the root's common
+// path, one reciprocal of r for rel / r and rs / r, one of the factor's
+// denominator, each quotient from its reciprocal. The rare point the guard
+// turns away (an operand outside the window, e.g. a zero component of rel
+// on a coordinate plane, or a denominator's all-ones mantissa) takes the
+// group again by __fsqrt_rn and __fdiv_rn, in the same order, so every
+// value is the oracle's.
+template <bool ROOT>
+__device__ __forceinline__ AccelPoint accel_quotients(Vec3 rel, float x, float guard, float rs) {
   using A = Arith<false>;
-  if (ph.flat) return {0.0f, 0.0f, 0.0f};
+  const auto group = [&](auto root, auto rcp, auto quot) {
+    AccelPoint g;
+    g.r = ROOT ? fmaxf(root(x), guard) : x;
+    const float y = rcp(g.r);
+    g.r_vec = {quot(rel.x, g.r, y), quot(rel.y, g.r, y), quot(rel.z, g.r, y)};
+    g.rs_over_r = quot(rs, g.r, y);
+    g.one_m = A::sub(1.0f, g.rs_over_r);
+    g.den = A::mul(A::mul(A::mul(2.0f, g.r), g.r), g.one_m);
+    g.factor = quot(rs, g.den, rcp(g.den));
+    return g;
+  };
+  AccelPoint g = group([](float v) { return sqrt_rn_seq(v); },
+                       [](float b) { return rcp_rn_shared(b); },
+                       [](float a, float b, float y) { return div_by_rcp(a, b, y); });
+  uint32_t window = magnitude_window(g.r) | magnitude_window(g.den) | magnitude_window(rel.x) |
+                    magnitude_window(rel.y) | magnitude_window(rel.z) | magnitude_window(rs);
+  if (ROOT) window |= magnitude_window(x);
+  if (quotient_group_outside(window, g.r, g.den)) {
+    g = group([](float v) { return __fsqrt_rn(v); }, [](float) { return 0.0f; },
+              [](float a, float b, float) { return __fdiv_rn(a, b); });
+  }
+  return g;
+}
+
+// models/schwarzschild.py:acceleration in its literal order from its
+// quotients. For kerr_lt, plus models/kerr.py's drag in its
+// literal order: B_g = (j / (r r r)) (3 jdotr r_hat - J_hat), j = (a* M) M,
+// jdotr = r_hat.y (the oracle's sum adds two zeros to it), a = a_schw + v x
+// B_g.
+__device__ __forceinline__ Vec3 accel_from(Vec3 vel, const AccelPoint& g, const Phys& ph) {
+  using A = Arith<false>;
   const float rs = ph.rs;
-  // rel / r and rs / r: four quotients by one r (common.cuh div_shared)
-  const float num[4] = {rel.x, rel.y, rel.z, rs};
-  float q[4];
-  div_shared(num, r, q);
-  const Vec3 r_vec = {q[0], q[1], q[2]};
+  const float r = g.r;
+  const Vec3 r_vec = g.r_vec;
   const float v_rad = dot<false>(vel, r_vec);
-  const float rs_over_r = q[3];
-  const float one_m = A::sub(1.0f, rs_over_r);
-  const float factor = A::div(rs, A::mul(A::mul(A::mul(2.0f, r), r), one_m));
-  const float one_p = A::add(1.0f, rs_over_r);
+  const float one_m = g.one_m;
+  const float factor = g.factor;
+  const float one_p = A::add(1.0f, g.rs_over_r);
   const float nf = -factor;
   Vec3 acc = {
       A::mul(nf, A::sub(A::mul(vel.x, one_m), A::mul(A::mul(r_vec.x, v_rad), one_p))),
@@ -186,16 +260,22 @@ __device__ __forceinline__ Vec3 accel_exact(Vec3 rel, Vec3 vel, float r, const P
   }
   return acc;
 }
+
+// The point rel, whose radius is r.
+__device__ __forceinline__ AccelPoint accel_point(Vec3 rel, float r, const Phys& ph) {
+  return accel_quotients<false>(rel, r, 0.0f, ph.rs);
+}
+
+// The point rel, whose radius max(|rel|, guard) its group takes.
+__device__ __forceinline__ AccelPoint accel_point_at(Vec3 rel, float guard, const Phys& ph) {
+  return accel_quotients<true>(rel, dot<false>(rel, rel), guard, ph.rs);
+}
+
+// The acceleration at a point with velocity vel.
+__device__ __forceinline__ Vec3 accel_exact(const AccelPoint& at, Vec3 vel, const Phys& ph) {
+  return accel_from(vel, at, ph);
+}
 #endif
-
-// geodesic.py _radius_guard: 1.0001 * max(rs, 1e-6)
-__device__ __forceinline__ float radius_guard(float rs) {
-  return __fmul_rn(static_cast<float>(1.0001), fmaxf(rs, static_cast<float>(1e-6)));
-}
-
-__device__ __forceinline__ float guarded_radius(Vec3 p, float guard) {
-  return fmaxf(__fsqrt_rn(dot<false>(p, p)), guard);
-}
 
 // k1 + 2 k2 + 2 k3 + k4, summed left to right as the oracle writes it
 __device__ __forceinline__ Vec3 rk4_sum(Vec3 k1, Vec3 k2, Vec3 k3, Vec3 k4) {
@@ -207,42 +287,58 @@ __device__ __forceinline__ Vec3 rk4_sum(Vec3 k1, Vec3 k2, Vec3 k3, Vec3 k4) {
   };
 }
 
-// One step of the oracle: new position and (not yet unit) velocity.
-template <int INTEG>
+// One step of the oracle: new position and (not yet unit) velocity; FLAT,
+// flat spacetime's, every acceleration zero. r is |rel|, the loop head's
+// root: rk4's k1 takes its guarded radius from it, each later point takes
+// its own root in its group, and leapfrog's two accelerations at the new
+// position share that point.
+template <int INTEG, bool FLAT>
 __device__ __forceinline__ void step_exact(Vec3 rel, Vec3 vel, float r, const Phys& ph, float dt,
                                            Vec3& new_rel, Vec3& new_vel) {
   using A = Arith<false>;
   const float rs = ph.rs;
+  const auto point = [&](Vec3 p, float rp) {
+    if constexpr (FLAT) return AccelPoint{};
+    else return accel_point(p, rp, ph);
+  };
+  const auto point_at = [&](Vec3 p, float guard) {
+    if constexpr (FLAT) return AccelPoint{};
+    else return accel_point_at(p, guard, ph);
+  };
+  const auto accel = [&](const AccelPoint& at, Vec3 v) {
+    if constexpr (FLAT) return Vec3{0.0f, 0.0f, 0.0f};
+    else return accel_exact(at, v, ph);
+  };
   if constexpr (INTEG == kEuler) {
-    const Vec3 a = accel_exact(rel, vel, r, ph);
+    const Vec3 a = accel(point(rel, r), vel);
     new_vel = axpy<false>(vel, a, dt);
     new_rel = axpy<false>(rel, new_vel, dt);
   } else if constexpr (INTEG == kRk4) {
     const float guard = radius_guard(rs);
     const float half = A::mul(0.5f, dt);
     const Vec3 k1p = vel;
-    const Vec3 k1v = accel_exact(rel, vel, guarded_radius(rel, guard), ph);
+    const Vec3 k1v = accel(point(rel, fmaxf(r, guard)), vel);
     const Vec3 p2 = axpy<false>(rel, k1p, half);
     const Vec3 k2p = axpy<false>(vel, k1v, half);
-    const Vec3 k2v = accel_exact(p2, k2p, guarded_radius(p2, guard), ph);
+    const Vec3 k2v = accel(point_at(p2, guard), k2p);
     const Vec3 p3 = axpy<false>(rel, k2p, half);
     const Vec3 k3p = axpy<false>(vel, k2v, half);
-    const Vec3 k3v = accel_exact(p3, k3p, guarded_radius(p3, guard), ph);
+    const Vec3 k3v = accel(point_at(p3, guard), k3p);
     const Vec3 p4 = axpy<false>(rel, k3p, dt);
     const Vec3 k4p = axpy<false>(vel, k3v, dt);
-    const Vec3 k4v = accel_exact(p4, k4p, guarded_radius(p4, guard), ph);
+    const Vec3 k4v = accel(point_at(p4, guard), k4p);
     const float sixth = A::mul(dt, static_cast<float>(1.0 / 6.0));
     new_rel = axpy<false>(rel, rk4_sum(k1p, k2p, k3p, k4p), sixth);
     new_vel = axpy<false>(vel, rk4_sum(k1v, k2v, k3v, k4v), sixth);
   } else {
     const float half = A::mul(0.5f, dt);
-    const Vec3 a1 = accel_exact(rel, vel, r, ph);
+    const Vec3 a1 = accel(point(rel, r), vel);
     const Vec3 v_half = axpy<false>(vel, a1, half);
     new_rel = axpy<false>(rel, v_half, dt);
-    const float rr = guarded_radius(new_rel, radius_guard(rs));
-    const Vec3 a2a = accel_exact(new_rel, v_half, rr, ph);
+    const AccelPoint at_new = point_at(new_rel, radius_guard(rs));
+    const Vec3 a2a = accel(at_new, v_half);
     const Vec3 v_pred = axpy<false>(v_half, a2a, half);
-    const Vec3 a2 = accel_exact(new_rel, v_pred, rr, ph);
+    const Vec3 a2 = accel(at_new, v_pred);
     new_vel = axpy<false>(v_half, a2, half);
   }
 }
@@ -451,7 +547,11 @@ __device__ __forceinline__ Ray trace_ray_accel(const Params& p, int flags, int r
     if constexpr (FOLDED) {
       step_fast<INTEG>(ray.rel, ray.vel, r2, ph, dt, new_rel, new_vel);
     } else {
-      step_exact<INTEG>(ray.rel, ray.vel, r, ph, dt, new_rel, new_vel);
+      if (ph.flat) {
+        step_exact<INTEG, true>(ray.rel, ray.vel, r, ph, dt, new_rel, new_vel);
+      } else {
+        step_exact<INTEG, false>(ray.rel, ray.vel, r, ph, dt, new_rel, new_vel);
+      }
       new_vel = vnorm<FAST>(new_vel);
     }
     Vec3 hit;

@@ -75,6 +75,8 @@ _FLAG_ADAPTIVE = 2
 _FLAG_DISK = 4
 _FLAG_LT = 8  # kerr_lt: the Lense-Thirring drag
 _FLAG_KS = 16  # kerr: the Kerr-Schild Hamiltonian loop
+# BASELINE config 4's exact frame: rk4 with adaptive dt and the disk
+_EXACT_RK4_DISK = _FLAG_ADAPTIVE | _FLAG_DISK
 
 
 def monolithic_eligible(config: TraceConfig, scene: SceneParams, *, fast_math: bool, skybox,
@@ -154,6 +156,16 @@ def trace_flags(config: TraceConfig) -> int:
             | (_FLAG_DISK if config.disk else 0)
             | (_FLAG_LT if config.model == "kerr_lt" else 0)
             | (_FLAG_KS if config.model == "kerr" else 0))
+
+
+def planes_flags_fixed(integrator: str, flags: int, fast_math: bool) -> bool:
+    """Does a trace_planes launch with these arguments run an instantiation
+    whose flags are fixed at compile time (csrc/trace_planes.cu `launch`)?
+    An Euler launch with no flag set does, in either tier, and so does an
+    exact rk4 launch with exactly adaptive dt and the disk (whole, strided
+    or masked, a plugin's build too)."""
+    return (integrator == "euler" and flags == 0) or (
+        not fast_math and integrator == "rk4" and flags == _EXACT_RK4_DISK)
 
 
 def _check_mono_config(config: TraceConfig, scene: SceneParams, fast_math: bool) -> None:
@@ -429,7 +441,9 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
     recording raises ValueError for a plugin it cannot take) and the launch
     counts in tracing.COUNTS["launch.trace_planes.custom"] too; an exact
     Kerr (Kerr-Schild) launch counts in ["launch.trace_planes.ks"] too, and
-    in ["launch.trace_planes.ks.fast"] as well in the fast tier.
+    in ["launch.trace_planes.ks.fast"] as well in the fast tier. A launch
+    that runs an instantiation with its flags fixed (`planes_flags_fixed`)
+    counts in ["launch.trace_planes.fixed"] too.
     """
     with tracing.span("kernel.trace_planes"):
         check_traceable(config)
@@ -476,4 +490,6 @@ def trace_image(camera: Camera, scene: SceneParams, config: TraceConfig = TraceC
         tracing.COUNTS["launch.trace_planes.custom"] += custom
         tracing.COUNTS["launch.trace_planes.ks"] += bool(flags & _FLAG_KS)
         tracing.COUNTS["launch.trace_planes.ks.fast"] += bool(flags & _FLAG_KS and fast_math)
+        tracing.COUNTS["launch.trace_planes.fixed"] += planes_flags_fixed(
+            config.integrator, flags, fast_math)
         return out

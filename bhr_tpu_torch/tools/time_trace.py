@@ -31,7 +31,8 @@ Kerr-Schild rk4 and leapfrog traces and Euler frame at 1920x1080x500, the
 fast Kerr-Schild rk4 and leapfrog frames and Euler trace with the disk at
 1920x1080x500, and
 the paczynski_wiita.py plugin, and multires's strided low pass and masked
-pass of the main path's frame at divisor 3 in both tiers): the median of
+pass of the main path's frame at divisor 3 in both tiers and of config
+4's exact frame): the median of
 REPEATS runs of 3 launches by CUDA events (utils/timing.device_time_ms:
 each run queued behind a spin kernel, so that the host's issue of a short
 launch, such as multires's passes, is not timed), a hash of the output (equal
@@ -124,6 +125,12 @@ CASES = (
      dict(multires="strided")),
     ("masked_euler_exact", "trace_planes", False, "euler", "schwarzschild", "default",
      dict(multires="masked")),
+    # and config 4's exact frame at divisor 3 (the instantiation with its
+    # flags fixed at adaptive | disk takes both passes too)
+    ("strided_config4_exact", "trace_planes", False, "rk4", "schwarzschild", "side",
+     dict(DISK4, multires="strided")),
+    ("masked_config4_exact", "trace_planes", False, "rk4", "schwarzschild", "side",
+     dict(DISK4, multires="masked")),
 )
 DIVISOR = 3
 BIG = ("config5_exact", "config5_fast")  # 3840x2160x2000; the others 1920x1080x500
@@ -151,6 +158,8 @@ FLAGS_OF_CASE = {
     "ks_planes_euler_fast": (True, "euler", FLAG_DISK | FLAG_KS),
     "strided_euler_fast": (True, "euler", 0), "masked_euler_fast": (True, "euler", 0),
     "strided_euler_exact": (False, "euler", 0), "masked_euler_exact": (False, "euler", 0),
+    "strided_config4_exact": (False, "rk4", FLAG_ADAPTIVE | FLAG_DISK),
+    "masked_config4_exact": (False, "rk4", FLAG_ADAPTIVE | FLAG_DISK),
 }
 # Intrinsics whose SASS is listed alone: the exact tier's divide, a
 # reciprocal written as a divide, and the root.

@@ -50,8 +50,10 @@ a kernel's wrapper right after a successful launch, and nowhere else:
   launch.trace_planes.strided     (.strided), with a mask (.masked), with
   launch.trace_planes.masked      plugin physics (.custom) and exact Kerr
   launch.trace_planes.custom      (.ks), and of the last the fast tier's
-  launch.trace_planes.ks          (.ks.fast)
-  launch.trace_planes.ks.fast
+  launch.trace_planes.ks          (.ks.fast); and those that run an
+  launch.trace_planes.ks.fast     instantiation with its flags fixed at
+  launch.trace_planes.fixed       compile time (.fixed: Euler with no flag,
+                                  exact rk4 with adaptive dt and the disk)
   launch.neural_mlp               neural_render_packed; of those, bands
   launch.neural_mlp.band
   launch.neural_mlp.dirs          neural_trace_dirs

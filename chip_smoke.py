@@ -25,7 +25,9 @@ renderer's paths:
     OrbitAnimator's), and render_to_dir of 2 frames read back;
   * BASELINE config 4 at 1920x1080x500 (rk4, adaptive dt, accretion disk,
     camera [15,5,0]): the fast tier one render_mono launch, the exact tier
-    one trace_planes launch and one shade_planes launch (the staged
+    one trace_planes launch of the instantiation with its flags fixed at
+    adaptive | disk (one launch.trace_planes.fixed a frame) and one
+    shade_planes launch (the staged
     epilogue's kernel, csrc/shade_planes.cu), frame by frame and as a
     4-frame animation with no host sync; then shade_planes alone on that
     frame's exact planes, every word against the plain epilogue, its device
@@ -98,6 +100,12 @@ renderer's paths:
     leapfrog in both tiers, one trace_planes launch a frame: the planes
     against the plain trace and the frame against the all-plain frame at
     the trace bars, and the kernel's time beside the plain version's;
+  * every exact plane and frame held above -- the main path's frame,
+    config 4's frame and planes, its strided and masked passes (and the
+    main path's), rk4 and leapfrog exact render_mono frames and
+    trace_planes planes, kerr_lt's, config 5's frame and planes, the
+    plugin's planes -- bit-equal to its plain version on 100% of its
+    pixels (the phases themselves hold EXACT_SAME_MIN);
   * the probes (python -m bhr_tpu_torch.tools.hopper_probe, the questions
     of bhr_tpu's six probe scripts): probe_ieee over 4M inputs (every
     divide and root against the correctly rounded result, the Markstein
@@ -187,6 +195,7 @@ N_MONO, N_TRACE = "launch.render_mono", "launch.trace_planes"
 N_STRIDED, N_MASKED, N_CUSTOM = (f"{N_TRACE}.{v}" for v in ("strided", "masked", "custom"))
 N_MONO_KS, N_TRACE_KS = f"{N_MONO}.ks", f"{N_TRACE}.ks"  # the Kerr-Schild launches
 N_MONO_KS_FAST, N_TRACE_KS_FAST = f"{N_MONO_KS}.fast", f"{N_TRACE_KS}.fast"  # fast tier's
+N_FIXED = f"{N_TRACE}.fixed"  # trace_planes launches of an instantiation with fixed flags
 N_NEURAL = "launch.neural_mlp"
 N_DIRS, N_BAND = f"{N_NEURAL}.dirs", f"{N_NEURAL}.band"
 N_SHADE, N_PLAIN = "launch.shade_planes", "epilogue.plain"
@@ -813,6 +822,21 @@ def main() -> None:
     def band(x, rows):
         return x if rows is None else x[rows[0]:rows[1]]
 
+    exact_bits = {}  # exact planes and frames: the share of pixels bit-equal to the plain version
+
+    def hold_bits(name, kernel, plain):
+        """Records the share of pixels on which an exact kernel's output --
+        a packed frame, or a TraceResult's four planes, compared as bits --
+        equals its plain version's; the exact_bits phase asks 100% of each."""
+        if isinstance(kernel, torch.Tensor):
+            same = kernel.contiguous().view(torch.int32) == plain.contiguous().view(torch.int32)
+        else:
+            same = (kernel.status == plain.status) & (kernel.steps == plain.steps)
+            for plane in ("final_pos", "final_vel"):
+                same &= (getattr(kernel, plane).contiguous().view(torch.int32)
+                         == getattr(plain, plane).contiguous().view(torch.int32)).all(-1)
+        exact_bits[name] = same.float().mean().item()
+
     def shares(res) -> dict:
         return {"disk_frac": (res.status == STATUS_DISK).float().mean().item(),
                 "captured_frac": (res.status == STATUS_CAPTURED).float().mean().item(),
@@ -956,6 +980,8 @@ def main() -> None:
             raise AssertionError(f"frame is {frame.dtype} {tuple(frame.shape)}")
         s = check_mono(bt.Camera.default(), full_scene, renderer.config, fast,
                        frame.view(torch.int32).view(H, W))
+        if not fast:
+            exact_bits["render_mono<exact,euler> main path frame"] = s["bit_same"]
         phase("render_frame", f"{W}x{H}x{STEPS} euler {tier} ({bar(fast)}): launches=1 "
               + json.dumps(s))
         records[tier] = {"renderer": renderer}
@@ -1090,11 +1116,16 @@ def main() -> None:
             raise AssertionError(f"BASELINE 4 {tier} launched {launches}, not one {kernel}")
         var.launched(kernel, fast, "rk4", 1)
         staged_shading("BASELINE 4", fast, 1)
+        if C[N_FIXED] != (0 if fast else 1):  # trace_planes<exact,rk4,flags=6>
+            raise AssertionError(f"BASELINE 4 {tier} counted {C[N_FIXED]} fixed-flag launches")
         packed = frame.view(torch.int32).view(H, W)
         if fast:
             s = check_mono(side, full_scene, renderer.config, True, packed)
         else:
-            s, k_res, _ = check_staged(side, full_scene, renderer.config, False, renderer, packed)
+            s, k_res, p_res = check_staged(side, full_scene, renderer.config, False, renderer,
+                                           packed)
+            exact_bits["trace_planes<exact,rk4> config 4 frame"] = s["bit_same"]
+            hold_bits("trace_planes<exact,rk4> config 4 planes", k_res, p_res)
             lut = renderer._frame_plan(full_scene).lut
             s["shade_kernel_ms"] = cuda_ms(
                 lambda: shade_image(k_res, side, full_scene, renderer.disk_params(full_scene),
@@ -1109,8 +1140,12 @@ def main() -> None:
                                  f"{C[N_TRACE]}")
         var.launched(kernel, fast, "rk4", n)
         staged_shading("BASELINE 4 animation", fast, n)
+        if C[N_FIXED] != (0 if fast else n):
+            raise AssertionError(f"BASELINE 4 {tier} animation counted {C[N_FIXED]} fixed-flag "
+                                 f"launches of {n}")
         phase("baseline4", f"{W}x{H}x{STEPS} rk4 adaptive disk {tier}: render_frame 1 {kernel} "
-              f"launch{'' if fast else ' and 1 shade_planes launch'} ({bar(fast)}): "
+              f"launch{'' if fast else ' and 1 shade_planes launch'}"
+              f"{'' if fast else ', 1 launch.trace_planes.fixed a frame'} ({bar(fast)}): "
               f"{json.dumps(s)}; "
               f"OrbitAnimator {BASELINE_FRAMES} frames {anim_ms:.3f} ms/frame with no host sync "
               f"(CUDA events, sync debug mode 'error') on {smi}")
@@ -1190,9 +1225,14 @@ def main() -> None:
         t1.record()
         torch.cuda.synchronize()
         plain_ms = t0.elapsed_time(t1)
-        s = (check_mono(side, scene5, renderer.config, True, packed, plain=plain) if fast else
-             check_staged(side, scene5, renderer.config, False, renderer, packed,
-                          plain_res=plain)[0])
+        if fast:
+            s = check_mono(side, scene5, renderer.config, True, packed, plain=plain)
+        else:
+            s, k5, _ = check_staged(side, scene5, renderer.config, False, renderer, packed,
+                                    plain_res=plain)
+            exact_bits["trace_planes<exact,euler,ks> config 5 frame"] = s["bit_same"]
+            hold_bits("trace_planes<exact,euler,ks> config 5 planes", k5, plain)
+            del k5
         ray_steps = s["ray_steps"]
         if fast:
             out = torch.empty((H5, W5), dtype=torch.int32, device="cuda")
@@ -1258,8 +1298,12 @@ def main() -> None:
             raise AssertionError(f"kerr_lt {tier} launched {launches}, not one {kernel}")
         var.launched(kernel, fast, "euler", 1, "kerr_lt")
         packed = frame.view(torch.int32).view(H, W)
-        s = (check_mono(side, scene_lt, renderer.config, True, packed) if fast else
-             check_staged(side, scene_lt, renderer.config, False, renderer, packed)[0])
+        if fast:
+            s = check_mono(side, scene_lt, renderer.config, True, packed)
+        else:
+            s, k_lt, p_lt = check_staged(side, scene_lt, renderer.config, False, renderer, packed)
+            exact_bits["trace_planes<exact,euler> kerr_lt frame"] = s["bit_same"]
+            hold_bits("trace_planes<exact,euler> kerr_lt planes", k_lt, p_lt)
         debug = scene_lt.replace(debug_mode=1)
         reset()
         hframe = renderer.render_frame(side, debug)
@@ -1341,7 +1385,7 @@ def main() -> None:
             if kernel == "render_mono" and not fast:
                 kw = {**kw, "disk": False}  # the exact tier's disk is staged
             config = bt.TraceConfig(integrator=integ, model=model, **kw)
-            plain_res = [None]
+            plain_res = [None, None]  # the plain trace, and the monolithic plain frame
             if kernel == "render_mono":
                 out = torch.empty((H, W), dtype=torch.int32, device="cuda")
 
@@ -1352,8 +1396,8 @@ def main() -> None:
                 def plain():
                     plain_res[0] = tk.trace_image_reference(cam, timing_scene, config,
                                                             fast_math=fast, device="cuda")
-                    tk.shade_packed_reference(plain_res[0], cam, timing_scene, config,
-                                              fast_math=fast)
+                    plain_res[1] = tk.shade_packed_reference(plain_res[0], cam, timing_scene,
+                                                             config, fast_math=fast)
             else:
                 planes = tk.empty_trace_result(H, W, "cuda")
 
@@ -1368,6 +1412,11 @@ def main() -> None:
             ms = cuda_ms(lambda: [launch() for _ in range(3)], 3, REPEATS)
             plain_ms = cuda_ms(plain, 1)
             ray_steps = int(plain_res[0].steps.sum().item())
+            if not fast and model == "schwarzschild" and integ != "euler":
+                hold_bits(f"{var.key(kernel, fast, integ, model)} "
+                          f"{'frame' if kernel == 'render_mono' else 'planes'}",
+                          out if kernel == "render_mono" else planes,
+                          plain_res[1] if kernel == "render_mono" else plain_res[0])
             desc = (f"{model}{f' spin {SPIN}' if model != 'schwarzschild' else ''}, {integ}, "
                     f"{'adaptive' if config.adaptive else 'fixed'} dt, "
                     f"{'disk' if config.disk else 'no disk'}, camera {cam.position.tolist()}, "
@@ -1819,6 +1868,8 @@ def main() -> None:
                 torch.cuda.synchronize()
                 low_plain_ms = t0.elapsed_time(t1)
                 st_low = trace_compare(k_low, p_low, fast)
+                if not fast:
+                    hold_bits(f"trace_planes[strided]<exact,{integ}> divisor {d}", k_low, p_low)
                 low_planes = tk.empty_trace_result(*local, "cuda")
                 low_ms = cuda_ms(lambda: [tk.trace_image(cam, full_scene, config, fast_math=fast,
                                                          device="cuda", out=low_planes, **args)
@@ -1837,6 +1888,8 @@ def main() -> None:
                 torch.cuda.synchronize()
                 fix_plain_ms = t0.elapsed_time(t1)
                 st_fix = trace_compare(k_fix, p_fix, fast)
+                if not fast:
+                    hold_bits(f"trace_planes[masked]<exact,{integ}> divisor {d}", k_fix, p_fix)
                 fix_ms = cuda_ms(lambda: [tk.trace_image(cam, full_scene, config, fast_math=fast,
                                                          device="cuda", out=planes, mask=edge)
                                           for _ in range(3)], 3, REPEATS)
@@ -2262,6 +2315,8 @@ def main() -> None:
             torch.cuda.synchronize()
             plain_ms = t0.elapsed_time(t1)
             st = trace_compare(k_res, p_res, fast)
+            if not fast:
+                hold_bits(f"trace_planes[custom]<exact,{integ}> planes", k_res, p_res)
             plain = shade_image_reference(p_res, default_cam, full_scene, None, None,
                                           tonemap="passthrough")
             fs = compare(frame.view(torch.int32).view(H, W), plain, fast, k_res.status,
@@ -2288,7 +2343,17 @@ def main() -> None:
                   f"{ray_steps} ray-steps, bound {b:.3f} ms ({by}) on {smi}")
             del k_res, p_res, plain
 
-    # 20. the probes (tools/hopper_probe.py): every check and answer line,
+    # 20. every exact plane and frame held above, bit-equal to its plain
+    # version on 100% of its pixels (the exact tier's bar is the oracle's bits;
+    # the phases above hold the looser EXACT_SAME_MIN)
+    short = {k: v for k, v in exact_bits.items() if v != 1.0}
+    if short or len(exact_bits) < 20:
+        raise AssertionError(f"exact outputs not bit-equal on every pixel: {short} "
+                             f"({len(exact_bits)} held)")
+    phase("exact_bits", f"{len(exact_bits)} exact planes and frames bit-equal to their plain "
+          f"versions on 100% of pixels: {json.dumps(sorted(exact_bits))}")
+
+    # 21. the probes (tools/hopper_probe.py): every check and answer line,
     # each probe kernel's launches, time, plain and library time and bound
     C.clear()
     t0 = time.perf_counter()
@@ -2302,7 +2367,7 @@ def main() -> None:
     phase("probes", f"{len(run.checks)} checks passed, {len(run.answers)} answers, in "
           f"{time.perf_counter() - t0:.1f} s; launches {json.dumps(dict(C))} on {smi}")
 
-    # 21. output
+    # 22. output
     renderer = records["exact"]["renderer"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frame.png")

@@ -11,12 +11,18 @@ sweep and waves, on the CPU.
 * The sweep's rewrite of render_mono.cu, the whole-wave cut, the issue
   floor, the mangled names of the instantiations, and which of them the
   route walk takes for every configuration chip_smoke.py drives.
+* trace_planes.cu's fixed-flag launches read from its source, the route
+  walked for config 4's exact cases (trace_planes<exact,rk4,flags=6>), and
+  launch.trace_planes.fixed against the instantiation each launch's own
+  arguments select, on a stubbed library.
 """
 
 from pathlib import Path
 
+import re
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -289,3 +295,108 @@ def test_time_trace_runs_as_a_script_without_the_package():
     out = subprocess.run([sys.executable, "-c", code, str(tools)], capture_output=True,
                          text=True, check=True, cwd=tools)
     assert out.stdout.split() == ["False", "sass_walk"]
+
+
+# ---- trace_planes.cu: the launch rule, the fixed count and the route walked --------
+
+PLANES_MANGLED = ("_ZN3bhr48_GLOBAL__N__0_15_trace_planes_cu_0818trace_planes_kernelIL{}"
+                  "EEEvNS_6ParamsEiiiiPKfPfS4_PiS5_")
+# every instantiation trace_planes.cu builds: the 12 that read their flags at
+# run time, the 2 Euler ones with the flags fixed at 0 and the exact rk4 one
+# with the flags fixed at adaptive | disk (6), BASELINE config 4's
+BUILT_PLANES = {PLANES_MANGLED.format(f"b{fast}ELi{i}ELb{ks}E{fl}"): []
+                for fast in (0, 1) for i in range(3) for ks in (0, 1)
+                for fl in (("Lin1E", "Li0E") if i == 0 and not ks else
+                           ("Lin1E", "Li6E") if i == 1 and not ks and not fast else ("Lin1E",))}
+TEMPLATE_ARGS = {"FAST": (True, False), "false": (False,), "true": (True,)}
+
+
+def _fixed_launches_in_source() -> set:
+    """(fast, integrator, flags) of every launch of trace_planes.cu whose
+    instantiation fixes its flags, read from its source."""
+    text = (Path(tt.__file__).resolve().parents[1] / "csrc" / "trace_planes.cu").read_text()
+    consts = {"kExactRk4Disk": 2 | 4}
+    found = set()
+    for args in re.findall(r"trace_planes_kernel<([^<>]+)><<<", text):
+        parts = [a.strip() for a in args.split(",")]
+        if len(parts) == 4:
+            integ = ("kEuler", "kRk4", "kLeapfrog").index(parts[1])
+            flags = consts.get(parts[3]) if parts[3] in consts else int(parts[3])
+            found |= {(fast, sw.INTEGRATORS[integ], flags) for fast in TEMPLATE_ARGS[parts[0]]}
+    return found
+
+
+def test_the_source_fixes_the_flags_of_these_launches():
+    assert _fixed_launches_in_source() == {(True, "euler", 0), (False, "euler", 0),
+                                           (False, "rk4", 6)}
+    assert {sw.kernel_tag(n)[4] for n in BUILT_PLANES} == {None, 0, 6}
+    assert {(t[1], t[2], t[4]) for t in map(sw.kernel_tag, BUILT_PLANES)
+            if t[4] is not None} == _fixed_launches_in_source()
+
+
+@pytest.mark.parametrize("case", ["config4_exact", "strided_config4_exact",
+                                  "masked_config4_exact"])
+def test_the_config4_route_walks_the_fixed_instantiation(case):
+    fast, integ, flags = tt.FLAGS_OF_CASE[case]
+    _name, tag = sw.launched_function(BUILT_PLANES, "trace_planes", fast, integ, flags)
+    assert sw.tag_text(tag) == "trace_planes<exact,rk4,flags=6>"
+    # the parent's build, without it, runs the one that reads the flags
+    runtime = {n: [] for n in BUILT_PLANES if "Li6E" not in n}
+    assert sw.tag_text(sw.launched_function(runtime, "trace_planes", fast, integ, flags)[1]) \
+        == "trace_planes<exact,rk4>"
+
+
+CONFIG4 = dict(integrator="rk4", adaptive=True, disk=True)
+# (configuration keywords, fast_math, multires pass): the fixed instantiations'
+# launches, then their neighbours, which read their flags
+PLANES_LAUNCHES = [
+    (dict(), False, None), (dict(), True, None), (dict(), False, "strided"),
+    (CONFIG4, False, None), (CONFIG4, False, "strided"), (CONFIG4, False, "masked"),
+    (dict(CONFIG4, model="custom"), False, None),
+    (CONFIG4, True, None), (dict(CONFIG4, integrator="leapfrog"), False, None),
+    (dict(CONFIG4, model="kerr_lt"), False, None), (dict(CONFIG4, model="flat"), False, None),
+    (dict(CONFIG4, model="kerr"), False, None), (dict(integrator="rk4", adaptive=True), False,
+                                                 None),
+    (dict(integrator="rk4", disk=True), False, None),
+]
+
+
+@pytest.mark.parametrize("kw,fast,multires", PLANES_LAUNCHES,
+                         ids=[str(i) for i in range(len(PLANES_LAUNCHES))])
+def test_the_fixed_count_follows_the_launch_rule(monkeypatch, kw, fast, multires):
+    """On a stubbed library: launch.trace_planes.fixed counts a launch
+    exactly when the instantiation the launch's own arguments select in
+    trace_planes.cu (sass_walk.launched_function over its instantiations)
+    fixes its flags."""
+    from bhr_tpu_torch.utils import build
+
+    launched = []
+    lib = types.SimpleNamespace(bhr_trace_planes=lambda *a: launched.append(a) or 0)
+    monkeypatch.setattr(trace_kernel, "_kernel_device",
+                        lambda device, name: torch.device("cuda", 0))
+    monkeypatch.setattr(trace_kernel, "_check_out", lambda *a: None)
+    monkeypatch.setattr(trace_kernel, "_check_mask", lambda *a: None)
+    monkeypatch.setattr(trace_kernel, "cuda_source", lambda accel: "")
+    for name in ("load_trace_planes", "load_trace_planes_custom"):
+        monkeypatch.setattr(build, name, lambda *a: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    if kw.get("model") == "custom":
+        kw = dict(kw, custom_accel=PLUGIN_CONFIG["custom_accel"], custom_capture_factor=1.05)
+    extra = (dict(stride=2, local_shape=(3, 4)) if multires == "strided" else
+             dict(mask=torch.ones((6, 8))) if multires == "masked" else {})
+    scene = bt.SceneParams(screen_width=8, screen_height=6, max_steps=4)
+    before = COUNTS["launch.trace_planes.fixed"]
+    trace_kernel.trace_image(bt.Camera.default(), scene, bt.TraceConfig(**kw), fast_math=fast,
+                             device="cuda", out=trace_kernel.empty_trace_result(6, 8, "cpu"),
+                             **extra)
+    (args,) = launched
+    fast_arg, integ, flags = bool(args[1]), sw.INTEGRATORS[args[2]], args[3]
+    _name, tag = sw.launched_function(BUILT_PLANES, "trace_planes", fast_arg, integ, flags)
+    fixed = tag[4] is not None
+    assert COUNTS["launch.trace_planes.fixed"] - before == int(fixed)
+    assert fixed == trace_kernel.planes_flags_fixed(integ, flags, fast_arg)
+    want = (integ == "euler" and not kw) or (kw.get("model") in (None, "custom") and not fast
+                                             and kw.get("disk") and kw.get("adaptive")
+                                             and integ == "rk4")
+    assert fixed == bool(want)

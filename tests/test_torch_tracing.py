@@ -132,9 +132,26 @@ def test_the_import_is_a_setup_span():
 KEYS = ("launch.render_mono", "launch.render_mono.ks", "launch.render_mono.ks.fast",
         "launch.trace_planes", "launch.trace_planes.strided", "launch.trace_planes.masked",
         "launch.trace_planes.custom", "launch.trace_planes.ks", "launch.trace_planes.ks.fast",
-        "launch.neural_mlp",
+        "launch.trace_planes.fixed", "launch.neural_mlp",
         "launch.neural_mlp.dirs", "launch.neural_mlp.band", "launch.shade_planes")
 KERR = T.TraceConfig(model="kerr", disk=True)
+DISK4 = dict(integrator="rk4", adaptive=True, disk=True)  # BASELINE config 4
+# trace_planes launches by (configuration, fast_math, multires pass): config
+# 4's exact rk4 runs the instantiation with its flags fixed at adaptive |
+# disk, whole or in either pass; each neighbour of it reads its flags
+PLANES = {
+    "config4_exact": (DISK4, False, None),
+    "config4_exact.strided": (DISK4, False, "strided"),
+    "config4_exact.masked": (DISK4, False, "masked"),
+    "config4_exact.custom": (dict(DISK4, model="custom", custom_accel=None), False, None),
+    "config4_fast": (DISK4, True, None),
+    "leapfrog_disk_exact": (dict(DISK4, integrator="leapfrog"), False, None),
+    "rk4_kerr_lt_exact": (dict(DISK4, model="kerr_lt"), False, None),
+    "rk4_flat_exact": (dict(DISK4, model="flat"), False, None),
+    "config4_exact.ks": (dict(DISK4, model="kerr"), False, None),
+    "rk4_adaptive_exact": (dict(integrator="rk4", adaptive=True), False, None),
+    "euler_fast": ({}, True, None),
+}
 
 
 def _no_force(rel, vel, r, r2, rs, spin):
@@ -195,6 +212,15 @@ def _launch(what):
                                                         out=planes),
         "shade_planes": lambda: shade_kernel.shade_planes(planes, cam, scene, out=frame),
     }
+    if what in PLANES:
+        kw, fast, multires = PLANES[what]
+        if kw.get("model") == "custom":
+            kw = dict(kw, custom_accel=_no_force, custom_capture_factor=1.05)
+        extra = (dict(stride=2, local_shape=(3, 4)) if multires == "strided" else
+                 dict(mask=torch.ones((6, 8))) if multires == "masked" else {})
+        trace_kernel.trace_image(cam, scene, T.TraceConfig(**kw), fast_math=fast,
+                                 device="cuda", out=planes, **extra)
+        return
     calls[what]()
 
 
@@ -204,14 +230,33 @@ def _launch(what):
                         "launch.render_mono.ks.fast"}, "kernel.render_mono"),
     ("render_mono.ks.exact", {"launch.render_mono", "launch.render_mono.ks"},
      "kernel.render_mono"),
-    ("trace_planes", {"launch.trace_planes"}, "kernel.trace_planes"),
+    ("trace_planes", {"launch.trace_planes", "launch.trace_planes.fixed"},
+     "kernel.trace_planes"),
     ("trace_planes.ks", {"launch.trace_planes", "launch.trace_planes.ks"},
      "kernel.trace_planes"),
     ("trace_planes.ks.fast", {"launch.trace_planes", "launch.trace_planes.ks",
                               "launch.trace_planes.ks.fast"}, "kernel.trace_planes"),
-    ("strided", {"launch.trace_planes", "launch.trace_planes.strided"}, "kernel.trace_planes"),
-    ("masked", {"launch.trace_planes", "launch.trace_planes.masked"}, "kernel.trace_planes"),
-    ("custom", {"launch.trace_planes", "launch.trace_planes.custom"}, "kernel.trace_planes"),
+    ("strided", {"launch.trace_planes", "launch.trace_planes.strided",
+                 "launch.trace_planes.fixed"}, "kernel.trace_planes"),
+    ("masked", {"launch.trace_planes", "launch.trace_planes.masked",
+                "launch.trace_planes.fixed"}, "kernel.trace_planes"),
+    ("custom", {"launch.trace_planes", "launch.trace_planes.custom",
+                "launch.trace_planes.fixed"}, "kernel.trace_planes"),
+    ("config4_exact", {"launch.trace_planes", "launch.trace_planes.fixed"},
+     "kernel.trace_planes"),
+    ("config4_exact.strided", {"launch.trace_planes", "launch.trace_planes.strided",
+                               "launch.trace_planes.fixed"}, "kernel.trace_planes"),
+    ("config4_exact.masked", {"launch.trace_planes", "launch.trace_planes.masked",
+                              "launch.trace_planes.fixed"}, "kernel.trace_planes"),
+    ("config4_exact.custom", {"launch.trace_planes", "launch.trace_planes.custom",
+                              "launch.trace_planes.fixed"}, "kernel.trace_planes"),
+    ("config4_fast", {"launch.trace_planes"}, "kernel.trace_planes"),
+    ("leapfrog_disk_exact", {"launch.trace_planes"}, "kernel.trace_planes"),
+    ("rk4_kerr_lt_exact", {"launch.trace_planes"}, "kernel.trace_planes"),
+    ("rk4_flat_exact", {"launch.trace_planes"}, "kernel.trace_planes"),
+    ("config4_exact.ks", {"launch.trace_planes", "launch.trace_planes.ks"}, "kernel.trace_planes"),
+    ("rk4_adaptive_exact", {"launch.trace_planes"}, "kernel.trace_planes"),
+    ("euler_fast", {"launch.trace_planes", "launch.trace_planes.fixed"}, "kernel.trace_planes"),
     ("neural_mlp", {"launch.neural_mlp"}, "kernel.neural_mlp"),
     ("band", {"launch.neural_mlp", "launch.neural_mlp.band"}, "kernel.neural_mlp"),
     ("dirs", {"launch.neural_mlp.dirs"}, "kernel.neural_mlp"),

@@ -94,6 +94,9 @@ _FUSED_WARPS = {128: 12, 256: 8}
 _PIX = {"default": (128, 64, 32, 16), "highest": (256, 128, 64, 32)}
 _CHUNK = {"default": (64,), "highest": (32, 16)}
 _MAX_OUTPUTS = 256 * 8 * 16
+# the fused layout at register width 256, its weights streamed (214,048
+# bytes of shared memory at most)
+STREAMED_PLAN = (32 * _FUSED_WARPS[256], 64, 2, 256)
 
 
 def as_surrogate(params) -> NeuralSurrogate:
@@ -180,7 +183,7 @@ def kernel_plan(params, precision) -> tuple[int, int, int, int] | None:
         held = (32 * _FUSED_WARPS[128], 0, 0, 128)
         if hmax <= 128 and smem_bytes(dims, held, precision) <= SMEM_LIMIT:
             return held
-        return 32 * _FUSED_WARPS[256], 64, 2, 256  # 214,048 bytes at most
+        return STREAMED_PLAN
     for pix in _PIX[precision]:
         if precision == "highest" and pix * hmax > _MAX_OUTPUTS:
             continue
@@ -398,6 +401,13 @@ def _launch(params: NeuralSurrogate, camera, scene, precision: str, plan, device
     _raise_on_error(lib, rc, "neural_render launch")
 
 
+def _count_net(params: NeuralSurrogate, plan) -> None:
+    """Count a successful launch by its net: a Kerr net's, and one of the
+    fused layout with its weights streamed."""
+    tracing.COUNTS["launch.neural_mlp.kerr"] += params.model == "kerr"
+    tracing.COUNTS["launch.neural_mlp.streamed"] += plan == STREAMED_PLAN
+
+
 def _plan(params: NeuralSurrogate, precision: str) -> tuple[int, int, int, int]:
     """`kernel_plan`, or a ValueError for a net no block holds."""
     plan = kernel_plan(params, precision)
@@ -446,6 +456,7 @@ def neural_render_packed(params, camera: Camera, scene: SceneParams, *, seed: in
         _launch(params, camera, scene, precision, plan, device, seed, row0, shape, out, None, None)
         tracing.COUNTS["launch.neural_mlp"] += 1
         tracing.COUNTS["launch.neural_mlp.band"] += local_shape is not None
+        _count_net(params, plan)
         return out
 
 
@@ -503,4 +514,5 @@ def neural_trace_dirs(params, camera: Camera, scene: SceneParams, *, precision="
                   else out.status)
         _launch(params, camera, scene, precision, plan, device, 0, row0, (h, w), None, vel, status)
         tracing.COUNTS["launch.neural_mlp.dirs"] += 1
+        _count_net(params, plan)
         return _trace_result(vel, status, camera, scene)

@@ -52,7 +52,11 @@ renderer's paths:
     and instantiation of the kernel (PLAN_NETS); the main path at
     1920x1080 through render_frame (N1 Schwarzschild and N2 Kerr at spin
     0.9 in the default tier, N2 and N1 at the highest tier), one neural_mlp
-    launch a frame; 8 OrbitAnimator frames with no host sync; the staged
+    launch a frame; 8 OrbitAnimator frames with no host sync (no
+    launch.neural_mlp.kerr or .streamed among them); 4 OrbitAnimator frames
+    of N2 at 3840x2160, spin 0.9 (the benchmark's kerr09sky4k), each one
+    launch of the streamed layout counted under launch.neural_mlp.kerr and
+    .streamed, held against the plain version on a band of 256 rows; the staged
     routes (srgb tonemap; "auto" resolved to "high"), with no kernel
     launch; and each variant's time beside its plain version's, its bound
     and the staged route's MLP chain through torch.matmul (cuBLAS); for
@@ -198,6 +202,8 @@ N_MONO_KS_FAST, N_TRACE_KS_FAST = f"{N_MONO_KS}.fast", f"{N_TRACE_KS}.fast"  # f
 N_FIXED = f"{N_TRACE}.fixed"  # trace_planes launches of an instantiation with fixed flags
 N_NEURAL = "launch.neural_mlp"
 N_DIRS, N_BAND = f"{N_NEURAL}.dirs", f"{N_NEURAL}.band"
+N_NEURAL_KERR, N_STREAMED = f"{N_NEURAL}.kerr", f"{N_NEURAL}.streamed"  # by net and layout
+KERR_SKY_FRAMES = 4  # 4K orbit frames of the Kerr net (bench_torch's kerr09sky4k)
 N_SHADE, N_PLAIN = "launch.shade_planes", "epilogue.plain"
 # Bars of a kernel against its plain version.
 EXACT_SAME_MIN = 0.999  # bit-equal packed words (tests/test_pallas_parity.py:484-491)
@@ -1542,6 +1548,9 @@ def main() -> None:
     frames, neural_anim_ms, anim = animate(r_orbit, N_FRAMES)
     if counts() != (0, 0, N_FRAMES) or frames.shape != (N_FRAMES, H, W):
         raise AssertionError(f"neural animation launched {counts()}: {tuple(frames.shape)}")
+    if (C[N_NEURAL_KERR], C[N_STREAMED]) != (0, 0):  # a 128-wide Schwarzschild net, held
+        raise AssertionError(f"neural animation counted {C[N_NEURAL_KERR]} Kerr and "
+                             f"{C[N_STREAMED]} streamed launches")
     orbit_plan = nk.kernel_plan(r_orbit.neural_params, "default")
     var.neural("schwarzschild", False, orbit_plan)["launches"] += N_FRAMES
     errs = []
@@ -1560,6 +1569,47 @@ def main() -> None:
           + ", ".join(f"{tier} {ms:.3f} ms/frame, ratio {neural_anim_ms / ms:.4f}"
                       for tier, ms in euler.items()) + f" on {smi}")
     del frames
+
+    # (c') the 4K Kerr orbit (bench_torch's kerr09sky4k): KERR_SKY_FRAMES
+    # OrbitAnimator frames of N2 at spin 0.9 through the streamed layout, no
+    # host sync, each against its plain version on the band BAND5 (the whole
+    # plain frame's hidden activations take 8.5 GB apiece); one Kerr and one
+    # streamed launch a frame
+    r_k4 = bt.BlackHoleRenderer(W5, H5, "neural", model="kerr", neural_params=net_path("n2"),
+                                device="cuda")
+    r_k4.scene = bt.SceneParams(screen_width=W5, screen_height=H5, spin=SPIN)
+    k4_plan = nk.kernel_plan(r_k4.neural_params, "default")
+    if k4_plan != nk.STREAMED_PLAN:
+        raise AssertionError(f"N2's plan is {k4_plan}, not the streamed layout")
+    bt.OrbitAnimator(r_k4).render_frames(1, packed=True)  # warm-up: the weights' operands
+    torch.cuda.synchronize()
+    reset()
+    n = KERR_SKY_FRAMES
+    frames, k4_ms, anim = animate(r_k4, n)
+    if (counts() != (0, 0, n) or (C[N_NEURAL_KERR], C[N_STREAMED]) != (n, n)
+            or frames.shape != (n, H5, W5)):
+        raise AssertionError(f"4K Kerr neural animation launched {counts()}, counted "
+                             f"{C[N_NEURAL_KERR]} Kerr and {C[N_STREAMED]} streamed: "
+                             f"{tuple(frames.shape)}")
+    var.neural("kerr", False, k4_plan)["launches"] += n
+    band_h = BAND5[1] - BAND5[0]
+    errs = []
+    for k, t in enumerate(anim.frame_times(n)):
+        plain = nk.neural_render_packed_reference(r_k4.neural_params, bt.orbit_camera(t),
+                                                  r_k4.scene, device="cuda", row0=BAND5[0],
+                                                  local_shape=(band_h, W5))
+        errs.append(neural_compare(frames[k][BAND5[0]:BAND5[1]], plain, False))
+    rec = var.neural("kerr", False, k4_plan)
+    rec["max_abs_err"] = max([rec["max_abs_err"]] + [e["max_abs_err"] for e in errs])
+    mlp_flop = 2 * sum(w.shape[0] * w.shape[1] for w, _ in r_k4.neural_params) * W5 * H5
+    phase("neural_kerr_4k", f"{n} frames {W5}x{H5} neural_kerr.npz spin {SPIN}, plan {k4_plan}: "
+          f"OrbitAnimator {k4_ms:.3f} ms/frame with no host sync (CUDA events, sync debug "
+          f"mode 'error'), {mlp_flop / (k4_ms * 1e9):.1f} MLP TFLOP/s; launches={n}, "
+          f"{N_NEURAL_KERR}={C[N_NEURAL_KERR]}, {N_STREAMED}={C[N_STREAMED]}; rows "
+          f"{BAND5[0]}-{BAND5[1] - 1} of each held to {neural_bar(False)} (worst bit_same "
+          f"{min(e['bit_same'] for e in errs):.6f}, off_by_more_than_2 "
+          f"{max(e['off_by_more_than_2'] for e in errs):.2e}) on {smi}")
+    del frames, r_k4
 
     # (d) the staged routes: the srgb tonemap, and the fp32-trained Kerr net
     # at "auto", which resolves to "high"; no kernel launch

@@ -1,10 +1,10 @@
 """The benchmark's plain Kerr reference (bench_torch/reference/kerr.py) and
-its cell kerr09disk4k.orbit_fast, on the CPU.
+its cells kerr09disk4k.orbit_fast and kerr09disk4k.orbit_exact, on the CPU.
 
 The reference is held bit for bit against the port's plain Kerr frame
 (the program's CPU path, through the harness's own entry) in both tiers;
-its compacting loop against the masked loop it replaces; the cell is
-resolved from its files by name; and a run of the cell by the harness's
+its compacting loop against the masked loop it replaces; each cell is
+resolved from its files by name; and a run of each cell by the harness's
 run_cell, shrunk as bench_torch/tests/test_correct.py shrinks cells, is
 correct, and not correct with the control or any planted fault of
 calibrate.py in the program's place."""
@@ -27,6 +27,16 @@ from bench_torch.reference.common import (
 )
 
 CELL = "kerr09disk4k.orbit_fast"
+# each cell of the configuration: its tier, the number its limit holds and
+# the per-layer metrics it reports
+CELLS = {
+    "kerr09disk4k.orbit_fast": (True, "off1_pct", {"host.issue_ms", "geodesic.roofline_pct",
+                                                   "device.idle_pct"}),
+    "kerr09disk4k.orbit_exact": (False, "neq_pct", {"host.issue_ms", "epilogue.device_ms",
+                                                    "epilogue.launches",
+                                                    "geodesic.roofline_pct",
+                                                    "device.idle_pct"}),
+}
 SEED = 2**31 + 101  # larger than 32 signed bits hold
 ESCAPE = 25.0  # so that sky rays escape within the few hundred steps a CPU test can take
 
@@ -79,24 +89,25 @@ def test_the_compacting_loop_equals_the_masked_loop(fast, compact_every):
     assert len(set(masked[2].flatten().tolist())) >= 3
 
 
-def test_the_cell_resolves_from_its_files():
-    cell = harness.load_cell(CELL)
+@pytest.mark.parametrize("name", sorted(CELLS))
+def test_the_cell_resolves_from_its_files(name):
+    fast, number, per_layer = CELLS[name]
+    cell = harness.load_cell(name)
     assert cell.chips == 1 and harness.reference_module(cell) is kerr
     assert cell.config["renderer"]["model"] == "kerr" and cell.config["scene"]["spin"] == 0.9
     assert (cell.config["scene"]["width"], cell.config["scene"]["height"],
             cell.config["scene"]["max_steps"]) == (3840, 2160, 2000)
-    assert cell.config["reduced"] == [] and cell.traffic["renderer"] == {"fast_math": True}
+    assert cell.config["reduced"] == [] and cell.traffic["renderer"] == {"fast_math": fast}
     assert {m["name"] for m in cell.end_to_end} == {"frame_ms", "frame_ms_p95", "setup_s"}
-    assert {m["name"] for m in cell.per_layer} == {"host.issue_ms", "geodesic.roofline_pct",
-                                                  "device.idle_pct"}
+    assert {m["name"] for m in cell.per_layer} == per_layer
     assert cell.counts["ops_per_step"]["counts"]["kerr.euler.disk"] == 154
-    spec = cell.limits["numbers"]["off1_pct"]
-    assert set(cell.limits["numbers"]) == {"off1_pct"}
+    spec = cell.limits["numbers"][number]
+    assert set(cell.limits["numbers"]) == {number}
     assert spec["lower"] < spec["limit"] < min(spec["upper"], spec["faults_min"])
 
 
-def small():
-    cell = harness.load_cell(CELL)
+def small(name):
+    cell = harness.load_cell(name)
     cell.config["scene"].update(width=40, height=24, max_steps=100)
     cell.traffic.update(sample_within=2, compare_frames=1, warmup_frames=1)
     return cell
@@ -109,11 +120,12 @@ def run(cell, wrap=None, seconds=0.1):
                             device="cpu", wrap=wrap)
 
 
-def test_a_sound_run_is_correct():
-    out = run(small())
+@pytest.mark.parametrize("name", sorted(CELLS))
+def test_a_sound_run_is_correct(name):
+    out = run(small(name))
     assert out["correct"] and out["failed"] == 0 and out["attempted"] >= 1
     assert set(out["metrics"]) == {"frame_ms", "frame_ms_p95", "setup_s"}
-    assert out["checks"]["off1_pct"]["value"] == 0.0
+    assert out["checks"][CELLS[name][1]]["value"] == 0.0
 
 
 def _control(cell):
@@ -144,11 +156,13 @@ def _planted(kind):
 
 
 @pytest.mark.parametrize("broken", ["control", "stale", "half_rows", "band_altered"])
-def test_a_broken_run_is_not_correct(broken):
-    cell = small()
+@pytest.mark.parametrize("name", sorted(CELLS))
+def test_a_broken_run_is_not_correct(name, broken):
+    cell = small(name)
     wrap = {"control": lambda: _control(cell), "stale": _stale}.get(
         broken, lambda: _planted(broken))()
     out = run(cell, wrap, 0.8 if broken == "stale" else 0.1)
     assert not out["correct"], out["checks"]
     if broken == "control":
-        assert out["checks"]["off1_pct"]["value"] > 1.0
+        number = CELLS[name][1]
+        assert out["checks"][number]["value"] > 1.0

@@ -14,6 +14,7 @@ import torch
 
 import bhr_tpu_torch as T
 from bhr_tpu_torch.models import neural as tn
+from bhr_tpu_torch.models import neural_kerr as tnk
 from bhr_tpu_torch.ops import neural_kernel, shade_kernel, trace_kernel
 from bhr_tpu_torch.tools import frame_spans as fs
 from bhr_tpu_torch.utils import build, tracing
@@ -133,7 +134,8 @@ KEYS = ("launch.render_mono", "launch.render_mono.ks", "launch.render_mono.ks.fa
         "launch.trace_planes", "launch.trace_planes.strided", "launch.trace_planes.masked",
         "launch.trace_planes.custom", "launch.trace_planes.ks", "launch.trace_planes.ks.fast",
         "launch.trace_planes.fixed", "launch.neural_mlp",
-        "launch.neural_mlp.dirs", "launch.neural_mlp.band", "launch.shade_planes")
+        "launch.neural_mlp.dirs", "launch.neural_mlp.band", "launch.neural_mlp.kerr",
+        "launch.neural_mlp.streamed", "launch.shade_planes")
 KERR = T.TraceConfig(model="kerr", disk=True)
 DISK4 = dict(integrator="rk4", adaptive=True, disk=True)  # BASELINE config 4
 # trace_planes launches by (configuration, fast_math, multires pass): config
@@ -180,12 +182,33 @@ def fake_cuda(monkeypatch):
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
 
 
+def _random_kerr_net(width):
+    """A seeded Kerr-shaped net (22 -> width -> width -> 3)."""
+    g = torch.Generator().manual_seed(width)
+    dims = (22, width, width, 3)
+    return tn.NeuralSurrogate([(0.1 * torch.randn(i, o, generator=g), torch.zeros(o))
+                               for i, o in zip(dims[:-1], dims[1:])])
+
+
+# nets by their model and layout (neural_kernel.kernel_plan)
+NETS = {
+    "kerr": lambda: tnk.load_params(tn.ASSETS_DIR / "neural_kerr.npz")[0],  # 256 wide, streamed
+    "kerr128": lambda: _random_kerr_net(128),  # held
+    "orbit": lambda: tn.load_params(tn.ASSETS_DIR / "neural_schwarzschild_orbit.npz")[0],  # held
+    "orbit_xl": lambda: tn.load_params(tn.ASSETS_DIR / "neural_schwarzschild_orbit_xl.npz")[0],
+}
+
+
 def _launch(what):
     scene = T.SceneParams(screen_width=8, screen_height=6, max_steps=4)
     cam = T.Camera.default()
     planes = trace_kernel.empty_trace_result(6, 8, "cpu")
     frame = torch.empty((6, 8), dtype=torch.int32)
     net = tn.NeuralSurrogate(tn.load_params(tn.ASSETS_DIR / "neural_schwarzschild.npz")[0])
+    if what.startswith(("neural_mlp.", "band.", "dirs.")):  # another net than N1
+        what, key = what.split(".", 1)
+        net = NETS[key]()
+        scene = scene.replace(spin=0.9)
     calls = {
         "render_mono": lambda: trace_kernel.render_packed(cam, scene, device="cuda", out=frame),
         "render_mono.ks": lambda: trace_kernel.render_packed(cam, scene, KERR, device="cuda",
@@ -260,6 +283,17 @@ def _launch(what):
     ("neural_mlp", {"launch.neural_mlp"}, "kernel.neural_mlp"),
     ("band", {"launch.neural_mlp", "launch.neural_mlp.band"}, "kernel.neural_mlp"),
     ("dirs", {"launch.neural_mlp.dirs"}, "kernel.neural_mlp"),
+    # the Kerr net (N2) and the fused layout with its weights streamed, by net
+    ("neural_mlp.kerr", {"launch.neural_mlp", "launch.neural_mlp.kerr",
+                         "launch.neural_mlp.streamed"}, "kernel.neural_mlp"),
+    ("band.kerr", {"launch.neural_mlp", "launch.neural_mlp.band", "launch.neural_mlp.kerr",
+                   "launch.neural_mlp.streamed"}, "kernel.neural_mlp"),
+    ("dirs.kerr", {"launch.neural_mlp.dirs", "launch.neural_mlp.kerr",
+                   "launch.neural_mlp.streamed"}, "kernel.neural_mlp"),
+    ("neural_mlp.kerr128", {"launch.neural_mlp", "launch.neural_mlp.kerr"}, "kernel.neural_mlp"),
+    ("neural_mlp.orbit", {"launch.neural_mlp"}, "kernel.neural_mlp"),
+    ("neural_mlp.orbit_xl", {"launch.neural_mlp", "launch.neural_mlp.streamed"},
+     "kernel.neural_mlp"),
     ("shade_planes", {"launch.shade_planes"}, "kernel.shade_planes"),
 ])
 def test_each_launch_counts_once_under_its_keys(fake_cuda, what, counted, kernel):

@@ -39,7 +39,7 @@
 //    each output tile's k-steps are summed in order from 0 into one
 //    accumulator; the bias and tanhf are fp32 and the result is rounded to
 //    bf16 for the next layer; the head is an fmaf chain over k in order.
-//    Two layouts (below) compute the same bits.
+//    Three layouts (below) compute the same bits.
 //  * highest (neural_render_kernel<KERR, true>): fp32 operands and fmaf
 //    on the CUDA cores, over k in order for every output, then the bias,
 //    then tanhf; no TF32.
@@ -50,12 +50,12 @@
 // and plain version differ only where the matrix sums are taken in another
 // order. No --use_fast_math.
 //
-// Layout, default tier, fused (neural_fused_kernel<KERR, KMAX>; the plan of
-// every net whose widths are at most 256). What holds it on this card, at
-// 1920x1080 (tools/time_neural.py --floor, PERF.md): instruction issue --
-// each hidden output's tanhf is 16 SASS and 2 SFU operations, beside which
-// its 2.5 of products and loads are small -- then the tensor cores, then
-// the per-pixel phases. So:
+// Layout, default tier, held (neural_fused_kernel<KERR, 128>; the plan of
+// every net up to 128 wide whose weights fit beside the staging rows). What
+// holds it on this card, at 1920x1080 (tools/time_neural.py --floor,
+// PERF.md): instruction issue -- each hidden output's tanhf is 16 SASS and 2
+// SFU operations, beside which its 2.5 of products and loads are small --
+// then the tensor cores, then the per-pixel phases. So:
 //  * a warp owns 32 pixels (two m16 tiles) from the features to the store,
 //    one pixel a lane in the per-pixel phases, and keeps a layer's input in
 //    registers as A fragments (KMAX / 16 k-steps x 2 tiles x 4 registers);
@@ -65,17 +65,46 @@
 //  * the products of 16 output channels are woven with the tanh epilogue
 //    of the 16 before them (step16), so that one warp's instruction stream
 //    feeds the tensor cores and the ALU / SFU together.
-//  * persistent blocks, one an SM (registers: 162 a thread at KMAX 128,
-//    235-237 at 256), taking rounds of 32 pixels a warp in turn. Weights up to
-//    the block's room (N1's 74 KB) are copied once a block and held; wider
-//    nets stream them in chunks of 64 rows through two buffers, each
-//    chunk one bulk copy (weights kept in device memory with rows of in +
-//    8, the shared layout) completing on an mbarrier, issued by the last
-//    warp done with the buffer: a warp waits only for its next chunk.
+//  * persistent blocks, one an SM (162 registers a thread), taking rounds of
+//    32 pixels a warp in turn; the weights (N1's 74 KB) copied once a block
+//    and held. (Its streamed branch, a ring of two 64-row chunks, is the
+//    older design of wider nets, which no plan takes now: kept so that the
+//    held instantiations stay the code they were.)
 //  * the per-pixel geometry is computed once, with the features, and kept
 //    in shared memory for the end.
-// Still simple: mma.sync rather than wgmma (the tensor cores are not what
-// holds it), no warp specialisation.
+//
+// Layout, default tier, streamed (neural_fused_kernel_ws<KERR>; every other
+// net up to 256 wide, N2's 22-256-256-256-3 among them). The same issue
+// bound at 256 wide; with mma.sync on one instruction stream a warp, eight
+// warps at 235 registers and a two-chunk ring the kernel took the sum of its
+// tensor, issue and L2 terms. So the work is split among warpgroups that
+// run at once, and the products leave the issue stream:
+//  * two consumer warpgroups, 64 pixels each (wgmma's M): a layer is chunks
+//    of 64 output channels (wgmma.m64n64k16, k-steps in order from 0 into
+//    one accumulator, A from registers, B from the ring). Once a chunk's
+//    products are done the next chunk's are issued, and the done chunk's
+//    bias + tanhf + bf16 rounding runs beside them: the tensor cores no
+//    longer take issue slots from tanhf. The first layer's outputs go
+//    straight into the second's A fragments (FlashAttention-3's P.V
+//    layout); later layers' through the warp's staging rows and ldmatrix.
+//  * a producer warp keeps a ring of four 32-KB slots full (full and empty
+//    mbarriers; consumers only wait and arrive): a slot holds one layer's
+//    chunks that fit (the first layer's all), one cp.async.bulk by each
+//    block of a cluster of two, multicast to both, so a chunk read from L2
+//    feeds 256 pixels as before. A consumer warp releases a slot with the
+//    default (block-scope) release: at cluster scope the arrival fenced
+//    every earlier access and cost a third of the frame.
+//  * a pixel warpgroup, one pixel a thread, runs the per-pixel phases beside
+//    the MLP: round j's features, then round j - 1's head (the fmaf chain
+//    over the warpgroup's staging rows) and end.
+//  * setmaxnreg moves the registers: 192 a consumer thread, 104 a pixel
+//    thread, 24 the producer's warpgroup (ptxas: 128 at entry for 512
+//    threads, no spills). wgmma.m64n64k16 reaches 76% of the bf16 peak with
+//    A from registers (m64n32k16 47%; tools/neural_floor.py's nf_wgmma), and
+//    its k-step chain gives mma.sync's bits, so every frame is the held and
+//    the chunked layouts' (nf_layer_bits). The card holds 66 clusters; at
+//    4K what holds it is the pixel warpgroup's serial work beside the
+//    consumers' tanhf (PERF.md).
 //
 // Layout, default tier, chunked (neural_render_kernel<KERR, false>; nets
 // wider than 256, up to 1152). A block of `pix` pixels and 256 threads
@@ -145,11 +174,11 @@ constexpr int kMaxLayers = 8;
 struct MlpDesc {
   int n_layers;
   int dims[kMaxLayers + 1];  // dims[0]: padded inputs; dims[l + 1]: layer l's outputs
-  int pix;                   // pixels per block
+  int pix;                   // pixels per block (streamed: a cluster's round)
   int n_chunk;               // default: output channels a weight chunk; fp32: W rows a slab
   int nbuf;                  // weight-chunk buffers: 2 overlaps copy and products; 0: all held
-  int regs;                  // default tier: 0 chunked, 128 / 256 fused (its register width)
-  const void* w[kMaxLayers];   // layer l: W^T (dims[l + 1], dims[l] (+ 8 fused)) bf16, or W fp32
+  int regs;                  // default tier: 0 chunked, 128 held fused, 256 streamed
+  const void* w[kMaxLayers];   // layer l: W^T bf16 (see prep_weights), or W fp32
   const float* b[kMaxLayers];  // layer l: bias (dims[l + 1],), fp32
 };
 
@@ -839,7 +868,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- the default tier, fused --------------------------------------------
+// ---- the default tier, held ---------------------------------------------
 //
 // A warp owns 32 pixels (two m16 tiles) from the features to the store. A
 // layer's input stays in registers as mma A fragments (16 bytes a lane a
@@ -848,9 +877,9 @@ __global__ void __launch_bounds__(kThreads)
 // shared memory, which the next layer reads back as fragments by ldmatrix:
 // no block barrier between layers. The weights (W^T, the mma's B) are read
 // from shared memory by ldmatrix, once for both tiles. KMAX is the widest
-// layer's register width: 128 (12 warps a block, 64 registers of A) or
-// 256 (8 warps, 128 registers of A); the inputs are 16 or 32 wide, the
-// hidden layers 128 or 256 (shapes_ok).
+// layer's register width, 128 (12 warps a block, 64 registers of A; the
+// 256 the template also takes is instantiated by no launch); the inputs are
+// 16 or 32 wide, the hidden layers 128 (shapes_ok).
 
 // Warps a block of the fused layout at register width 128 or 256: as many
 // as their registers and staging rows leave room for, one block an SM.
@@ -1255,6 +1284,501 @@ int launch_fused(const Params& p, uint32_t seed_term, int height, int width, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the default tier, streamed: warpgroups on wgmma ----------------------
+//
+// neural_fused_kernel_ws<KERR> (the source header's note says why it is so):
+// a block is two consumer warpgroups (the hidden layers on wgmma, 64
+// pixels each), the producer's warpgroup (one warp keeps the weight ring
+// full; three idle) and the pixel warpgroup (features, head and the pixel's
+// end, one pixel a thread); two blocks a cluster, sharing each copy.
+
+constexpr int kWsConsumers = 2;                       // consumer warpgroups a block
+constexpr int kWsThreads = 128 * (kWsConsumers + 2);  // and the producer's and the pixels'
+constexpr int kWsCluster = 2;                         // blocks a cluster
+constexpr int kWsM = 64;                              // pixels a consumer warpgroup
+constexpr int kWsPix = kWsM * kWsConsumers;           // pixels a block's round
+constexpr int kWsRound = kWsPix * kWsCluster;         // pixels a cluster's round
+constexpr int kWsN = 64;                              // output channels a chunk
+constexpr int kWsStages = 4;                          // slots of the ring
+constexpr int kWsKmax = 256;                          // the widest layer input
+constexpr int kWsLd = kWsKmax + 8;                    // staging row: bf16, 16 bytes of padding
+constexpr int kWsFeatLd = 32 + 8;                     // feature row: bf16, 16 bytes of padding
+constexpr int kWsSlot = kWsN * kWsKmax * 2;           // bytes of a ring slot
+// setmaxnreg: 128 x (24 + 104 + 2 x 192) = 65,536, the block's registers
+constexpr int kWsProducerRegs = 24, kWsPixelRegs = 104, kWsConsumerRegs = 192;
+
+// Shared memory of the streamed block: the ring, each consumer warpgroup's
+// staging rows, two rounds of features, the head's weights in fp32, and the
+// mbarriers: the ring's full and empty, a full and an empty of each round
+// buffer of features, and of each warpgroup's staging rows.
+__host__ __device__ __forceinline__ int64_t ws_smem_bytes(const MlpDesc& m, int k_out) {
+  return static_cast<int64_t>(kWsStages) * kWsSlot +
+         static_cast<int64_t>(kWsConsumers) * kWsM * kWsLd * 2 + 2 * kWsPix * kWsFeatLd * 2 +
+         static_cast<int64_t>(k_out) * m.dims[m.n_layers - 1] * 4 +
+         (2 * kWsStages + 4 + 2 * kWsConsumers) * 8;
+}
+
+// Chunks of a layer of k_in inputs that one slot of the ring holds: its
+// unit, the layer's chunks in order as one copy.
+__host__ __device__ constexpr int ws_unit_chunks(int k_in) { return kWsKmax / k_in; }
+
+// A chunk in shared memory (and in device memory, prep_weights' layout):
+// 64 rows of W^T (output channels) by k_in, as wgmma's K-major B without
+// swizzle -- core matrices of 8 rows x 8 k (128 contiguous bytes), the 8
+// of a group of 8 k at 128 bytes from each other, groups of 8 k at 1024.
+// The descriptor of the k-step at byte address `saddr`: LBO (the next 8 k)
+// 1024 bytes, SBO (the next 8 rows) 128; a k-step is 2048 bytes further.
+__device__ __forceinline__ uint64_t ws_desc(unsigned saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+// D (+)= A B for the warpgroup's 64 rows and 64 channels, one k-step: A
+// from registers, B by descriptor; the sum starts from D where ACC, from 0
+// otherwise (D then only written). Asynchronous: D and A stay untouched
+// until a wgmma_wait covers it.
+template <bool ACC>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+#define BHR_WGMMA_N64(D)                                                                    \
+  asm volatile(                                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                                \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "              \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                                          \
+      : D(d[0]), D(d[1]), D(d[2]), D(d[3]), D(d[4]), D(d[5]), D(d[6]), D(d[7]), D(d[8]),      \
+        D(d[9]), D(d[10]), D(d[11]), D(d[12]), D(d[13]), D(d[14]), D(d[15]), D(d[16]),        \
+        D(d[17]), D(d[18]), D(d[19]), D(d[20]), D(d[21]), D(d[22]), D(d[23]), D(d[24]),       \
+        D(d[25]), D(d[26]), D(d[27]), D(d[28]), D(d[29]), D(d[30]), D(d[31])                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(ACC ? 1 : 0))
+#define BHR_ACC(x) "+f"(x)
+#define BHR_SET(x) "=f"(x)
+  if constexpr (ACC) {
+    BHR_WGMMA_N64(BHR_ACC);
+  } else {
+    BHR_WGMMA_N64(BHR_SET);
+  }
+#undef BHR_SET
+#undef BHR_ACC
+#undef BHR_WGMMA_N64
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of registers across a wgmma wait
+// (an empty asm that reads and writes them).
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int KS>
+__device__ __forceinline__ void reg_fence_a(uint32_t (&a)[kWsKmax / 16][4]) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[ks][i])::"memory");
+  }
+}
+
+// Every thread of the cluster: arrive (release), then wait (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// One arrival on the mbarrier at `bar`'s offset in block `rank` of the
+// cluster. Its default release is the block's: what it orders is the
+// arriving warp's wgmma reads, which the wgmma wait has completed (a
+// release at cluster scope fences every earlier access of the thread and
+// cost ~1 ms a 1080p frame).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, unsigned rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// `bytes` from device memory to shared address `dst` of every block of the
+// cluster, each completing on the mbarrier at `bar`'s offset in its block.
+__device__ __forceinline__ void bulk_copy_multicast(unsigned dst, const void* src, unsigned bytes,
+                                                    uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(static_cast<uint16_t>((1u << kWsCluster) - 1))
+      : "memory");
+}
+
+// Unit c of the ring (its consumers count every unit they read): wait for
+// it to land, and its slot's descriptor.
+__device__ __forceinline__ uint64_t ws_unit(unsigned ring, uint64_t* full, uint32_t c) {
+  mbar_wait(full + c % kWsStages, (c / kWsStages) & 1u);
+  return ws_desc(ring + (c % kWsStages) * kWsSlot);
+}
+
+// This warp's products of unit c have completed: one arrival on the unit's
+// empty mbarrier in every block of the cluster, whose producers both copy
+// into this block's slot.
+__device__ __forceinline__ void ws_release(uint64_t* empty, uint32_t c) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) {
+#pragma unroll
+    for (int r = 0; r < kWsCluster; ++r) mbar_arrive_cluster(empty + c % kWsStages, r);
+  }
+}
+
+// This warp's 16 rows of a layer's input as A fragments, k-step ks of the
+// k_in inputs in a[ks], from rows of `ld` bf16 (`rows`: its first).
+__device__ __forceinline__ void ws_load_a(uint32_t (&a)[kWsKmax / 16][4],
+                                          const __nv_bfloat16* __restrict__ rows, int ld,
+                                          int k_in) {
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* r = rows + (lane % 8 + ((lane / 8) % 2) * 8) * ld + (lane / 16) * 8;
+#pragma unroll
+  for (int ks = 0; ks < kWsKmax / 16; ++ks) {
+    if (16 * ks >= k_in) break;
+    ldmatrix_x4(a[ks], r + 16 * ks);
+  }
+}
+
+// Issue a chunk's products (`desc`: its descriptor): KS k-steps in order
+// from 0 into d, one group.
+template <int KS>
+__device__ __forceinline__ void ws_products(float (&d)[32], const uint32_t (&a)[kWsKmax / 16][4],
+                                            uint64_t desc) {
+  wgmma_fence();
+  wgmma_n64<false>(d, a[0], desc);
+#pragma unroll
+  for (int ks = 1; ks < KS; ++ks) wgmma_n64<true>(d, a[ks], desc + 128 * ks);
+  wgmma_commit();
+}
+
+// A chunk's epilogue, this lane's 32 outputs: bf16(tanh(d + b)), columns
+// 8 j + 2 t and + 1 of rows g and g + 8 (wgmma's D fragments: mma.sync's C
+// a warp), into the warp's staging rows (`rows`: row g at the chunk's first
+// channel).
+__device__ __forceinline__ void ws_epilogue(const float (&d)[32], const float* __restrict__ bias,
+                                            __nv_bfloat16* __restrict__ rows) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kWsN / 8; ++j) {
+    const int n = 8 * j + 2 * t;
+    const float b0 = bias[n], b1 = bias[n + 1];
+    *reinterpret_cast<__nv_bfloat162*>(rows + n) =
+        __floats2bfloat162_rn(tanhf(d[4 * j] + b0), tanhf(d[4 * j + 1] + b1));
+    *reinterpret_cast<__nv_bfloat162*>(rows + 8 * kWsLd + n) =
+        __floats2bfloat162_rn(tanhf(d[4 * j + 2] + b0), tanhf(d[4 * j + 3] + b1));
+  }
+}
+
+// The same outputs into A fragments of the next layer (FlashAttention-3's
+// P.V layout): 8-column block c8 + j is k-step (c8 + j) / 2's registers 0
+// and 1 (an even block) or 2 and 3 (an odd one), c8 the chunk's first. c8
+// is a constant once the caller is unrolled, so `out` stays in registers.
+__device__ __forceinline__ void ws_epilogue_a(const float (&d)[32], const float* __restrict__ bias,
+                                              uint32_t (&out)[kWsKmax / 16][4], int c8) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kWsN / 8; ++j) {
+    const int n = 8 * j + 2 * t;
+    const float b0 = bias[n], b1 = bias[n + 1];
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(tanhf(d[4 * j] + b0), tanhf(d[4 * j + 1] + b1));
+    const __nv_bfloat162 hi =
+        __floats2bfloat162_rn(tanhf(d[4 * j + 2] + b0), tanhf(d[4 * j + 3] + b1));
+    out[(c8 + j) / 2][2 * ((c8 + j) % 2)] = *reinterpret_cast<const uint32_t*>(&lo);
+    out[(c8 + j) / 2][2 * ((c8 + j) % 2) + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+  }
+}
+
+// One layer of NC chunks (n_out = 64 NC outputs) over KS k-steps, from
+// ring units c ..: once a chunk's products are done, its unit is released
+// if it was the unit's last chunk, the next chunk's products are issued,
+// and the done chunk's epilogue runs beside them -- into the warp's staging
+// rows, or (TO_A) into `out` as the next layer's A fragments. Unrolled, so
+// that no accumulator is in flight across a branch or a loop's back edge.
+template <int KS, int NC, bool TO_A>
+__device__ __forceinline__ void ws_layer(uint32_t (&a)[kWsKmax / 16][4], unsigned ring,
+                                         uint64_t* full, uint64_t* empty, uint32_t c,
+                                         const float* __restrict__ bias,
+                                         __nv_bfloat16* __restrict__ rows,
+                                         uint32_t (&out)[kWsKmax / 16][4]) {
+  constexpr int kUnit = ws_unit_chunks(16 * KS) < NC ? ws_unit_chunks(16 * KS) : NC;
+  constexpr uint64_t kChunkDesc = kWsN * 16 * KS * 2 >> 4;  // a chunk's bytes, in 16
+  float d[2][32];
+  uint64_t desc = ws_unit(ring, full, c);
+  ws_products<KS>(d[0], a, desc);
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    wgmma_wait_all();
+    reg_fence(d[n % 2]);
+    if (n % kUnit == kUnit - 1 || n == NC - 1) ws_release(empty, c + n / kUnit);
+    if (n + 1 < NC) {
+      if ((n + 1) % kUnit == 0) desc = ws_unit(ring, full, c + (n + 1) / kUnit);
+      ws_products<KS>(d[(n + 1) % 2], a, desc + (n + 1) % kUnit * kChunkDesc);
+    }
+    if constexpr (TO_A) {
+      ws_epilogue_a(d[n % 2], bias + n * kWsN, out, n * kWsN / 8);
+    } else {
+      ws_epilogue(d[n % 2], bias + n * kWsN, rows + n * kWsN);
+    }
+  }
+  reg_fence_a<KS>(a);  // the last products read a until the last wait
+}
+
+// ws_layer for n_out of 128 or 256; c counts on past the layer's units.
+template <int KS, bool TO_A>
+__device__ __forceinline__ void ws_layer_any(uint32_t (&a)[kWsKmax / 16][4], unsigned ring,
+                                             uint64_t* full, uint64_t* empty, uint32_t& c,
+                                             const float* __restrict__ bias,
+                                             __nv_bfloat16* __restrict__ rows, int n_out,
+                                             uint32_t (&out)[kWsKmax / 16][4]) {
+  constexpr int kUnit = ws_unit_chunks(16 * KS);
+  if (n_out == 2 * kWsN) {
+    ws_layer<KS, 2, TO_A>(a, ring, full, empty, c, bias, rows, out);
+    c += (2 + kUnit - 1) / kUnit;
+  } else {
+    ws_layer<KS, 4, TO_A>(a, ring, full, empty, c, bias, rows, out);
+    c += (4 + kUnit - 1) / kUnit;
+  }
+}
+
+template <bool KERR>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    neural_fused_kernel_ws(const Params p, const uint32_t seed_term, const int height,
+                           const int width, const MlpDesc mlp, uint32_t* __restrict__ frame,
+                           float* __restrict__ vel, int32_t* __restrict__ status) {
+  constexpr int kOut = KERR ? 3 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;  // consumers 0 .. kWsConsumers - 1, the producer, the pixels
+  const int lh = mlp.n_layers - 1, k_head = mlp.dims[lh];
+  auto* stg_all = reinterpret_cast<__nv_bfloat16*>(smem + kWsStages * kWsSlot);
+  __nv_bfloat16* feats = stg_all + kWsConsumers * kWsM * kWsLd;  // [2][kWsPix][kWsFeatLd]
+  float* hw = reinterpret_cast<float*>(feats + 2 * kWsPix * kWsFeatLd);
+  auto* full = reinterpret_cast<uint64_t*>(hw + kOut * k_head);  // a unit landed
+  uint64_t* empty = full + kWsStages;      // a unit read by every consumer warp of the cluster
+  uint64_t* feat_full = empty + kWsStages;  // a round's features written
+  uint64_t* feat_empty = feat_full + 2;     // ... read by every consumer warp
+  uint64_t* stg_full = feat_empty + 2;      // a warpgroup's last layer in its staging rows
+  uint64_t* stg_free = stg_full + kWsConsumers;  // ... read by the pixel warps
+  const unsigned ring = smem_addr(smem);
+  unsigned rank, cluster, clusters;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  asm("mov.u32 %0, %%clusterid.x;\n" : "=r"(cluster));
+  asm("mov.u32 %0, %%nclusterid.x;\n" : "=r"(clusters));
+  const int64_t n_pixels = static_cast<int64_t>(height) * width;
+  const int64_t rounds = (n_pixels + kWsRound - 1) / kWsRound;  // the same in both blocks
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWsStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWsConsumers * 4 * kWsCluster);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(feat_full + b, 4);
+      mbar_init(feat_empty + b, kWsConsumers * 4);
+    }
+    for (int w = 0; w < kWsConsumers; ++w) {
+      mbar_init(stg_full + w, 4);
+      mbar_init(stg_free + w, kWsM / 32);  // the pixel warps of the warpgroup's rows
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const auto* wh = static_cast<const __nv_bfloat16*>(mlp.w[lh]);  // W^T (kOut, k_head)
+  for (int i = threadIdx.x; i < kOut * k_head; i += kWsThreads) hw[i] = __bfloat162float(wh[i]);
+  cluster_sync();  // every block's barriers initialised, the head's weights in place
+
+  if (wg == kWsConsumers) {
+    // the producer: unit c (each hidden layer's chunks in order, as many a
+    // unit as a slot holds, round after round) into slot c % kWsStages once
+    // every consumer warp of the cluster has released the unit before it
+    // there; this block copies part `rank` of it into both blocks
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWsProducerRegs));
+    if (warp == 4 * kWsConsumers) {  // one warp, so that its lanes never wait apart
+      uint32_t c = 0;  // units issued
+      for (int64_t rnd = cluster; rnd < rounds; rnd += clusters) {
+        for (int l = 0; l < lh; ++l) {
+          const int k = mlp.dims[l], nc = mlp.dims[l + 1] / kWsN;
+          const int per = nc < ws_unit_chunks(k) ? nc : ws_unit_chunks(k);
+          for (int n0 = 0; n0 < nc; n0 += per, ++c) {
+            const unsigned part = 2u * kWsN * k * per / kWsCluster;  // this block's bytes
+            const unsigned slot = c % kWsStages;
+            mbar_wait(empty + slot, ((c / kWsStages) & 1u) ^ 1u);
+            if (lane == 0) {
+              mbar_expect_tx(full + slot, part * kWsCluster);
+              bulk_copy_multicast(ring + slot * kWsSlot + rank * part,
+                                  static_cast<const char*>(mlp.w[l]) +
+                                      2 * static_cast<int64_t>(n0) * kWsN * k + rank * part,
+                                  part, full + slot);
+            }
+            __syncwarp();
+          }
+        }
+      }
+    }
+    cluster_sync();  // no block leaves while a copy or an arrival may reach it
+  } else if (wg == kWsConsumers + 1) {
+    // the pixels: one a thread, pixel i of the block's round for row i % 64
+    // of consumer warpgroup i / 64. Round j's features into buffer j % 2,
+    // then the head of round j - 1 from the warpgroup's staging rows, which
+    // are then free, and the pixel's end; the geometry kept in registers
+    // from one round to the next
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWsPixelRegs));
+    const int i = threadIdx.x % 128, wc = i / kWsM;
+    const Frame fr = frame_constants(p);
+    Geo prev{};
+    int64_t prev_id = -1;  // the pixel of the round before, -1 where none or past the frame
+    uint32_t j = 0;
+    auto finish = [&](uint32_t jr) {  // the end of round jr
+      float head[kOut];
+      mbar_wait(stg_full + wc, jr & 1u);
+      fused_head<kOut>(stg_all + (wc * kWsM + i % kWsM) * kWsLd, hw, k_head, mlp.b[lh], head);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(stg_free + wc);
+      if (prev_id >= 0) shade_geo<KERR>(p, fr, prev_id, prev, head, seed_term, frame, vel, status);
+    };
+    for (int64_t rnd = cluster; rnd < rounds; rnd += clusters, ++j) {
+      const int64_t id = rnd * kWsRound + rank * kWsPix + i;
+      float f[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) f[k] = 0.0f;
+      Geo g{};
+      if (id < n_pixels) {
+        g = pixel_geometry<KERR>(p, fr, static_cast<int>(id / width),
+                                 static_cast<int>(id % width), f);
+      }
+      mbar_wait(feat_empty + j % 2, ((j / 2) & 1u) ^ 1u);
+      uint4* row = reinterpret_cast<uint4*>(feats + ((j % 2) * kWsPix + i) * kWsFeatLd);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (8 * q >= mlp.dims[0]) break;
+        uint32_t u[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(f[8 * q + 2 * e], f[8 * q + 2 * e + 1]);
+          u[e] = *reinterpret_cast<const uint32_t*>(&h2);
+        }
+        row[q] = make_uint4(u[0], u[1], u[2], u[3]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(feat_full + j % 2);
+      if (j > 0) finish(j - 1);
+      prev = g;
+      prev_id = id < n_pixels ? id : -1;
+    }
+    if (j > 0) finish(j - 1);
+    cluster_sync();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWsConsumerRegs));
+    const int tw = threadIdx.x % 128, wq = tw / 32;
+    __nv_bfloat16* stg = stg_all + wg * kWsM * kWsLd;
+    const __nv_bfloat16* warp_rows = stg + 16 * wq * kWsLd;
+    __nv_bfloat16* rows = stg + (16 * wq + lane / 4) * kWsLd;
+    uint32_t c = 0;  // units read
+    uint32_t j = 0;  // rounds
+    for (int64_t rnd = cluster; rnd < rounds; rnd += clusters, ++j) {
+      // 1. the round's features from the pixel warps, as this warp's A
+      // fragments of the first layer
+      uint32_t a0[kWsKmax / 16][4], a[kWsKmax / 16][4];
+      mbar_wait(feat_full + j % 2, (j / 2) & 1u);
+      ws_load_a(a0, feats + ((j % 2) * kWsPix + wg * kWsM + 16 * wq) * kWsFeatLd, kWsFeatLd,
+                mlp.dims[0]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(feat_empty + j % 2);
+      // 2. the first layer, its outputs as the second's A fragments where it
+      // is not the last; the staging rows stay the pixel warps' meanwhile
+      const int n0 = mlp.dims[1];
+      const bool last0 = lh == 1;
+      if (last0) mbar_wait(stg_free + wg, (j & 1u) ^ 1u);
+      if (mlp.dims[0] == 16) {
+        if (last0) {
+          ws_layer_any<1, false>(a0, ring, full, empty, c, mlp.b[0], rows, n0, a);
+        } else {
+          ws_layer_any<1, true>(a0, ring, full, empty, c, mlp.b[0], rows, n0, a);
+        }
+      } else if (last0) {
+        ws_layer_any<2, false>(a0, ring, full, empty, c, mlp.b[0], rows, n0, a);
+      } else {
+        ws_layer_any<2, true>(a0, ring, full, empty, c, mlp.b[0], rows, n0, a);
+      }
+      // 3. the other hidden layers: each warp's 16 rows in and out of its
+      // own staging rows, so no barrier between layers
+      if (!last0) mbar_wait(stg_free + wg, (j & 1u) ^ 1u);
+      for (int l = 1; l < lh; ++l) {
+        const int k_in = mlp.dims[l], n_out = mlp.dims[l + 1];
+        if (k_in == 128) {
+          ws_layer_any<8, false>(a, ring, full, empty, c, mlp.b[l], rows, n_out, a);
+        } else {
+          ws_layer_any<16, false>(a, ring, full, empty, c, mlp.b[l], rows, n_out, a);
+        }
+        __syncwarp();  // the layer's outputs are in the warp's staging rows
+        if (l + 1 < lh) ws_load_a(a, warp_rows, kWsLd, n_out);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(stg_full + wg);  // the last layer's rows, for the head
+    }
+    cluster_sync();
+  }
+}
+
+template <bool KERR>
+int launch_ws(const Params& p, uint32_t seed_term, int height, int width, const MlpDesc& mlp,
+              uint32_t* frame, float* vel, int32_t* status, cudaStream_t s) {
+  const int64_t smem = ws_smem_bytes(mlp, KERR ? 3 : 2);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = neural_fused_kernel_ws<KERR>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kWsCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kWsCluster);
+  cfg.blockDim = dim3(kWsThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // persistent clusters: as many as are resident, each taking rounds in
+  // turn; a device's count is found at its first launch (every net of the
+  // layout takes one block an SM)
+  static int resident[64] = {};
+  int device = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[device] < 1 &&
+      (err = cudaOccupancyMaxActiveClusters(&resident[device], kernel, &cfg)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int clusters = resident[device];
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t rounds = (static_cast<int64_t>(height) * width + kWsRound - 1) / kWsRound;
+  cfg.gridDim = dim3(kWsCluster * static_cast<unsigned>(rounds < clusters ? rounds : clusters));
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, p, seed_term, height, width, mlp, frame, vel,
+                                status)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool KERR, bool HI>
 int launch(const Params& p, uint32_t seed_term, int height, int width, const MlpDesc& mlp,
            uint32_t* frame, float* vel, int32_t* status, cudaStream_t s) {
@@ -1272,8 +1796,11 @@ int launch(const Params& p, uint32_t seed_term, int height, int width, const Mlp
 }
 
 // The shapes the kernel takes: 2..kMaxLayers layers; inputs padded to a
-// multiple of 16 that holds the model's features; the model's head; one or
-// two weight-chunk buffers. Default tier: hidden widths that n_chunk (a
+// multiple of 16 that holds the model's features; the model's head. The
+// streamed layout: its one plan, inputs of 16 or 32, hidden widths of 128
+// or 256. The held layout: its plan, every weight held (so its kernel's
+// streamed branch is never launched), hidden widths up to 128. Otherwise one
+// or two weight-chunk buffers. Default tier: hidden widths that n_chunk (a
 // multiple of 64) divides, and pix a multiple of 16. fp32 tier: hidden
 // widths that are multiples of the warp tile's 128 channels, pix a multiple
 // of its 32 pixels, at most kMaxOutputs of a layer's outputs a block, and
@@ -1282,9 +1809,14 @@ bool shapes_ok(const MlpDesc& m, bool kerr, bool hi) {
   if (m.n_layers < 2 || m.n_layers > kMaxLayers) return false;
   if (m.dims[0] % 16 != 0 || m.dims[0] < (kerr ? 22 : 16)) return false;
   if (m.dims[m.n_layers] != (kerr ? 3 : 2)) return false;
-  if (m.regs != 0) {  // the fused default tier: every width held in KMAX registers
-    if (hi || (m.regs != 128 && m.regs != 256) || m.pix != 32 * fused_warps(m.regs)) return false;
-    if (m.nbuf != 0 && (m.nbuf != 2 || m.n_chunk != 64)) return false;
+  if (m.regs == 256) {  // the streamed default tier: widths of 128 or 256, inputs up to 32
+    if (hi || m.pix != kWsRound || m.n_chunk != kWsN || m.nbuf != kWsStages) return false;
+    if (m.dims[0] > 32) return false;
+    for (int l = 1; l < m.n_layers; ++l) {
+      if (m.dims[l] != 128 && m.dims[l] != 256) return false;
+    }
+  } else if (m.regs != 0) {  // the held default tier: every width held in KMAX registers
+    if (hi || m.regs != 128 || m.pix != 32 * fused_warps(m.regs) || m.nbuf != 0) return false;
     if (m.dims[0] > 32) return false;  // one or two k-steps of inputs
     for (int l = 1; l < m.n_layers; ++l) {
       if (m.dims[l] > m.regs || m.dims[l] % 128 != 0) return false;
@@ -1349,10 +1881,10 @@ extern "C" int bhr_neural_render(bhr::Params params, uint32_t seed_term, int ker
     return bhr::launch_fused<false, 128>(params, seed_term, height, width, mlp, frame, v, st, s);
   }
   if (mlp.regs == 256 && kerr) {
-    return bhr::launch_fused<true, 256>(params, seed_term, height, width, mlp, frame, v, st, s);
+    return bhr::launch_ws<true>(params, seed_term, height, width, mlp, frame, v, st, s);
   }
   if (mlp.regs == 256) {
-    return bhr::launch_fused<false, 256>(params, seed_term, height, width, mlp, frame, v, st, s);
+    return bhr::launch_ws<false>(params, seed_term, height, width, mlp, frame, v, st, s);
   }
   if (kerr && highest) {
     return bhr::launch<true, true>(params, seed_term, height, width, mlp, frame, v, st, s);

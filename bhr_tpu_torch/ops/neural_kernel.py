@@ -19,9 +19,11 @@ the nets bhr_tpu sends its kernel (`kernel_takes`: hidden widths that are
 multiples of 128); the kernel holds those of at most 8 layers up to what a
 block's shared memory holds (`kernel_plan`: widths up to 1152 in the
 default tier, 1024 in the highest) and raises for any other. The default
-tier has two layouts of the same bits, chosen by the net's widths alone
-(`kernel_plan`): the fused one (a warp's 32 pixels through every layer,
-activations in registers) up to 256 wide, the chunked one beyond.
+tier has three layouts of the same bits, chosen by the net's widths alone
+(`kernel_plan`): the held one (a warp's 32 pixels through every layer,
+every weight in shared memory) for nets up to 128 wide whose weights fit,
+the streamed one (warpgroups on wgmma, the weights streamed through a ring)
+for the others up to 256 wide, the chunked one beyond.
 `neural_trace_dirs` is the same kernel's direction-plane output (N3,
 bhr_tpu's emit="dirs"): it stores the unit directions and the capture
 status as a TraceResult instead of shading them, for frames with a texture
@@ -76,12 +78,15 @@ from .trace_kernel import (
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use (sm_90)
 KERNEL_TIERS = ("default", "highest")
 # The block plans: (pixels a block, rows a weight chunk, chunk buffers,
-# register width). Default tier, fused layout (csrc/neural_mlp.cu
-# neural_fused_kernel), for nets whose every width fits the register width
-# of A fragments, 128 or 256: a warp owns 32 pixels through every layer,
-# _FUSED_WARPS warps a block; the weights held whole (0 buffers) where they
-# fit beside the warps' staging rows, else streamed in chunks of 64 rows
-# through 2 buffers. Wider nets take the chunked layout (register width 0):
+# register width). Default tier, held layout (csrc/neural_mlp.cu
+# neural_fused_kernel, register width 128), for nets up to 128 wide whose
+# weights fit beside the warps' staging rows: a warp owns 32 pixels through
+# every layer, _HELD_WARPS warps a block, the weights held whole (0
+# buffers). Streamed layout (neural_fused_kernel_ws, register width 256),
+# for the other nets up to 256 wide: STREAMED_PLAN, a cluster of two blocks
+# of two consumer warpgroups of 64 pixels takes rounds of 256 pixels, the
+# weights streamed in chunks of 64 output channels through a ring of 4.
+# Wider nets take the chunked layout (register width 0):
 # pixels a block and output channels a weight chunk (mma items are 16
 # pixels x 64 channels). fp32 tier: pixels a block and W rows a weight
 # slab. There a thread holds 8 pixels x 16 channels of a warp tile of
@@ -90,13 +95,14 @@ KERNEL_TIERS = ("default", "highest")
 # most _MAX_OUTPUTS = pix x widest outputs: 256 pixels for the 128-wide
 # nets, 128 for the 256-wide, 32 for the 1024-wide. Two chunk buffers
 # before one, then the largest chunk.
-_FUSED_WARPS = {128: 12, 256: 8}
+_HELD_WARPS = 12
 _PIX = {"default": (128, 64, 32, 16), "highest": (256, 128, 64, 32)}
 _CHUNK = {"default": (64,), "highest": (32, 16)}
 _MAX_OUTPUTS = 256 * 8 * 16
-# the fused layout at register width 256, its weights streamed (214,048
-# bytes of shared memory at most)
-STREAMED_PLAN = (32 * _FUSED_WARPS[256], 64, 2, 256)
+# the streamed layout (222,336 bytes of shared memory at most): consumer
+# warpgroups a block, their pixels (wgmma's M), the widest input
+_WS_CONSUMERS, _WS_M, _WS_KMAX = 2, 64, 256
+STREAMED_PLAN = (2 * _WS_CONSUMERS * _WS_M, 64, 4, 256)
 
 
 def as_surrogate(params) -> NeuralSurrogate:
@@ -131,12 +137,15 @@ def mlp_dims(params) -> list[int]:
 def smem_bytes(dims, plan, precision: str) -> int:
     """Shared memory of a block of `plan` for a net of widths `dims`
     (mlp_dims), as csrc/neural_mlp.cu counts it (fused_smem_bytes,
-    smem_bytes). Fused: each warp's 32 staging rows of regs + 8 bf16, the
-    hidden layers' W^T held whole (rows of in + 8 bf16) or `nbuf` chunks of
-    n_chunk rows at the staging's stride, the head's weights in fp32, 8
-    floats of geometry a pixel, and in a streamed block 32 bytes of
-    barriers. Chunked: two activation buffers of pix rows of hmax + 8 bf16
-    and `nbuf` chunks of n_chunk rows of W^T at that stride; fp32 tier: one
+    ws_smem_bytes, smem_bytes). Held: each warp's 32 staging rows of
+    regs + 8 bf16, the hidden layers' W^T held whole (rows of in + 8 bf16),
+    the head's weights in fp32, 8 floats of geometry a pixel. Streamed: a
+    ring of `nbuf` slots of n_chunk x 256 bf16, each consumer warpgroup's 64
+    staging rows of 264 bf16, two rounds of the block's 128 pixels'
+    features in rows of 40 bf16, the head's weights in fp32 and 8 + 2 nbuf
+    mbarriers. Chunked: two activation buffers of
+    pix rows of hmax + 8 bf16 and `nbuf` chunks of n_chunk rows of W^T at
+    that stride; fp32 tier: one
     activation buffer of hmax rows of pix + 4 floats and `nbuf` slabs of
     n_chunk rows of hmax floats (hmax: the widest of dims but the
     outputs)."""
@@ -144,12 +153,14 @@ def smem_bytes(dims, plan, precision: str) -> int:
     hmax = max(dims[:-1])
     if kernel_tier(precision) == "highest":
         return (hmax * (pix + 4) + nbuf * n_chunk * hmax) * 4
+    if regs == STREAMED_PLAN[3]:
+        px = _WS_CONSUMERS * _WS_M
+        return (nbuf * n_chunk * _WS_KMAX * 2 + px * (_WS_KMAX + 8) * 2 + 2 * px * (32 + 8) * 2
+                + dims[-1] * dims[-2] * 4 + (2 * nbuf + 4 + 2 * _WS_CONSUMERS) * 8)
     if regs:
-        warps, ld = _FUSED_WARPS[regs], regs + 8
         held = sum(n * (k + 8) for k, n in zip(dims[:-2], dims[1:-1]))
-        w = held if nbuf == 0 else nbuf * n_chunk * ld
-        return ((warps * 32 * ld + w) * 2 + (dims[-1] * dims[-2] + warps * 32 * 8) * 4
-                + (32 if nbuf else 0))
+        return ((_HELD_WARPS * 32 * (regs + 8) + held) * 2
+                + (dims[-1] * dims[-2] + _HELD_WARPS * 32 * 8) * 4)
     return (2 * pix + nbuf * n_chunk) * (hmax + 8) * 2
 
 
@@ -170,9 +181,9 @@ def kernel_plan(params, precision) -> tuple[int, int, int, int] | None:
     more than MAX_LAYERS layers, or a widest layer for which no block fits
     in shared memory (`smem_bytes`) and, in the fp32 tier, in registers
     (_MAX_OUTPUTS); widths up to 1152 fit in the default tier, 1024 in the
-    fp32 one. The default tier takes the fused layout by the net's widths
-    alone: up to 128 wide with every weight held if they fit, else up to
-    256 wide streamed; wider nets take the chunked layout."""
+    fp32 one. The default tier takes its layout by the net's widths alone:
+    up to 128 wide with every weight held if they fit, else up to 256 wide
+    streamed; wider nets take the chunked layout."""
     if not kernel_shapes_ok(params) or len(params) > MAX_LAYERS:
         return None
     params = as_surrogate(params)
@@ -180,7 +191,7 @@ def kernel_plan(params, precision) -> tuple[int, int, int, int] | None:
     dims = mlp_dims(params)
     hmax = max(dims[:-1])
     if precision == "default" and hmax <= 256:
-        held = (32 * _FUSED_WARPS[128], 0, 0, 128)
+        held = (32 * _HELD_WARPS, 0, 0, 128)
         if hmax <= 128 and smem_bytes(dims, held, precision) <= SMEM_LIMIT:
             return held
         return STREAMED_PLAN
@@ -215,21 +226,37 @@ def dirs_kernel_takes(params, scene: SceneParams, *, dtype: str, precision) -> b
             and kernel_shapes_ok(params))
 
 
-def prep_weights(params, *, precision, device, row_pad: int = 0) -> tuple:
+def wgmma_chunks(wt: torch.Tensor, rows: int = STREAMED_PLAN[1]) -> torch.Tensor:
+    """W^T (out, in) as the streamed layout's chunks (csrc/neural_mlp.cu
+    ws_desc), same shape: `rows` output channels a chunk, contiguous, each
+    as wgmma's K-major B without swizzle -- for each group of 8 inputs in
+    order, the chunk's groups of 8 channels, 8 inputs (16 bytes) a
+    channel."""
+    n, k = wt.shape
+    return (wt.reshape(n // rows, rows // 8, 8, k // 8, 8).permute(0, 3, 1, 2, 4)
+            .reshape(n, k).contiguous())
+
+
+def prep_weights(params, *, precision, device, row_pad: int = 0, chunks: bool = False) -> tuple:
     """The kernel's operands (bhr_tpu/ops/neural_pallas.py:85-107 without
     the TPU's pads), contiguous on `device`: per layer the weights with the
     first layer's inputs zero-padded to `padded_inputs`, and the bias in
     fp32. ``default``: W^T (out, in) in bf16, the mma's B operand, each row
-    followed by `row_pad` zeros (the fused layout's shared-memory rows, 8);
-    ``highest``: W (in, out) in fp32, whose slabs of rows are contiguous."""
+    followed by `row_pad` zeros (the held layout's shared-memory rows, 8),
+    or with `chunks` the hidden layers' as `wgmma_chunks` (the streamed
+    layout's) and the head's as it is; ``highest``: W (in, out) in fp32,
+    whose slabs of rows are contiguous."""
     highest = kernel_tier(precision) == "highest"
+    layers = as_surrogate(params)
     ops = []
-    for i, (w, b) in enumerate(as_surrogate(params)):
+    for i, (w, b) in enumerate(layers):
         w = w.to(device=device, dtype=torch.float32)
         if i == 0:
             w = torch.nn.functional.pad(w, (0, 0, 0, padded_inputs(w.shape[0]) - w.shape[0]))
         if not highest:
             w = torch.nn.functional.pad(w.t(), (0, row_pad)).to(torch.bfloat16)
+            if chunks and i < len(layers) - 1:
+                w = wgmma_chunks(w)
         ops.append((w.contiguous(), b.to(device=device, dtype=torch.float32).contiguous()))
     return tuple(ops)
 
@@ -250,8 +277,10 @@ def _mlp_desc(params: NeuralSurrogate, precision: str, device: torch.device, pla
         held = params._kernel_operands.get(key)
         if held is None or held[0] != stamp:
             with tracing.span("setup.neural_prepare"):
+                streamed = plan == STREAMED_PLAN
                 ops = prep_weights(params, precision=precision, device=device,
-                                   row_pad=8 if plan[3] else 0)
+                                   row_pad=8 if plan[3] and not streamed else 0,
+                                   chunks=streamed)
                 desc = MlpDesc()
                 desc.n_layers = len(ops)
                 for i, (w, b) in enumerate(ops):
@@ -403,7 +432,7 @@ def _launch(params: NeuralSurrogate, camera, scene, precision: str, plan, device
 
 def _count_net(params: NeuralSurrogate, plan) -> None:
     """Count a successful launch by its net: a Kerr net's, and one of the
-    fused layout with its weights streamed."""
+    streamed layout (neural_fused_kernel_ws)."""
     tracing.COUNTS["launch.neural_mlp.kerr"] += params.model == "kerr"
     tracing.COUNTS["launch.neural_mlp.streamed"] += plan == STREAMED_PLAN
 

@@ -1,28 +1,37 @@
 """The floor of the neural kernel's default tier: the least time a frame
 could take on the card, as the largest of three terms.
 
-* (t) tensor: the frame's `mma.sync.m16n8k16` instructions (`mma_count`)
-  at the rate one SM issues them, measured by `nf_mma` (below): a loop of
-  eight independent products a warp from registers, 32 warps an SM.
+* (t) tensor: the held and chunked layouts' `mma.sync.m16n8k16`
+  instructions (`mma_count`) at the rate one SM issues them, measured by
+  `nf_mma` (below): a loop of eight independent products a warp from
+  registers, 32 warps an SM. The streamed layout's
+  `wgmma.m64n64k16` instructions (`wgmma_count`) at the rate `nf_wgmma`
+  measures: two warpgroups an SM, each issuing groups of 16 k-steps with A
+  from registers and B from shared memory, one group in flight while the
+  next is issued -- the streamed kernel's pattern.
 * (i) issue: the SASS the frame must issue at one warp instruction per
   scheduler per clock. Per pixel the shortest path of the features and the
   shade (`nf_shade`: ray-gen, plane basis, features, envelope, rotation,
   star field, store) and the head's fmaf; per hidden output the shortest
   path of its epilogue (`nf_epi`: the bias, `tanhf`, the bf16 pack, less
-  the loads and stores of `nf_epi_base`); per product its HMMA. The
-  shortest path (`path_lengths`) skips every slow path, so the term is a
-  floor of the instructions, not a count of what the kernel issues.
+  the loads and stores of `nf_epi_base`); per product its HMMA (mma.sync
+  only: a wgmma is one instruction a warp for 64 x 64 x 16, which the term
+  leaves out). The shortest path (`path_lengths`) skips every slow path,
+  so the term is a floor of the instructions, not a count of what the
+  kernel issues.
 * (l) L2: the bf16 weight bytes a plan copies a frame (`weight_bytes`)
   over the L2 read rate, measured by `nf_l2`: every block of a full grid
   reads the same L2-resident buffer of the weights' size L2_REPS times with
   16-byte `ld.global.cg`.
 
-`mma_count`, `tanh_count` and `weight_bytes` are plain functions of the
-net's widths (`dims`: the padded inputs, each hidden width, the outputs),
+`mma_count`, `wgmma_count`, `tanh_count` and `weight_bytes` are plain
+functions of the net's widths (`dims`: the padded inputs, each hidden width, the outputs),
 the plan (ops/neural_kernel.kernel_plan) and the pixel count. The CUDA
 sources are strings compiled by tools/time_neural.py: BENCH_SOURCE stands
 alone, PHASE_SOURCE includes a checkout's csrc/neural_mlp.cu, so the
-phases are the kernel's own functions as built. `bf16_chain` is the MLP as
+phases are the kernel's own functions as built. `layer_bits` holds one
+layer's sums by wgmma k-steps against mma.sync's, bit for bit, on
+BENCH_SOURCE's `nf_layer_bits`. `bf16_chain` is the MLP as
 a PyTorch user writes it on the tensor cores, the yardstick beside the
 kernel. Nothing here imports the package, so a tool can load this file
 beside another checkout's package.
@@ -36,6 +45,10 @@ SMS = 132  # streaming multiprocessors of an H100 SXM
 SCHEDULERS = 4  # warp schedulers an SM
 WARP = 32
 MMA_M, MMA_N, MMA_K = 16, 8, 16  # mma.sync.m16n8k16: pixels, channels, inputs
+WGMMA_M, WGMMA_N = 64, 64  # wgmma.m64n64k16 of the streamed layout: pixels, channels
+# the streamed plan's register width, ring slots and pixels a round (its
+# mma.sync predecessor had 2 slots)
+STREAMED_REGS, STREAMED_STAGES, STREAMED_ROUND = 256, 4, 256
 L2_REPS = 64  # reads of the buffer a block of nf_l2 makes
 
 
@@ -54,6 +67,20 @@ def mma_count(dims, pixels: int) -> int:
     return math.ceil(pixels / MMA_M) * per_tile
 
 
+def wgmma_count(dims, pixels: int, round_px: int = STREAMED_ROUND) -> int:
+    """wgmma.m64n64k16 instructions (a warpgroup's) of the hidden layers of
+    the streamed layout over `pixels` pixels, taken in rounds of `round_px`
+    (the last one's missing pixels computed too): each tile of 64 pixels
+    takes (in / 16) x (out / 64) a layer."""
+    per_tile = sum(k // MMA_K * (n // WGMMA_N) for k, n in zip(dims[:-2], dims[1:-1]))
+    return math.ceil(pixels / round_px) * (round_px // WGMMA_M) * per_tile
+
+
+def streamed(plan) -> bool:
+    """A plan of the streamed layout on wgmma (kernel_plan's STREAMED_PLAN)."""
+    return len(plan) > 3 and plan[3] == STREAMED_REGS and plan[2] == STREAMED_STAGES
+
+
 def tanh_count(dims, pixels: int) -> int:
     """Hidden outputs (one bias, tanh and bf16 rounding each) over `pixels`."""
     return pixels * sum(dims[1:-1])
@@ -67,10 +94,11 @@ def hidden_weight_bytes(dims) -> int:
 def weight_bytes(dims, plan, pixels: int, resident_blocks: int = SMS) -> int:
     """Bytes of weights a plan copies from L2 into shared memory a frame.
     `plan` is kernel_plan's (pixels a block, chunk rows, buffers[, register
-    width]): the chunked layout (register width 0, or a 3-tuple) and a
-    streamed fused block (buffers > 0) copy every hidden layer once for
-    every block of pixels; a fused block with its weights held (buffers 0)
-    copies them once, and a frame has at most `resident_blocks` of those."""
+    width]): the chunked layout (register width 0, or a 3-tuple) copies
+    every hidden layer once for every block of pixels, the streamed one once
+    for every round of a cluster (its `pixels a block`, 256); a held block
+    (buffers 0) copies them once, and a frame has at most `resident_blocks`
+    of those."""
     pix, _, nbuf, *rest = plan
     regs = rest[0] if rest else 0
     blocks = math.ceil(pixels / pix)
@@ -86,19 +114,27 @@ def head_ops(dims) -> int:
 
 def floor_terms(dims, plan, pixels: int, *, cycles_per_mma: float, issue_pixel: float,
                 issue_output: float, l2_bytes_per_s: float, clock_mhz: float,
-                sms: int = SMS) -> dict:
+                sms: int = SMS, cycles_per_wgmma: float | None = None) -> dict:
     """The three terms in ms, their largest (`floor_ms`) and their sum.
-    `cycles_per_mma`: SM clocks an SM takes for one mma.sync; `issue_pixel`
-    and `issue_output`: SASS a pixel (features, shade, head) and a hidden
-    output (epilogue); the SM clock under load."""
+    `cycles_per_mma` / `cycles_per_wgmma`: SM clocks an SM takes for one
+    mma.sync / wgmma.m64n64k16 (the streamed plan's, which needs it);
+    `issue_pixel` and `issue_output`: SASS a pixel (features, shade, head)
+    and a hidden output (epilogue); the SM clock under load. `mma` counts
+    the plan's tensor instructions: mma.sync, or wgmma where streamed."""
     hz = clock_mhz * 1e6
-    mma = mma_count(dims, pixels)
-    t = mma * cycles_per_mma / (sms * hz) * 1e3
-    warp_ins = (pixels * issue_pixel + tanh_count(dims, pixels) * issue_output) / WARP + mma
+    if streamed(plan):
+        mma = wgmma_count(dims, pixels)
+        t = mma * cycles_per_wgmma / (sms * hz) * 1e3
+        hmma = 0  # asynchronous, one instruction a warp for 64 x 64 x 16
+    else:
+        mma = hmma = mma_count(dims, pixels)
+        t = mma * cycles_per_mma / (sms * hz) * 1e3
+    warp_ins = (pixels * issue_pixel + tanh_count(dims, pixels) * issue_output) / WARP + hmma
     i = warp_ins / (sms * SCHEDULERS * hz) * 1e3
     wb = weight_bytes(dims, plan, pixels)
     l2 = wb / l2_bytes_per_s * 1e3
     return {"mma": mma, "tanh": tanh_count(dims, pixels), "weight_bytes": wb,
+            "instruction": "wgmma.m64n64k16" if streamed(plan) else "mma.sync.m16n8k16",
             "warp_instructions": warp_ins, "tensor_ms": t, "issue_ms": i, "l2_ms": l2,
             "floor_ms": max(t, i, l2), "sum_ms": t + i + l2,
             "bound_by": ("tensor", "issue", "l2")[[t, i, l2].index(max(t, i, l2))]}
@@ -191,6 +227,162 @@ __global__ void nf_l2_kernel(const uint4* __restrict__ buf, long n16, int reps, 
   if (x == 0x9e3779b9u) out[blockIdx.x] = x;
 }
 
+// The streamed layout's products (csrc/neural_mlp.cu ws_products):
+// wgmma.m64n64k16, A from registers, B from shared memory as K-major core
+// matrices without swizzle (LBO 1024 bytes, SBO 128), k-steps 2048 bytes
+// apart.
+__device__ __forceinline__ uint64_t nf_desc(const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((s & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+__device__ __forceinline__ void nf_wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+__device__ __forceinline__ void nf_mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two warpgroups a block, each issuing groups of 16 k-steps (a chunk of 64
+// channels each) into two accumulators in turn, one group in flight while
+// the next is issued, `iters` times (2 x 16 x iters wgmma a warpgroup).
+__global__ void __launch_bounds__(256, 1) nf_wgmma_kernel(float* out, int iters) {
+  extern __shared__ __align__(128) unsigned char sm[];  // 16 k-steps of B, 32 KB
+  for (int i = threadIdx.x; i < 32768 / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(sm)[i] = make_uint4(0x35803580u, 0x35803580u, 0x35803580u,
+                                                 0x35803580u);  // bf16 2^-20
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint32_t a[4] = {0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u};  // bf16 1.0
+  float d0[32], d1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d0[i] = d1[i] = 0.0f;
+  const uint64_t desc = nf_desc(sm);
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) nf_wgmma_n64(d0, a, desc + 128 * ks, 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) nf_wgmma_n64(d1, a, desc + 128 * ks, 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s += d0[i] + d1[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+__device__ __forceinline__ uint32_t nf_ld32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// One layer's sums two ways for 64 rows a block (128 threads) of A (m x k
+// bf16, row-major) against W^T (n x k bf16, row-major), k <= 256 a multiple
+// of 16, n of 64: out_mma by mma.sync.m16n8k16 k-steps in order from a zero
+// accumulator (the held layout's), out_wg by wgmma.m64n64k16 k-steps in
+// order (the streamed layout's, B staged as its chunks), fp32 (m x n).
+__global__ void nf_layer_bits_kernel(const uint16_t* __restrict__ a,
+                                     const uint16_t* __restrict__ wt, int k, int n,
+                                     float* __restrict__ out_mma, float* __restrict__ out_wg) {
+  extern __shared__ __align__(128) unsigned char sm[];  // one chunk: 64 x k bf16
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const long r0 = blockIdx.x * 64L + 16 * warp + g, r1 = r0 + 8;
+  uint32_t af[16][4];
+#pragma unroll
+  for (int ks = 0; ks < 16; ++ks) {
+    if (16 * ks >= k) break;
+    af[ks][0] = nf_ld32(a + r0 * k + 16 * ks + 2 * t);
+    af[ks][1] = nf_ld32(a + r1 * k + 16 * ks + 2 * t);
+    af[ks][2] = nf_ld32(a + r0 * k + 16 * ks + 8 + 2 * t);
+    af[ks][3] = nf_ld32(a + r1 * k + 16 * ks + 8 + 2 * t);
+  }
+  for (int n0 = 0; n0 < n; n0 += 64) {
+    for (int j = 0; j < 8; ++j) {
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const uint16_t* b = wt + static_cast<long>(n0 + 8 * j + g) * k + 2 * t;
+#pragma unroll
+      for (int ks = 0; ks < 16; ++ks) {
+        if (16 * ks >= k) break;
+        nf_mma16816(c, af[ks], nf_ld32(b + 16 * ks), nf_ld32(b + 16 * ks + 8));
+      }
+      const int col = n0 + 8 * j + 2 * t;
+      out_mma[r0 * n + col] = c[0];
+      out_mma[r0 * n + col + 1] = c[1];
+      out_mma[r1 * n + col] = c[2];
+      out_mma[r1 * n + col + 1] = c[3];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 8 * k; i += blockDim.x) {  // 16 bytes: (k group, 8 rows, row)
+      const int r = i % 8, ci = (i / 8) % 8, kg = i / 64;
+      *reinterpret_cast<uint4*>(sm + kg * 1024 + ci * 128 + r * 16) =
+          *reinterpret_cast<const uint4*>(wt + static_cast<long>(n0 + 8 * ci + r) * k + 8 * kg);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    float d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+    const uint64_t desc = nf_desc(sm);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) {
+      if (16 * ks >= k) break;
+      nf_wgmma_n64(d, af[ks], desc + 128 * ks, ks);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      out_wg[r0 * n + col] = d[4 * j];
+      out_wg[r0 * n + col + 1] = d[4 * j + 1];
+      out_wg[r1 * n + col] = d[4 * j + 2];
+      out_wg[r1 * n + col + 1] = d[4 * j + 3];
+    }
+    __syncthreads();
+  }
+}
+
+extern "C" int nf_wgmma(float* out, int blocks, int iters, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(nf_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, 32768);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nf_wgmma_kernel<<<blocks, 256, 32768, static_cast<cudaStream_t>(stream)>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nf_layer_bits(const void* a, const void* wt, int m, int k, int n, float* out_mma,
+                             float* out_wg, void* stream) {
+  nf_layer_bits_kernel<<<m / 64, 128, 64 * k * 2, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(wt), k, n, out_mma, out_wg);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int nf_mma(float* out, int blocks, int threads, int iters, void* stream) {
   nf_mma_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
   return static_cast<int>(cudaGetLastError());
@@ -259,6 +451,8 @@ template __global__ void nf_shade<true>(const Params, const float*, const float*
 
 DOT_SHAPE = (16384, 1024, 1024)  # probe_dot<bf16>: M, K, N
 MMA_BLOCKS_PER_SM, MMA_THREADS, MMA_ITERS = 4, 256, 4096
+WGMMA_ITERS = 2048  # nf_wgmma: 2 x 16 x WGMMA_ITERS wgmma a warpgroup, two warpgroups an SM
+BITS_ROWS = 8192  # nf_layer_bits: rows of A a layer
 L2_SIZES = (69632, 278528)  # N1's and N2's hidden weights in bf16 (inputs padded)
 
 
@@ -312,9 +506,10 @@ def _ms(torch, fn, n: int, repeats: int = 5) -> float:
 def measure_inputs(paths: dict, torch, sass_walk, cuobjdump: str, dot=None) -> dict:
     """The floor's measured inputs on the current card: the shortest paths
     of the phases in paths["phase"], the mma rate (nf_mma over a full
-    grid) with the SM clock read under it, the L2 read rate at each of
-    L2_SIZES, and, if `dot` (hopper_probe.dot) is given, probe_dot<bf16>'s
-    cycles an mma at DOT_SHAPE."""
+    grid) with the SM clock read under it, the wgmma rate (nf_wgmma, one
+    block an SM), the L2 read rate at each of L2_SIZES, and, if `dot`
+    (hopper_probe.dot) is given, probe_dot<bf16>'s cycles an mma at
+    DOT_SHAPE."""
     import ctypes
 
     phases = phase_counts(sass_walk.parse_sass(sass_walk.sass_of(paths["phase"], cuobjdump)))
@@ -323,6 +518,7 @@ def measure_inputs(paths: dict, torch, sass_walk, cuobjdump: str, dot=None) -> d
                            ctypes.c_void_p]
     lib.nf_l2.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.nf_wgmma.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
     blocks = sms * MMA_BLOCKS_PER_SM
@@ -337,6 +533,16 @@ def measure_inputs(paths: dict, torch, sass_walk, cuobjdump: str, dot=None) -> d
     n_mma = blocks * MMA_THREADS // WARP * 8 * MMA_ITERS
     clocks = sass_walk.sm_clock_under_load(mma, mma_ms)
     mhz = float(clocks.split(",")[0])
+    wg_out = torch.empty(sms * 256, device="cuda")
+
+    def wgmma():
+        if lib.nf_wgmma(wg_out.data_ptr(), sms, WGMMA_ITERS, stream):
+            raise RuntimeError("nf_wgmma launch failed")
+
+    wgmma()
+    wgmma_ms = _ms(torch, wgmma, 3)
+    wg_clocks = sass_walk.sm_clock_under_load(wgmma, wgmma_ms)
+    n_wgmma = sms * 2 * 2 * 16 * WGMMA_ITERS
     l2 = {}
     for nbytes in L2_SIZES:
         buf = torch.zeros(nbytes // 4, dtype=torch.int32, device="cuda")
@@ -352,7 +558,10 @@ def measure_inputs(paths: dict, torch, sass_walk, cuobjdump: str, dot=None) -> d
         l2[str(nbytes)] = {"ms": ms, "bytes_per_s": sms * 2 * L2_REPS * nbytes / (ms * 1e-3)}
     run = {"phases": phases, "sms": sms, "l2_read": l2,
            "mma_rate": {"ms": mma_ms, "mma": n_mma, "clocks_under_load": clocks,
-                        "cycles_per_mma_sm": mma_ms * 1e-3 * mhz * 1e6 * sms / n_mma}}
+                        "cycles_per_mma_sm": mma_ms * 1e-3 * mhz * 1e6 * sms / n_mma},
+           "wgmma_rate": {"ms": wgmma_ms, "wgmma": n_wgmma, "clocks_under_load": wg_clocks,
+                          "cycles_per_wgmma_sm": wgmma_ms * 1e-3 * float(wg_clocks.split(",")[0])
+                          * 1e6 * sms / n_wgmma}}
     if dot is not None:
         gen = torch.Generator(device="cuda").manual_seed(1)
         m, k, n = DOT_SHAPE
@@ -374,9 +583,40 @@ def frame_floor(inputs: dict, dims, plan, pixels: int, kerr: bool, clock_mhz: fl
     terms = floor_terms(dims, plan, pixels, cycles_per_mma=inputs["mma_rate"]["cycles_per_mma_sm"],
                         issue_pixel=pix, issue_output=out, clock_mhz=clock_mhz,
                         l2_bytes_per_s=inputs["l2_read"][str(size)]["bytes_per_s"],
-                        sms=inputs["sms"])
+                        sms=inputs["sms"],
+                        cycles_per_wgmma=inputs["wgmma_rate"]["cycles_per_wgmma_sm"])
     terms.update(issue_pixel=pix, issue_output=out)
     return terms
+
+
+def layer_bits(path, torch, wts) -> list:
+    """For each W^T (out, in) in `wts` (bf16 on the card; in a multiple of
+    16 up to 256, out of 64): the share of the sums of BITS_ROWS rows of
+    random bf16 activations in [-1, 1) whose fp32 bits agree between
+    wgmma.m64n64k16 k-steps in order (nf_layer_bits, B as the streamed
+    layout's chunks) and mma.sync's, and the largest difference."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    lib.nf_layer_bits.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = BITS_ROWS
+    out = []
+    for wt in wts:
+        n, k = wt.shape
+        a = (torch.rand((rows, k), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+        want = torch.empty((rows, n), device="cuda")
+        got = torch.empty((rows, n), device="cuda")
+        if lib.nf_layer_bits(a.data_ptr(), wt.contiguous().data_ptr(), rows, k, n,
+                             want.data_ptr(), got.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("nf_layer_bits launch failed")
+        torch.cuda.synchronize()
+        same = (want.view(torch.int32) == got.view(torch.int32)).double().mean().item()
+        out.append({"shape": [n, k], "bit_same": same,
+                    "max_abs_diff": (want - got).abs().max().item()})
+    return out
 
 
 def bf16_chain(layers, feats):

@@ -41,19 +41,22 @@ def ptxas_summary(log: str) -> str:
     integrator Li0 euler / Li1 rk4 / Li2 leapfrog, then Lb1 for the
     Kerr-Schild loop, then flags=N for an instantiation whose flags are
     fixed at compile time; the neural kernel's model, tier and, at the
-    default tier, its layout: chunked, or fused with its register width)."""
+    default tier, its layout: chunked, fused with its register width, or
+    streamed)."""
     out, tag = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"ILb([01])ELi([0-2])ELb([01])E(?:Li(\d+)E)?", line)
             n = re.search(r"neural_render_kernelILb([01])ELb([01])E", line)
             f = re.search(r"neural_fused_kernelILb([01])ELi(\d+)E", line)
+            w = re.search(r"neural_fused_kernel_wsILb([01])E", line)
             tag = (f"{'fast' if m[1] == '1' else 'exact'},"
                    f"{('euler', 'rk4', 'leapfrog')[int(m[2])]}{',ks' if m[3] == '1' else ''}"
                    f"{f',flags={m[4]}' if m[4] else ''}"
                    if m else f"{'kerr' if n[1] == '1' else 'schwarzschild'},"
                    f"{'highest' if n[2] == '1' else 'default,chunked'}" if n else
-                   f"{'kerr' if f[1] == '1' else 'schwarzschild'},default,fused{f[2]}" if f
+                   f"{'kerr' if f[1] == '1' else 'schwarzschild'},default,fused{f[2]}" if f else
+                   f"{'kerr' if w[1] == '1' else 'schwarzschild'},default,streamed" if w
                    else line.split()[-3])
         elif tag and "Used" in line:
             out.append(f"{tag}: {line.split('Used')[1].split(',')[0].strip()}")
@@ -352,6 +355,15 @@ def route_step(funcs: dict, kernel: str, fast: bool, integ: str, flags: int) -> 
         return {}
     name, tag = hit
     return {"function": tag_text(tag), **walk_step(funcs[name], {FLAGS_OFFSET[kernel]: flags})}
+
+
+def function_hash(ins) -> str:
+    """A function's SASS, its predicates, opcodes and operands in order, as
+    16 hex digits: equal where two builds compiled the same code."""
+    import hashlib
+
+    text = "\n".join(f"{x.pred} {x.op} {x.args}" for x in ins)
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
 def sass_of(path, cuobjdump: str) -> str:

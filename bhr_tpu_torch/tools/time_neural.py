@@ -34,10 +34,13 @@ one change each (VARIANTS, those whose name starts with PREFIX; the time
 only, their frames are wrong or the same). Of the chunked layout
 (neural_render_kernel<KERR, false>, the committed nets' plan before the
 fused kernel): tanh as the identity, no per-pixel phases, no weight copies
-after the first chunk, one block an SM. Of the fused layout
-(neural_fused_kernel, "fused_"): tanh as the identity, no per-pixel
-phases, no waits for weight chunks (N2), no head. A ROOT whose source lacks
-the text a variant rewrites reports it as not applicable.
+after the first chunk, one block an SM. Of the held fused layout
+(neural_fused_kernel, "fused_", N1): tanh as the identity, no per-pixel
+phases, 8 or 16 warps, a staggered start, the head unrolled or left out. Of
+the streamed layout (neural_fused_kernel_ws, "streamed_", N2): tanh as the
+identity, the pixel warps without the features, the head or the pixel's
+end. A ROOT whose source lacks the text a variant rewrites reports it as not
+applicable.
 
 Compare two commits within one call, in the order parent, change, change,
 parent.
@@ -92,9 +95,6 @@ VARIANTS = {
          "                                 static_cast<int>(id % width), f);", ""),
         ("      shade_geo<KERR>(p, fr, id, g, head, seed_term, frame, vel, status);",
          "      frame[id] = __float_as_uint(head[0]);")],
-    "fused_no_chunk_waits": [
-        ("          mbar_wait(full + s % 2, static_cast<unsigned>(s / 2) & 1u);", ""),
-        ("if (last && c + 2 < chunks) {", "if (false) {")],
     "fused_16_warps": [
         ("return regs == 128 ? 12 : 8;", "return regs == 128 ? 16 : 8;"),
         ("m.pix != 32 * fused_warps(m.regs)", "false")],
@@ -111,6 +111,22 @@ VARIANTS = {
     "fused_no_head": [
         ("      fused_head<kOut>(stg + lane * F::kLd, hw, k_head, mlp.b[lh], head);",
          "      head[0] = head[1] = head[kOut - 1] = 0.0f;")],
+    # the streamed layout (neural_fused_kernel_ws): its consumers' tanh the
+    # identity; its pixel warps without the features, the head or the end
+    "streamed_tanh_identity": [
+        ("(tanhf(d[4 * j] + b0), tanhf(d[4 * j + 1] + b1))", "(d[4 * j] + b0, d[4 * j + 1] + b1)"),
+        ("(tanhf(d[4 * j + 2] + b0), tanhf(d[4 * j + 3] + b1))",
+         "(d[4 * j + 2] + b0, d[4 * j + 3] + b1)")],
+    "streamed_no_features": [
+        ("        g = pixel_geometry<KERR>(p, fr, static_cast<int>(id / width),\n"
+         "                                 static_cast<int>(id % width), f);",
+         "        f[0] = static_cast<float>(id % width);")],
+    "streamed_no_head": [
+        ("      fused_head<kOut>(stg_all + (wc * kWsM + i % kWsM) * kWsLd, hw, k_head, mlp.b[lh], "
+         "head);", "      head[0] = head[kOut - 1] = 0.0f;")],
+    "streamed_no_end": [
+        ("      if (prev_id >= 0) shade_geo<KERR>(p, fr, prev_id, prev, head, seed_term, frame, "
+         "vel, status);", "      if (prev_id >= 0) frame[prev_id] = __float_as_uint(head[0]);")],
 }
 
 

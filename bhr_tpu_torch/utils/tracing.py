@@ -58,10 +58,10 @@ a kernel's wrapper right after a successful launch, and nowhere else:
   launch.neural_mlp.band
   launch.neural_mlp.dirs          neural_trace_dirs
   launch.neural_mlp.kerr          of the launches of either, a Kerr net's
-  launch.neural_mlp.streamed      (.kerr), and those of the fused layout
-                                  with its weights streamed (.streamed:
-                                  register width 256, kernel_plan's
-                                  STREAMED_PLAN)
+  launch.neural_mlp.streamed      (.kerr), and those of the streamed
+                                  layout (.streamed: kernel_plan's
+                                  STREAMED_PLAN, neural_fused_kernel_ws,
+                                  warpgroups on wgmma)
   launch.shade_planes             ops/shade_kernel.shade_planes
   launch.probe_<kernel><variant>  tools/hopper_probe.py's kernels
 and one key counts a route taken, not a launch:

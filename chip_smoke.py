@@ -56,7 +56,10 @@ renderer's paths:
     launch.neural_mlp.kerr or .streamed among them); 4 OrbitAnimator frames
     of N2 at 3840x2160, spin 0.9 (the benchmark's kerr09sky4k), each one
     launch of the streamed layout counted under launch.neural_mlp.kerr and
-    .streamed, held against the plain version on a band of 256 rows; the staged
+    .streamed, held against the plain version on a band of 256 rows; the
+    held layout's two instantiations against their pinned SASS hashes
+    (HELD_SASS); the streamed layout's wgmma sums against mma.sync's, bit
+    for bit, on the committed 256-wide nets' hidden layers; the staged
     routes (srgb tonemap; "auto" resolved to "high"), with no kernel
     launch; and each variant's time beside its plain version's, its bound
     and the staged route's MLP chain through torch.matmul (cuBLAS); for
@@ -204,6 +207,12 @@ N_NEURAL = "launch.neural_mlp"
 N_DIRS, N_BAND = f"{N_NEURAL}.dirs", f"{N_NEURAL}.band"
 N_NEURAL_KERR, N_STREAMED = f"{N_NEURAL}.kerr", f"{N_NEURAL}.streamed"  # by net and layout
 KERR_SKY_FRAMES = 4  # 4K orbit frames of the Kerr net (bench_torch's kerr09sky4k)
+# The held layout's instantiations (csrc/neural_mlp.cu neural_fused_kernel<·,
+# 128>), pinned to the SASS they had before the streamed layout moved to
+# wgmma (sass_walk.function_hash of nvcc 12.8's build for sm_90a): the
+# Schwarzschild orbit cell runs the first.
+HELD_SASS = {"neural_fused_kernelILb0ELi128E": "534c177058543837",
+             "neural_fused_kernelILb1ELi128E": "06a4d1b4edb7940b"}
 N_SHADE, N_PLAIN = "launch.shade_planes", "epilogue.plain"
 # Bars of a kernel against its plain version.
 EXACT_SAME_MIN = 0.999  # bit-equal packed words (tests/test_pallas_parity.py:484-491)
@@ -299,11 +308,12 @@ NEURAL_ASSETS = {  # (model, asset)
 # of csrc/neural_mlp.cu the committed nets do not (ops/neural_kernel.
 # kernel_plan: pixels per block, channels per weight chunk (default tier)
 # or W rows per weight slab (highest), chunk buffers, register width of the
-# fused layout), and the one fused instantiation they do not (Kerr, 128
-# wide); tests/test_torch_neural.py:PLAN_NETS is the same list and checks
+# fused layout), the one held instantiation they do not (Kerr, 128 wide)
+# and the streamed layout's mixed widths (Kerr, 256 then 128);
+# tests/test_torch_neural.py:PLAN_NETS is the same list and checks
 # that it covers every plan): (tier, model, w, seed), each seed picked so
 # that the capture mask is mixed at both cameras.
-PLAN_NETS = (("default", "kerr", 128, 0),
+PLAN_NETS = (("default", "kerr", 128, 0), ("default", "kerr", 256, 0),
              ("default", "kerr", 384, 0), ("default", "schwarzschild", 512, 4),
              ("default", "kerr", 640, 0), ("default", "schwarzschild", 1152, 0),
              ("highest", "schwarzschild", 384, 0), ("highest", "kerr", 512, 0),
@@ -588,7 +598,7 @@ def neural_floor_line(name: str, terms: dict, ms: float, smi: str) -> str:
     """One default-tier variant's floor (tools/neural_floor.py) and the
     kernel's share of it."""
     return (f"{name}: floor {terms['floor_ms']:.3f} ms ({terms['bound_by']}), the largest of "
-            f"tensor {terms['tensor_ms']:.3f} ms ({terms['mma']} mma.sync), issue "
+            f"tensor {terms['tensor_ms']:.3f} ms ({terms['mma']} {terms['instruction']}), issue "
             f"{terms['issue_ms']:.3f} ms ({terms['issue_pixel']} SASS a pixel, "
             f"{terms['issue_output']} a hidden output), L2 {terms['l2_ms']:.3f} ms "
             f"({terms['weight_bytes']} bytes of weights copied); their sum "
@@ -780,6 +790,17 @@ def main() -> None:
     build.load_shade_planes()
     cuobjdump = sass_walk.cuobjdump_path(build.nvcc_path())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if cuobjdump:  # the held layout's instantiations, bit for bit as before
+        funcs = sass_walk.parse_sass(sass_walk.sass_of(
+            build.build("neural_mlp", build.NEURAL_MLP_SOURCES).path, cuobjdump))
+        held = {tag: sass_walk.function_hash(ins) for f, ins in funcs.items()
+                for tag in HELD_SASS if tag in f}
+        phase("held_sass", f"neural_fused_kernel<·, 128> SASS hashes {held}, pinned "
+              f"{HELD_SASS}")
+        if held != HELD_SASS:
+            raise AssertionError(f"the held layout's SASS moved: {held} against {HELD_SASS}")
+    else:
+        phase("held_sass", "not measured: no cuobjdump beside nvcc")
 
     var = Variants()
     side = bt.Camera.new(*SIDE)
@@ -1664,9 +1685,21 @@ def main() -> None:
                        for k, v in floor_in["l2_read"].items())
         phase("neural_floor", f"inputs: mma.sync.m16n8k16 bf16 at "
               f"{floor_in['mma_rate']['cycles_per_mma_sm']:.4f} SM clocks each an SM "
-              f"(nvidia-smi under load: {floor_in['mma_rate']['clocks_under_load']}); L2 read "
+              f"(nvidia-smi under load: {floor_in['mma_rate']['clocks_under_load']}), "
+              f"wgmma.m64n64k16 at {floor_in['wgmma_rate']['cycles_per_wgmma_sm']:.4f} "
+              f"({floor_in['wgmma_rate']['clocks_under_load']}); L2 read "
               f"rate {l2}; shortest SASS paths of the phases {json.dumps(floor_in['phases'])} "
               f"on {smi}")
+        # the streamed layout's sums: wgmma k-steps in order against mma.sync's,
+        # bit for bit, on the hidden layers of the committed 256-wide nets
+        bits = nf.layer_bits(floor_paths["bench"], torch, [
+            w for key in ("n2", "n1_xl") for w, _ in nk.prep_weights(
+                (tnk if key == "n2" else tn).load_params(net_path(key))[0],
+                precision="default", device="cuda")[:-1]])
+        phase("neural_floor", f"wgmma k-steps against mma.sync's on N2's and the 256-wide "
+              f"Schwarzschild net's hidden layers: {json.dumps(bits)}")
+        if any(b["bit_same"] != 1.0 for b in bits):
+            raise AssertionError(f"wgmma's sums are not mma.sync's: {bits}")
     else:
         phase("neural_floor", "not measured: no cuobjdump beside nvcc")
     timed = [(key, NEURAL_ASSETS[key][0], highest, cam, spin, NEURAL_ASSETS[key][1],

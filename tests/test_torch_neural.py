@@ -18,6 +18,7 @@ bit-equal and <= 0.1% off by more than 2 levels, capture (black) mask
 equal on >= 99.9%; highest tier >= 99.9% bit-equal.
 """
 
+import itertools
 import logging
 
 import jax.numpy as jnp
@@ -303,8 +304,8 @@ def test_renderer_routes_as_bhr_tpu(kw, route):
 
 def test_kernel_plan_fits_shared_memory():
     """kernel_plan's block fits 227 KB for the assets' widths -- the
-    default tier's fused layout, N1's weights held whole and N2's streamed
-    through two chunk buffers -- and for every multiple of 128 up to 1152
+    default tier's held layout for N1, the streamed one (a ring of four
+    chunks) for N2 -- and for every multiple of 128 up to 1152
     (default tier: the chunked layout beyond 256, two activation buffers
     and one or two weight chunks) and 1024 (highest, whose block also holds
     a layer's outputs in registers: at most 256 x 128 of them, in warp
@@ -315,18 +316,20 @@ def test_kernel_plan_fits_shared_memory():
         return T.NeuralSurrogate((np.zeros((a, b)), np.zeros(b)) for a, b in zip(dims, dims[1:]))
 
     assert neural_kernel.kernel_plan(net(128), "default") == (384, 0, 0, 128)
-    assert neural_kernel.kernel_plan(net(256, 22, 3), "default") == (256, 64, 2, 256)
+    assert neural_kernel.kernel_plan(net(256, 22, 3), "default") == (256, 64, 4, 256)
     assert neural_kernel.kernel_plan(net(128), "highest") == (256, 32, 2, 0)
     assert neural_kernel.kernel_plan(net(256, 22, 3), "highest") == (128, 32, 2, 0)
     n1, n2 = [16, 128, 128, 128, 2], [32, 256, 256, 256, 3]
     assert neural_kernel.mlp_dims(net(256, 22, 3)) == n2
-    # fused: 12 warps' staging rows of 136 bf16, the weights held in rows of
-    # in + 8, the head in fp32, 8 floats a pixel; 8 warps' rows of 264, two
-    # chunks of 64 rows of 264, the head, the geometry, 32 bytes of barriers
+    # held: 12 warps' staging rows of 136 bf16, the weights held in rows of
+    # in + 8, the head in fp32, 8 floats a pixel; streamed: a ring of four
+    # slots of 64 x 256 bf16, two warpgroups' 64 staging rows of 264, two
+    # rounds of the block's 128 pixels' features in rows of 40, the head in
+    # fp32, 16 mbarriers
     assert neural_kernel.smem_bytes(n1, (384, 0, 0, 128), "default") == (
         12 * 32 * 136 * 2 + (128 * 24 + 2 * 128 * 136) * 2 + (2 * 128 + 12 * 32 * 8) * 4)
-    assert neural_kernel.smem_bytes(n2, (256, 64, 2, 256), "default") == (
-        8 * 32 * 264 * 2 + 2 * 64 * 264 * 2 + (3 * 256 + 8 * 32 * 8) * 4 + 32)
+    assert neural_kernel.smem_bytes(n2, (256, 64, 4, 256), "default") == (
+        4 * 64 * 256 * 2 + 2 * 64 * 264 * 2 + 2 * 128 * 40 * 2 + 3 * 256 * 4 + 16 * 8) == 222_336
     assert neural_kernel.smem_bytes(n2, (128, 64, 2, 0), "default") == (256 + 128) * 264 * 2
     assert neural_kernel.smem_bytes(n2, (128, 32, 2, 0), "highest") == (
         256 * 132 + 2 * 32 * 256) * 4
@@ -336,9 +339,9 @@ def test_kernel_plan_fits_shared_memory():
             pix, nc, nbuf, regs = plan
             assert neural_kernel.smem_bytes(neural_kernel.mlp_dims(net(width)), plan,
                                             tier) <= neural_kernel.SMEM_LIMIT
-            if regs:  # fused: every width in the registers, 32 pixels a warp
-                assert tier == "default" and width <= regs and pix == 32 * (12 if regs == 128 else 8)
-                assert (nc, nbuf) == ((0, 0) if regs == 128 else (64, 2))
+            if regs:  # held (32 pixels a warp) or streamed (256 pixels a cluster's round)
+                assert tier == "default" and width <= regs and pix == (384 if regs == 128 else 256)
+                assert (nc, nbuf) == ((0, 0) if regs == 128 else (64, 4))
             else:
                 assert width % nc == 0 and pix % (16 if tier == "default" else 32) == 0
             assert tier == "default" or pix * width <= 256 * 128
@@ -350,10 +353,11 @@ def test_kernel_plan_fits_shared_memory():
 
 
 # Seeded random nets, hidden widths (w, 128, w), that reach every block plan
-# of the kernel that the committed nets do not, and the fused instantiation
-# they do not (Kerr, 128 wide): (tier, model, w, seed), the list
-# chip_smoke.py:PLAN_NETS renders on the card.
-PLAN_NETS = (("default", "kerr", 128, 0),
+# of the kernel that the committed nets do not, the held instantiation they
+# do not (Kerr, 128 wide) and the streamed layout's mixed widths (Kerr, 256
+# then 128): (tier, model, w, seed), the list chip_smoke.py:PLAN_NETS
+# renders on the card.
+PLAN_NETS = (("default", "kerr", 128, 0), ("default", "kerr", 256, 0),
              ("default", "kerr", 384, 0), ("default", "schwarzschild", 512, 4),
              ("default", "kerr", 640, 0), ("default", "schwarzschild", 1152, 0),
              ("highest", "schwarzschild", 384, 0), ("highest", "kerr", 512, 0),
@@ -394,7 +398,7 @@ def test_plan_nets_reach_every_block_plan():
         reached |= {neural_kernel.kernel_plan(random_net(m, w, seed), t)
                     for t, m, w, seed in PLAN_NETS if t == tier}
         assert reached == every, (tier, every - reached)
-        assert {plan[2] for plan in reached} == ({0, 1, 2} if tier == "default" else {1, 2})
+        assert {plan[2] for plan in reached} == ({0, 1, 2, 4} if tier == "default" else {1, 2})
 
 
 @pytest.mark.parametrize("case", PLAN_NETS, ids=PLAN_IDS)
@@ -410,6 +414,28 @@ def test_plan_net_frames_are_mixed(case):
                                                              precision=tier, device="cpu")
         black = (frame.view(torch.uint8).view(96, 160, 4)[..., :3] == 0).all(-1)
         assert 0.05 <= black.float().mean().item() <= 0.95
+
+
+@pytest.mark.parametrize("hidden", range(1, 8))
+def test_streamed_plan_fits_shared_memory(hidden):
+    """Every net the streamed plan takes -- `hidden` hidden layers each 128
+    or 256 wide, not all held, with the Schwarzschild or the Kerr inputs
+    and head -- fits a block's 232,448 bytes (the ring, the staging rows,
+    the head's weights, the geometry and the mbarriers); a net of 128-wide
+    layers only is held while its weights fit."""
+    streamed = 0
+    for n_in, n_out in ((16, 2), (22, 3)):
+        for widths in itertools.product((128, 256), repeat=hidden):
+            dims = [n_in, *widths, n_out]
+            net = T.NeuralSurrogate((np.zeros((a, b)), np.zeros(b)) for a, b in zip(dims, dims[1:]))
+            plan = neural_kernel.kernel_plan(net, "default")
+            if plan != neural_kernel.STREAMED_PLAN:
+                assert max(widths) == 128 and plan == (384, 0, 0, 128)
+                continue
+            streamed += 1
+            assert neural_kernel.smem_bytes(neural_kernel.mlp_dims(net), plan,
+                                            "default") <= neural_kernel.SMEM_LIMIT == 232448
+    assert streamed >= 2 * (2 ** hidden - 1)
 
 
 def test_net_without_a_block_raises_instead_of_staging():
@@ -486,6 +512,31 @@ def test_prep_weights_transposes_pads_and_rounds():
     assert [tuple(w.shape) for w, _ in kops] == [(32, 256), (256, 256), (256, 256), (256, 3)]
     assert kops[0][0].dtype == torch.float32 and (kops[0][0][22:] == 0).all()
     assert torch.equal(kops[0][0][:22], kp[0][0]) and torch.equal(kops[3][0], kp[3][0])
+
+
+def test_prep_weights_chunks_for_the_streamed_layout():
+    """With `chunks` (the streamed layout), each hidden layer's W^T in
+    chunks of 64 output channels, each chunk as wgmma's K-major B without
+    swizzle: element (channel 64 c + 8 i + r, input 8 g + e) at
+    64 x in x c + 512 g + 64 i + 8 r + e; the head's W^T as it is, unpadded;
+    the biases untouched."""
+    from bhr_tpu_torch.models import neural_kerr
+
+    kp, _ = neural_kerr.load_params(ASSETS / "neural_kerr.npz")
+    rows = neural_kernel.prep_weights(kp, precision="default", device="cpu")
+    chunks = neural_kernel.prep_weights(kp, precision="default", device="cpu", chunks=True)
+    assert [tuple(w.shape) for w, _ in chunks] == [(256, 32), (256, 256), (256, 256), (3, 256)]
+    assert torch.equal(chunks[3][0], rows[3][0])
+    for (w, b), (wr, br) in zip(chunks, rows):
+        assert torch.equal(b, br) and w.dtype == torch.bfloat16
+    for (w, _), (wr, _) in zip(chunks[:3], rows[:3]):
+        k = wr.shape[1]
+        flat = w.reshape(-1)
+        n = torch.arange(wr.shape[0])[:, None]
+        j = torch.arange(k)[None, :]
+        offset = 64 * k * (n // 64) + 512 * (j // 8) + 64 * (n % 64 // 8) + 8 * (n % 8) + j % 8
+        assert torch.equal(flat[offset], wr)
+        assert torch.equal(neural_kernel.wgmma_chunks(wr), w)
 
 
 @pytest.mark.parametrize(
@@ -672,7 +723,7 @@ def test_default_tier_ragged_last_block_on_gpu(model):
     tp, _ = (neural_kerr if kerr else tn).load_params(
         ASSETS / ("neural_kerr.npz" if kerr else "neural_schwarzschild.npz"))
     tp = tp.to("cuda")
-    assert neural_kernel.kernel_plan(tp, "default")[1:] == ((64, 2, 256) if kerr else (0, 0, 128))
+    assert neural_kernel.kernel_plan(tp, "default")[1:] == ((64, 4, 256) if kerr else (0, 0, 128))
     cam = T.Camera.new(*SIDE) if kerr else T.Camera.default()
     spin = 0.9 if kerr else 0.0
     scene = T.SceneParams(screen_width=97, screen_height=61, spin=spin)
@@ -687,6 +738,33 @@ def test_default_tier_ragged_last_block_on_gpu(model):
     want = neural_kernel.neural_render_packed_reference(tp, cam, wide, device="cuda", row0=20,
                                                         local_shape=(7, 1013))
     assert_frames_agree(unpack_frame(band).cpu(), unpack_frame(want).cpu())
+
+
+@pytest.mark.gpu
+def test_streamed_launches_are_counted_on_gpu():
+    """launch.neural_mlp.streamed counts each launch of the streamed plan
+    -- one a frame, band or direction-plane launch of the Kerr net (and of
+    the 256-wide Schwarzschild net) -- and none of the held plan's (N1)."""
+    _need_cuda()
+    from bhr_tpu_torch.models import neural_kerr
+
+    nets = ((neural_kerr.load_params(ASSETS / "neural_kerr.npz")[0], 0.9, True),
+            (tn.load_params(ASSETS / "neural_schwarzschild_orbit_xl.npz")[0], 0.0, True),
+            (tn.load_params(ASSETS / "neural_schwarzschild.npz")[0], 0.0, False))
+    cam = T.Camera.new(*SIDE)
+    for net, spin, streamed in nets:
+        net = net.to("cuda")
+        plan = neural_kernel.kernel_plan(net, "default")
+        assert (plan == neural_kernel.STREAMED_PLAN) == streamed
+        scene = T.SceneParams(screen_width=160, screen_height=96, spin=spin)
+        before = COUNTS["launch.neural_mlp.streamed"], COUNTS["launch.neural_mlp"]
+        for _ in range(3):
+            neural_kernel.neural_render_packed(net, cam, scene, device="cuda")
+        neural_kernel.neural_render_packed_band(net, cam, scene, 10, 20, device="cuda")
+        neural_kernel.neural_trace_dirs(net, cam, scene, device="cuda")
+        torch.cuda.synchronize()
+        assert COUNTS["launch.neural_mlp"] - before[1] == 4
+        assert COUNTS["launch.neural_mlp.streamed"] - before[0] == (5 if streamed else 0)
 
 
 @pytest.mark.gpu

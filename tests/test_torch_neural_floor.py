@@ -5,7 +5,9 @@
   141 M for N2 (22, padded to 32, -> 256 -> 256 -> 256 -> 3); 796 M and
   1.59 G hidden outputs; 1.13 GB and 4.51 GB of weights copied from L2 a
   frame at the chunked plan of 128 pixels a block, and what the fused plans
-  copy (N1's held once a block, N2's streamed once a round of 256 pixels).
+  copy (N1's held once a block, N2's streamed once a round of 256 pixels);
+  the streamed layout's 4.41 M / 17.6 M wgmma.m64n64k16 for N2 at 1080p
+  and 4K.
 * the floor's terms, the shortest and longest SASS paths of a hand-made
   listing, and the issue term's per-pixel and per-output counts.
 * ops/neural_kernel.kernel_plan for every net chip_smoke.py drives, and the
@@ -46,7 +48,7 @@ def _net(dims):
 
 @pytest.mark.parametrize("dims,mma,tanh,chunked,fused,plan", [
     (N1, 35_251_200, 796_262_400, 1_128_038_400, 132 * 69_632, (384, 0, 0, 128)),
-    (N2, 141_004_800, 1_592_524_800, 4_512_153_600, 8100 * 278_528, (256, 64, 2, 256))],
+    (N2, 141_004_800, 1_592_524_800, 4_512_153_600, 8100 * 278_528, (256, 64, 4, 256))],
     ids=["n1", "n2"])
 def test_floor_counts_at_1080p(dims, mma, tanh, chunked, fused, plan):
     """The counts of a 1920x1080 frame: 272 (N1) or 1088 (N2) mma.sync a
@@ -63,6 +65,40 @@ def test_floor_counts_at_1080p(dims, mma, tanh, chunked, fused, plan):
     assert nk.kernel_plan(_net([dims[0] if dims[0] == 16 else 22] + dims[1:]), "default") == plan
     assert round(mma / 1e6, 2) == {16: 35.25, 32: 141.0}[dims[0]]
     assert round(chunked / 1e9, 2) == {16: 1.13, 32: 4.51}[dims[0]]
+
+
+@pytest.mark.parametrize("pixels,wgmma", [(1920 * 1080, 4_406_400), (3840 * 2160, 17_625_600),
+                                          (97 * 61, 24 * 4 * 136)], ids=["1080p", "4k", "ragged"])
+def test_wgmma_count_of_the_streamed_plan(pixels, wgmma):
+    """N2's wgmma.m64n64k16 a frame at the streamed plan: a tile of 64
+    pixels takes 2 x 4 + 16 x 4 + 16 x 4 = 136 (k-steps x chunks of 64
+    channels a layer), four tiles a round of 256 pixels, 8,100 rounds at
+    1080p and 32,400 at 4K, the last round's missing pixels computed too."""
+    assert nf.wgmma_count(N2, 64) == 4 * 136
+    assert nf.wgmma_count(N2, pixels) == wgmma
+    assert nf.wgmma_count(N2, pixels) * 64 * 64 * 16 >= nf.mma_count(N2, pixels) * 16 * 8 * 16
+    assert nf.streamed((256, 64, 4, 256)) and not nf.streamed((384, 0, 0, 128))
+    assert not nf.streamed((256, 64, 2, 256))  # its mma.sync predecessor
+    assert not nf.streamed((128, 64, 2))
+
+
+def test_floor_terms_of_the_streamed_plan():
+    """The streamed plan's tensor term counts wgmma at their own rate, and
+    its issue term leaves the products out; the weights are copied once a
+    round of 256 pixels."""
+    plan = (256, 64, 4, 256)
+    t = nf.floor_terms(N2, plan, 3840 * 2160, cycles_per_mma=1.5, cycles_per_wgmma=40.0,
+                       issue_pixel=1400, issue_output=17.5, l2_bytes_per_s=1e13, clock_mhz=1980)
+    hz = 1980e6
+    assert t["mma"] == 17_625_600 and t["instruction"] == "wgmma.m64n64k16"
+    assert t["tensor_ms"] == pytest.approx(17_625_600 * 40.0 / (132 * hz) * 1e3)
+    warp_ins = (3840 * 2160 * 1400 + 6_370_099_200 * 17.5) / 32
+    assert t["warp_instructions"] == pytest.approx(warp_ins)
+    assert t["weight_bytes"] == 32400 * 278_528
+    held = nf.floor_terms(N2, (128, 64, 2), 3840 * 2160, cycles_per_mma=1.5, issue_pixel=1400,
+                          issue_output=17.5, l2_bytes_per_s=1e13, clock_mhz=1980)
+    assert held["instruction"] == "mma.sync.m16n8k16"
+    assert held["warp_instructions"] == pytest.approx(warp_ins + nf.mma_count(N2, 3840 * 2160))
 
 
 def test_mlp_dims_pads_the_inputs():
@@ -156,9 +192,10 @@ def test_phase_counts_and_issue_per_pixel():
 # the highest, and PLAN_NETS (seeded random nets, hidden (w, 128, w)).
 COMMITTED = {"neural_schwarzschild.npz": (384, 0, 0, 128),
              "neural_schwarzschild_orbit.npz": (384, 0, 0, 128),
-             "neural_schwarzschild_orbit_xl.npz": (256, 64, 2, 256),
-             "neural_kerr.npz": (256, 64, 2, 256)}
-PLANS = {("default", "kerr", 128): (384, 0, 0, 128), ("default", "kerr", 384): (64, 64, 2, 0),
+             "neural_schwarzschild_orbit_xl.npz": (256, 64, 4, 256),
+             "neural_kerr.npz": (256, 64, 4, 256)}
+PLANS = {("default", "kerr", 128): (384, 0, 0, 128), ("default", "kerr", 256): (256, 64, 4, 256),
+         ("default", "kerr", 384): (64, 64, 2, 0),
          ("default", "schwarzschild", 512): (64, 64, 1, 0),
          ("default", "kerr", 640): (32, 64, 1, 0),
          ("default", "schwarzschild", 1152): (16, 64, 1, 0),
@@ -205,11 +242,11 @@ def test_kernel_plan_of_every_plan_net(case):
 @pytest.mark.parametrize("hidden", range(1, 8))
 def test_kernel_plan_by_layer_count(hidden):
     """Up to 8 layers: a 128-wide net holds its weights while they fit
-    beside the 12 warps' staging rows (4 hidden layers), then streams at
-    the 256 register width; a 256-wide net always streams."""
+    beside the 12 warps' staging rows (4 hidden layers), then streams; a
+    256-wide net always streams."""
     narrow = nk.kernel_plan(_net([16] + [128] * hidden + [2]), "default")
-    assert narrow == ((384, 0, 0, 128) if hidden <= 4 else (256, 64, 2, 256))
-    assert nk.kernel_plan(_net([22] + [256] * hidden + [3]), "default") == (256, 64, 2, 256)
+    assert narrow == ((384, 0, 0, 128) if hidden <= 4 else (256, 64, 4, 256))
+    assert nk.kernel_plan(_net([22] + [256] * hidden + [3]), "default") == (256, 64, 4, 256)
     for dims, plan in (([16] + [128] * hidden + [2], narrow),):
         assert nk.smem_bytes(dims, plan, "default") <= nk.SMEM_LIMIT
 

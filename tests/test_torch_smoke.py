@@ -144,6 +144,39 @@ def test_ptxas_summary_names_every_instantiation():
     assert sass_walk.ptxas_summary("") == "already built"
 
 
+def test_function_hash_follows_the_code():
+    """function_hash is the same for the same listing and moves with any
+    predicate, opcode or operand."""
+    ins = [sass_walk.Ins(0, None, "FADD", None, ("R2", "R2", "R3")),
+           sass_walk.Ins(16, "@P0", "EXIT", None, ())]
+    same = [sass_walk.Ins(32, None, "FADD", None, ("R2", "R2", "R3")),
+            sass_walk.Ins(48, "@P0", "EXIT", None, ())]
+    assert sass_walk.function_hash(ins) == sass_walk.function_hash(same)
+    assert len(sass_walk.function_hash(ins)) == 16
+    others = ([ins[0]._replace(op="FMUL"), ins[1]],
+              [ins[0]._replace(args=("R2", "R2", "R4")), ins[1]],
+              [ins[0], ins[1]._replace(pred=None)])
+    for other in others:
+        assert sass_walk.function_hash(other) != sass_walk.function_hash(ins)
+
+
+def test_ptxas_summary_names_the_neural_layouts():
+    """The default tier's layouts by their mangled names: the held fused
+    kernel with its register width, the streamed one, the chunked one."""
+    def entry(name):
+        return (f"ptxas info    : Compiling entry function '_ZN3bhr46_GLOBAL__N__3a75a30a_13_"
+                f"neural_mlp_cu_fe53d78c{name}EvNS_6ParamsEjiiNS_7MlpDescEPjPfPi' for 'sm_90a'")
+
+    log = "\n".join([
+        entry("19neural_fused_kernelILb0ELi128EE"), "ptxas info    : Used 162 registers",
+        entry("22neural_fused_kernel_wsILb1EE"), "ptxas info    : Used 128 registers",
+        entry("20neural_render_kernelILb1ELb0EE"), "ptxas info    : Used 107 registers",
+    ])
+    assert sass_walk.ptxas_summary(log) == (
+        "schwarzschild,default,fused128: 162 registers | kerr,default,streamed: 128 registers | "
+        "kerr,default,chunked: 107 registers")
+
+
 def _planes(seed=0, shape=(24, 32)):
     """A TraceResult of seeded unit directions, escaped but for a captured
     block."""

@@ -385,13 +385,10 @@ class BlackHoleRenderer:
         # runtime-swappable physics (bhr_tpu/renderer.py:433-457): a .py
         # path, module or callable providing acceleration(rel, vel, r, r2,
         # rs, spin) on component planes
-        plugin = {}
         if custom_physics is not None:
             if model not in (None, "custom"):
                 raise ValueError(f"custom_physics conflicts with model={model!r}; leave model "
                                  "unset (it becomes 'custom')")
-            accel, capture_factor = load_plugin(custom_physics)
-            plugin = dict(custom_accel=accel, custom_capture_factor=capture_factor)
             model = "custom"
             if multires:
                 raise ValueError("custom physics has no multires mode (bhr_tpu runs it on its "
@@ -427,10 +424,15 @@ class BlackHoleRenderer:
         if context is not None and device is not None:
             raise ValueError("pass either context= or device=, not both")
         wanted = context.device if context is not None else torch.device(device or "cuda")
-        if plugin and wanted.type == "cuda":
-            # the kernel's build takes the plugin's recorded arithmetic; one
-            # it cannot record raises here, naming what it does
-            cuda_source(plugin["custom_accel"])
+        plugin = {}
+        if custom_physics is not None:
+            with tracing.span("setup.plugin"):
+                accel, capture_factor = load_plugin(custom_physics)
+                if wanted.type == "cuda":
+                    # the kernel's build takes the plugin's recorded arithmetic;
+                    # one it cannot record raises here, naming what it does
+                    cuda_source(accel)
+            plugin = dict(custom_accel=accel, custom_capture_factor=capture_factor)
         self.context = context if context is not None else CudaContext.new(device)
         self.width = int(width)
         self.height = int(height)

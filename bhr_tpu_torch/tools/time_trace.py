@@ -388,7 +388,7 @@ def measure(root: str, occupancy: bool = False, waves: bool = False) -> dict:
                                           fast_math=fast, device="cuda").config
             from bhr_tpu_torch.utils import plugin
 
-            accel_ops = plugin.record(config.custom_accel).varying_ops
+            accel_ops = plugin.program(config.custom_accel).varying_ops
         else:
             kw = dict(kw)
             multires = kw.pop("multires", None)

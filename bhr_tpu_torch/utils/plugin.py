@@ -48,6 +48,7 @@ import re
 import numpy as np
 
 from ..core.scene import CAPTURE_FACTOR
+from . import tracing
 
 
 def load_plugin(source):
@@ -257,7 +258,9 @@ class _Operand:
 
 def record(accel, name: str | None = None) -> Program:
     """Call the plugin `accel` once on recording operands -> its Program.
-    Raises ValueError for an operation the kernel does not take."""
+    Raises ValueError for an operation the kernel does not take. Each
+    recording counts in tracing.COUNTS["plugin.records"]; the renderer and
+    the kernel's wrapper take a plugin's through `program`, once."""
     tape = []
     x = {n: _Operand(n, tape) for n in INPUTS}
     out = accel((x["rel.x"], x["rel.y"], x["rel.z"]), (x["vel.x"], x["vel.y"], x["vel.z"]),
@@ -272,11 +275,19 @@ def record(accel, name: str | None = None) -> Program:
             outputs.append(np.float32(v))
         else:
             raise ValueError(f"physics plugin: returned a {type(v).__name__}; {_TAKES}")
-    return Program(tuple(tape), tuple(outputs),
+    prog = Program(tuple(tape), tuple(outputs),
                    name or getattr(accel, "__module__", None) or repr(accel))
+    tracing.COUNTS["plugin.records"] += 1
+    return prog
+
+
+@functools.lru_cache(maxsize=32)
+def program(accel) -> Program:
+    """`record(accel)`, once per plugin function."""
+    return record(accel)
 
 
 @functools.lru_cache(maxsize=32)
 def cuda_source(accel) -> str:
-    """`record(accel).cuda_source()`, once per plugin function."""
-    return record(accel).cuda_source()
+    """`program(accel).cuda_source()`, once per plugin function."""
+    return program(accel).cuda_source()

@@ -39,6 +39,8 @@ The span names:
   setup.nvcc            ...when it compiles
   setup.neural_prepare  the neural kernel's operands prepared on the device
   setup.disk_lut        the fast kernel's blackbody table copied to the device
+  setup.plugin          BlackHoleRenderer(custom_physics=): the plugin loaded
+                        and, for a CUDA device, recorded into CUDA source
   gc                    a collection of the garbage collector
 
 COUNTS counts at all times, recording or not. Each launch key is incremented by
@@ -67,6 +69,9 @@ a kernel's wrapper right after a successful launch, and nowhere else:
 and one key counts a route taken, not a launch:
   epilogue.plain                  renderer.shade_image, for each frame on a
                                   CUDA device that takes the plain epilogue
+and one the recordings of a physics plugin into the kernel's source:
+  plugin.records                  utils/plugin.record; once a plugin
+                                  function a process (utils/plugin.program)
 launch.shade_planes over the sum of the two is the kernel's share of the
 staged frames shaded on a card.
 """

@@ -107,12 +107,18 @@ renderer's paths:
     leapfrog in both tiers, one trace_planes launch a frame: the planes
     against the plain trace and the frame against the all-plain frame at
     the trace bars, and the kernel's time beside the plain version's;
+    then 3 OrbitAnimator frames of the plugin at 3840x2160x500 in the
+    exact tier (the benchmark's pw4k), each one trace_planes launch of the
+    plugin's build, one shade_planes launch and no render_mono, the plugin
+    recorded once in the process (plugin.records), with the profiler's
+    name of the kernel the launch runs;
   * every exact plane and frame held above -- the main path's frame,
     config 4's frame and planes, its strided and masked passes (and the
     main path's), rk4 and leapfrog exact render_mono frames and
     trace_planes planes, kerr_lt's, config 5's frame and planes, the
-    plugin's planes -- bit-equal to its plain version on 100% of its
-    pixels (the phases themselves hold EXACT_SAME_MIN);
+    plugin's planes and its 4K orbit frames and planes -- bit-equal to
+    its plain version on 100% of its pixels (the phases themselves hold
+    EXACT_SAME_MIN);
   * the probes (python -m bhr_tpu_torch.tools.hopper_probe, the questions
     of bhr_tpu's six probe scripts): probe_ieee over 4M inputs (every
     divide and root against the correctly rounded result, the Markstein
@@ -207,6 +213,8 @@ N_NEURAL = "launch.neural_mlp"
 N_DIRS, N_BAND = f"{N_NEURAL}.dirs", f"{N_NEURAL}.band"
 N_NEURAL_KERR, N_STREAMED = f"{N_NEURAL}.kerr", f"{N_NEURAL}.streamed"  # by net and layout
 KERR_SKY_FRAMES = 4  # 4K orbit frames of the Kerr net (bench_torch's kerr09sky4k)
+PW4K_FRAMES = 3  # 4K exact orbit frames of the plugin (bench_torch's pw4k)
+N_RECORDS = "plugin.records"  # recordings of a physics plugin, over the whole process
 # The held layout's instantiations (csrc/neural_mlp.cu neural_fused_kernel<·,
 # 128>), pinned to the SASS they had before the streamed layout moved to
 # wgmma (sass_walk.function_hash of nvcc 12.8's build for sm_90a): the
@@ -765,7 +773,7 @@ def main() -> None:
     # 2. build: one nvcc per library, started together; the plugin's
     # trace_planes is built from the header its recording gives
     plugin_accel, plugin_cap = plugin.load_plugin(PLUGIN)
-    plugin_program = plugin.record(plugin_accel)
+    plugin_program = plugin.program(plugin_accel)
     plugin_source = plugin.cuda_source(plugin_accel)
     with concurrent.futures.ThreadPoolExecutor(7) as pool:
         floor_job = pool.submit(nf.build_floor, build.nvcc_path(), build.NVCC_FLAGS,
@@ -808,7 +816,12 @@ def main() -> None:
     C = tracing.COUNTS  # the launch counts, keyed by the constants N_*
 
     def reset():
+        """Clears the launch counts; the plugin's recordings count for the
+        whole process."""
+        records = C[N_RECORDS]
         C.clear()
+        if records:
+            C[N_RECORDS] = records
 
     def counts():
         return C[N_MONO], C[N_TRACE], C[N_NEURAL]
@@ -2425,6 +2438,59 @@ def main() -> None:
                   f"{json.dumps(fs)}; kernel {ms:.3f} ms{builtin}, plain {plain_ms:.3f} ms, "
                   f"{ray_steps} ray-steps, bound {b:.3f} ms ({by}) on {smi}")
             del k_res, p_res, plain
+
+    # 19'. plugin physics at 4K through the orbit loop (bench_torch's
+    # pw4k.orbit_exact): PW4K_FRAMES OrbitAnimator frames of the exact tier
+    # with no host sync, each one trace_planes launch of the plugin's build
+    # and one shade_planes launch, no render_mono; each frame's planes by
+    # the kernel bit-equal to the plain trace and the frame to the plain
+    # staged frame; the plugin recorded once in the process; the
+    # instantiation the launch runs, by the profiler's kernel name
+    r_pw = bt.BlackHoleRenderer(W5, H5, custom_physics=PLUGIN, device="cuda")
+    if r_pw.config.custom_accel is not plugin_accel or r_pw.fast_math:
+        raise AssertionError("the 4K plugin renderer is not the exact tier of PLUGIN")
+    r_pw.scene = bt.SceneParams(screen_width=W5, screen_height=H5)  # max_steps 500
+    bt.OrbitAnimator(r_pw).render_frames(1, packed=True)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    n = PW4K_FRAMES
+    frames, pw_ms, anim = animate(r_pw, n)
+    if (counts() != (0, n, 0) or (C[N_CUSTOM], C[N_SHADE], C[N_PLAIN]) != (n, n, 0)
+            or frames.shape != (n, H5, W5)):
+        raise AssertionError(f"4K plugin animation launched {counts()}, {C[N_CUSTOM]} custom, "
+                             f"{C[N_SHADE]} shade_planes, {C[N_PLAIN]} plain epilogues: "
+                             f"{tuple(frames.shape)}")
+    if C[N_RECORDS] != 1:
+        raise AssertionError(f"{PLUGIN} was recorded {C[N_RECORDS]} times in the process")
+    rec = var.other("trace_planes[custom]<exact,euler>", "trace_planes", REPLACES["custom"])
+    rec["launches"] += n
+    shade_rec()["launches"] += n
+    pw_stats = []
+    for k, t in enumerate(anim.frame_times(n)):
+        cam = bt.orbit_camera(t)
+        plain, p_res = plain_staged(cam, r_pw.scene, r_pw.config, False, r_pw)
+        k_res = tk.trace_image(cam, r_pw.scene, r_pw.config, device="cuda")
+        st = compare(frames[k], plain, False, k_res.status, p_res.status)
+        hold_bits(f"trace_planes[custom]<exact,euler> 4K orbit frame {k}", frames[k], plain)
+        hold_bits(f"trace_planes[custom]<exact,euler> 4K orbit planes {k}", k_res, p_res)
+        rec["max_abs_err"] = max(rec["max_abs_err"], st["max_abs_err"])
+        st["ray_steps"] = int(p_res.steps.sum().item())
+        pw_stats.append({key: st[key] for key in ("bit_same", "status_agree", "captured_frac",
+                                                 "ray_steps")})
+        del plain, p_res, k_res
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        anim.render_frames(1, packed=True)
+        torch.cuda.synchronize()
+    pw_kernels = sorted({e.key for e in prof.key_averages() if "trace_planes_kernel" in e.key})
+    if len(pw_kernels) != 1:
+        raise AssertionError(f"the 4K plugin frame ran the trace kernels {pw_kernels}")
+    phase("custom_4k", f"{n} frames {W5}x{H5}x{r_pw.scene.max_steps} {PLUGIN} euler exact: "
+          f"OrbitAnimator {pw_ms:.3f} ms/frame with no host sync (CUDA events, sync debug "
+          f"mode 'error'); {N_TRACE}={n}, {N_CUSTOM}={n}, {N_SHADE}={n}, {N_MONO}=0, "
+          f"{N_RECORDS}={C[N_RECORDS]} in the process; each frame and its kernel planes "
+          f"bit-equal to the plain versions: {json.dumps(pw_stats)}; the profiler's kernel "
+          f"{pw_kernels[0]!r} on {smi}")
+    del frames, r_pw, anim
 
     # 20. every exact plane and frame held above, bit-equal to its plain
     # version on 100% of its pixels (the exact tier's bar is the oracle's bits;

@@ -101,9 +101,22 @@ def test_the_digest_pin_is_held(tmp_path, monkeypatch):
 
 def run(cell, wrap=None, seconds=0.1):
     """A run of `seconds`: one frame is enough for any fault but the stale
-    one, which needs a second frame in the window."""
+    one, which needs a second frame in the window (`run_stale`)."""
     return harness.run_cell(cell, SEED, seconds, False, t_start=time.perf_counter(),
                             device="cpu", wrap=wrap)
+
+
+def run_stale(cell, tries=6):
+    """A stale run whose window holds at least two frames: its window is
+    doubled from 0.8 s until it does, within `tries` runs, so that a loaded
+    CPU cannot leave the window a single (correct) frame."""
+    seconds = 0.8
+    for _ in range(tries):
+        out = run(cell, _stale(), seconds)
+        if out["attempted"] >= 2:
+            return out
+        seconds *= 2
+    raise AssertionError(f"{tries} stale windows up to {seconds / 2} s held one frame each")
 
 
 def test_a_sound_run_is_correct():
@@ -144,9 +157,12 @@ def _planted(kind):
 @pytest.mark.parametrize("broken", ["control", "stale", "half_rows", "band_altered"])
 def test_a_broken_run_is_not_correct(broken):
     cell = small(40, 24)
-    wrap = {"control": lambda: _control(cell), "stale": _stale}.get(
-        broken, lambda: _planted(broken))()
-    out = run(cell, wrap, 0.8 if broken == "stale" else 0.1)
+    if broken == "stale":
+        out = run_stale(cell)
+        assert out["attempted"] >= 2
+    else:
+        wrap = _control(cell) if broken == "control" else _planted(broken)
+        out = run(cell, wrap)
     assert not out["correct"], out["checks"]
     if broken == "control":
         assert out["checks"]["off1_pct"]["value"] > 1.0

@@ -5,6 +5,8 @@ of src/ray_tracer_euler.wgsl:183-198)."""
 from __future__ import annotations
 
 import dataclasses
+import math
+import struct
 
 import torch
 
@@ -111,15 +113,72 @@ def generate_rays(
     return origins, d
 
 
+_FP32 = struct.Struct("f")
+
+
+def _rn(x: float) -> float:
+    """`x` rounded to the nearest fp32, as a Python float. A + - * / or
+    square root of fp32 operands taken in float64 and rounded once here is
+    the correctly rounded fp32 result (53 >= 2 * 24 + 2 bits). Raises
+    OverflowError where the fp32 result would be infinite."""
+    return _FP32.unpack(_FP32.pack(x))[0]
+
+
+def _dot3(a, b) -> float:
+    """core/math.dot on host floats: each product and sum rounded to fp32,
+    summed left to right."""
+    return _rn(_rn(_rn(a[0] * b[0]) + _rn(a[1] * b[1])) + _rn(a[2] * b[2]))
+
+
+def _cross3(a, b) -> tuple[float, float, float]:
+    """core/math.cross on host floats, rounded to fp32 as it rounds."""
+    return (_rn(_rn(a[1] * b[2]) - _rn(a[2] * b[1])),
+            _rn(_rn(a[2] * b[0]) - _rn(a[0] * b[2])),
+            _rn(_rn(a[0] * b[1]) - _rn(a[1] * b[0])))
+
+
+def _normalize3(v) -> tuple[float, float, float]:
+    """core/math.normalize on host floats, with its zero-length guard."""
+    length = _rn(math.sqrt(_dot3(v, v)))
+    if not length > 0.0:
+        return tuple(v)
+    return tuple(_rn(x / length) for x in v)
+
+
+def _look_at_host(position, look_at, up) -> tuple[tuple[float, float, float], ...]:
+    """`Camera.new`'s basis on host floats (fp32 values, operation for
+    operation in its order): (position, forward, right, up)."""
+    forward = _normalize3([_rn(a - p) for a, p in zip(look_at, position)])
+    right = _normalize3(_cross3(forward, up))
+    return tuple(position), forward, right, _normalize3(_cross3(right, forward))
+
+
 def orbit_camera(t, radius=15.0, height=5.0, rotation_speed=0.3, *, device="cpu") -> Camera:
     """Equatorial orbit camera as a pure function of time.
 
     Mirrors the app's animation loop (reference: src/main.rs:851-869):
     angle = t * 0.3 rad/s, camera at (r*cos, h, r*sin), always looking at the
     origin with +Y up.
+
+    For one time on the CPU (the animation's camera, once a frame) the
+    basis is computed on host floats, each operation rounded to fp32 as
+    `Camera.new` rounds it, from the same torch.cos and torch.sin of the
+    fp32 angle: bit for bit the tensor version's fields, without its
+    ~50 tensor operations. A batch of times or another device takes the
+    tensor version.
     """
     t = torch.as_tensor(t, dtype=_F32, device=device)
     angle = t * torch.tensor(rotation_speed, dtype=_F32, device=device)
+    if angle.ndim == 0 and angle.device.type == "cpu":
+        try:
+            r = _rn(float(radius))
+            pos = (_rn(r * torch.cos(angle).item()), _rn(float(height)),
+                   _rn(r * torch.sin(angle).item()))
+            basis = _look_at_host(pos, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+        except OverflowError:  # an infinite fp32 value: the tensor version has it
+            pass
+        else:
+            return Camera(*torch.tensor(basis, dtype=_F32).unbind(0))
     r = torch.tensor(radius, dtype=_F32, device=device)
     pos = torch.stack(
         [

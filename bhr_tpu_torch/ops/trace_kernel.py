@@ -23,6 +23,7 @@ kernel or raises -- it never falls back.
 
 from __future__ import annotations
 
+import array
 import functools
 
 import torch
@@ -120,7 +121,7 @@ def build_params(camera: Camera, scene: SceneParams, config: TraceConfig, row0=0
     elif config.model == "custom":
         capture_r = rs * host(config.custom_capture_factor)  # pallas_trace.py:1684-1685
     elif config.model == "kerr":
-        with tracing.span("host.params.ks"):  # 1.05 r_+, a dozen host tensor ops a frame
+        with tracing.span("host.params.ks"):  # 1.05 r_+, a dozen host tensor ops
             capture_r = host(model_capture_radius(config.model, rs, spin))
     else:
         capture_r = host(model_capture_radius(config.model, rs, spin))
@@ -211,12 +212,58 @@ def _raise_on_error(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({lib.bhr_error_string(rc).decode()})")
 
 
+# The parameter block less its camera (floats _P_BH and on) by the value of
+# what build_params reads for them: a pure function's memo, so any caller may
+# share it. A frame's launch reuses it (a new _FramePlan every call would
+# hold nothing).
+_CONST_BLOCKS: dict = {}
+_MAX_CONST_BLOCKS = 64
+
+
+def _camera_floats(camera: Camera) -> list[float]:
+    """The 12 camera floats of the block, position, forward, right and up,
+    read from the camera's fp32[3] tensors (on the host: 4 reads)."""
+    vals = []
+    for x in (camera.position, camera.forward, camera.right, camera.up):
+        x = torch.as_tensor(x, dtype=torch.float32).cpu()
+        if x.shape != (3,):
+            raise ValueError(f"a launch takes a camera of fp32[3] fields, got {tuple(x.shape)}")
+        vals += x.tolist()
+    return vals
+
+
+def _const_key(scene: SceneParams, config: TraceConfig, row0, col0, stride) -> tuple:
+    """Every value build_params reads beside the camera, the floats by their
+    bits (so that -0.0 is not 0.0)."""
+    vals = [*torch.as_tensor(scene.black_hole_position, dtype=torch.float32).reshape(-1).tolist(),
+            *(float(x) for x in (scene.schwarzschild_radius, scene.fov, scene.spin,
+                                 scene.screen_width, scene.screen_height, config.dt,
+                                 config.escape_radius, config.custom_capture_factor,
+                                 config.disk_r_isco_factor, config.disk_r_outer_factor, row0,
+                                 col0, stride))]
+    return config.model, array.array("d", vals).tobytes()
+
+
 def _kernel_params(camera, scene, config, row0=0, col0=0, stride=1):
+    """The kernel's parameter block: the camera's 12 floats and the rest,
+    computed by build_params once for a scene, config and band and reused
+    after (COUNTS "host.params.built" / "host.params.reused"); bit for bit
+    build_params(camera, scene, config, row0, col0, stride)."""
     from ..utils.build import KernelParams
 
     with tracing.span("host.params"):
+        key = _const_key(scene, config, row0, col0, stride)
+        const = _CONST_BLOCKS.get(key)
+        if const is None:
+            const = build_params(camera, scene, config, row0, col0, stride).tolist()[_P_BH:]
+            if len(_CONST_BLOCKS) >= _MAX_CONST_BLOCKS:
+                _CONST_BLOCKS.clear()
+            _CONST_BLOCKS[key] = const
+            tracing.COUNTS["host.params.built"] += 1
+        else:
+            tracing.COUNTS["host.params.reused"] += 1
         params = KernelParams()
-        params.v[:] = build_params(camera, scene, config, row0, col0, stride).tolist()
+        params.v[:] = _camera_floats(camera) + const
         return params
 
 

@@ -25,7 +25,7 @@ The span names:
   host.frames           PathAnimator.render_frames, the whole call
   host.camera           the frame times and each frame's camera_fn(t)
   host.params           the kernels' parameter vector and MLP descriptor
-  host.params.ks        its exact Kerr capture radius, 1.05 r_+
+  host.params.ks        its exact Kerr capture radius, 1.05 r_+ (when built)
   kernel.render_mono    the wrappers, from entry through the ctypes
   kernel.trace_planes   call (on a CPU device, their plain versions)
   kernel.neural_mlp
@@ -72,8 +72,12 @@ and one key counts a route taken, not a launch:
 and one the recordings of a physics plugin into the kernel's source:
   plugin.records                  utils/plugin.record; once a plugin
                                   function a process (utils/plugin.program)
+and two the kernels' parameter block, its part other than the camera:
+  host.params.built               ops/trace_kernel._kernel_params, each time
+  host.params.reused              it is computed, and each time it is reused
 launch.shade_planes over the sum of the two is the kernel's share of the
-staged frames shaded on a card.
+staged frames shaded on a card; host.params.reused over the sum of the
+last two is the block's hit share, (F - 1) / F over F frames of one scene.
 """
 
 from __future__ import annotations

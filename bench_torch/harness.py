@@ -17,6 +17,11 @@ after each frame. The events are read after the window, so the window
 makes no other host sync. Once the window has closed and the program's
 state is freed, the frames sampled from the seed (and the last) are held
 against the plain reference.
+
+A --trace 1 run also records the program's own spans (utils/tracing):
+through the build ("bench.build") and the warm-up ("bench.warmup"), and
+through the traced half of the window, inside the profiler. The untraced
+half, which gives host.issue_ms, and a --trace 0 run record none.
 """
 
 from __future__ import annotations
@@ -30,18 +35,21 @@ import json
 import random
 import statistics
 import subprocess
+import sys
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
 
+from . import spans as sp
 from . import trace as tr
 from .reference.common import orbit_camera
 
 BENCH_DIR = Path(__file__).resolve().parent
 REPO = BENCH_DIR.parent
 COUNTS = ("ops_per_step", "neural_pixel_ops", "bytes_per_pixel", "peaks")
+JAX_NAMES = {"jax", "jaxlib", "flax", "bhr_tpu"}
 
 
 @dataclasses.dataclass
@@ -143,6 +151,31 @@ def build_program(cell: Cell, star_seed: int, device):
         return anim.render_frames(1, fps=cam["fps"], start_frame=k, packed=True)
 
     return anim, render
+
+
+def recorder():
+    """The program's span recorder (bhr_tpu_torch.utils.tracing), imported
+    where a --trace 1 run first records."""
+    from bhr_tpu_torch.utils import tracing
+
+    return tracing
+
+
+@contextmanager
+def setup_phase(bench, name: str):
+    """In a --trace 1 run (`bench`, the benchmark's HostSpans), the
+    benchmark's span `name` around the block, with the program's recording
+    on inside it; nothing in a --trace 0 run (`bench` None)."""
+    if bench is None:
+        yield
+        return
+    with bench(name), recorder().recording():
+        yield
+
+
+def profile():
+    """The traced half's profiler: CUDA activity alone."""
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
 
 
 class Clock:
@@ -259,6 +292,14 @@ def check(cell: Cell, kept: dict, star_seed: int, device) -> tuple[dict, int, li
 # ---- one run -----------------------------------------------------------------
 
 
+def jax_loaded(modules=None) -> list[str]:
+    """The top-level names among the loaded modules (sys.modules) that are
+    JAX's or the JAX package's, compared whole: the port's own name,
+    bhr_tpu_torch, begins with the JAX package's."""
+    modules = sys.modules if modules is None else modules
+    return sorted({m.split(".")[0] for m in modules} & JAX_NAMES)
+
+
 def power_limit_w():
     """The card's power limit from nvidia-smi, or None where it cannot be
     read."""
@@ -281,7 +322,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: flo
     s = seeded(cell, seed)
     k0 = s["phase"]
     in_flight = int(t["frames_in_flight"])
-    anim, render = build_program(cell, s["star_seed"], device)
+    setup = tr.HostSpans() if trace else None
+    with setup_phase(setup, "bench.build"):
+        anim, render = build_program(cell, s["star_seed"], device)
     if wrap is not None:
         program = render
 
@@ -294,11 +337,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: flo
     # kept ones), so that the allocator's cache already holds their blocks
     # and the window never waits on cudaMalloc
     alive = in_flight + 2 + t["compare_frames"]
-    warm = [render(k) for k in range(k0, k0 + max(t["warmup_frames"], alive))]
-    clock.sync()
+    with setup_phase(setup, "bench.warmup"):
+        warm = [render(k) for k in range(k0, k0 + max(t["warmup_frames"], alive))]
+        clock.sync()
     del warm
+    if trace:
+        # the program's set-up spans, in seconds from the start of the build
+        # (spans of an earlier import in the process fall outside it)
+        (_, b0, _), (_, _, w1) = setup.spans
+        setup_spans = sp.relative(recorder().drain(), b0, w1)
+        setup_host = [(n, (a - b0) * 1e-9, (b - b0) * 1e-9) for n, a, b in setup.spans]
     if trace and clock.cuda:  # the profiler's first session starts CUPTI: set-up
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        with profile():
             render(k0)
             clock.sync()
     if clock.cuda:
@@ -320,20 +370,27 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, t_start: flo
                                                    keep)
         attempted = len(end_ms)
         spans = tr.HostSpans()
-        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-        with prof:
+        prof = profile()
+        with prof, recorder().recording():
             end2, _, kept2, _ = run_window(render, clock, seconds / 2, in_flight, k_next, keep,
                                            span=spans)
+        program = recorder().drain()
         kept.update(kept2)
         attempted += len(end2)
         dev, host = tr.collect(prof)
         del prof
-        dev, host, window_s = tr.in_window(dev, host + spans.spans)
+        host += spans.spans
+        program = sp.relative(program, *tr.window(host))
+        dev, host, window_s = tr.in_window(dev, host)
+        launched = tr.launched_by(dev, host, program)
+        dev, host = [d[:3] for d in dev], [h[:3] for h in host]
         frame_ms2, _ = frame_stats(end2)
         records = dict(kernels=dev, host=host, window_s=window_s, frames=len(end2),
-                       frame_interval_ms=frame_ms2, issue_ms=[x * 1e3 for x in issue_s])
+                       frame_interval_ms=frame_ms2, issue_ms=[x * 1e3 for x in issue_s],
+                       spans=program, launched_by=launched, setup_spans=setup_spans,
+                       setup_host=setup_host)
         dev_extra = {"busy_s": tr.busy_s(dev), "window_s": window_s}
-        brk = tr.breakdown(dev, host, window_s)
+        brk = tr.breakdown(dev, host, window_s, program=program)
     peak = torch.cuda.max_memory_allocated(device) if clock.cuda else 0
     # free the program's state before the reference runs
     del anim, render, end_ms, issue_s

@@ -1,8 +1,10 @@
 """epilogue.device_ms: device time a frame of every operation except the
 geodesic kernel (render_mono_kernel, trace_planes_kernel): in a staged
-frame the plain epilogue (renderer.shade_image -> ops/shading,
-ops/starfield) and the per-frame scalars it fills. Nothing to read where
-no geodesic kernel ran or nothing else did."""
+frame the epilogue (renderer.shade_image: one shade_planes_kernel for a
+star-field frame, else the plain epilogue's ops/shading, ops/starfield)
+and disk_params' fills of the per-frame scalars, which it counts too.
+epilogue.shade_kernel_device_ms reads the shading kernel alone. Nothing
+to read where no geodesic kernel ran or nothing else did."""
 
 GEODESIC = ("render_mono_kernel", "trace_planes_kernel")
 

@@ -1,7 +1,9 @@
 """epilogue.launches: device operations (kernels, copies, fills) launched a
 frame besides the geodesic kernel (render_mono_kernel,
-trace_planes_kernel): in a staged frame, the plain epilogue's. Nothing to
-read where no geodesic kernel ran or nothing else did."""
+trace_planes_kernel): in a staged frame, the epilogue's (one
+shade_planes_kernel for a star-field frame) and disk_params' fills, which
+it counts too (6 of 7 in a staged disk frame). Nothing to read where no
+geodesic kernel ran or nothing else did."""
 
 GEODESIC = ("render_mono_kernel", "trace_planes_kernel")
 

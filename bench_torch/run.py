@@ -6,7 +6,9 @@ From the root of a checkout. Prints one JSON object as the last line of
 standard output (`correct`, `attempted`, `failed`, `metrics`, `device`; with
 --trace 1 also `breakdown`; `checks` last) and each number compared beside
 its limit as the last lines of standard error. Exits 3, printing no
-result, without as many CUDA devices as the cell asks for.
+result, without as many CUDA devices as the cell asks for, and 4 where JAX
+or the JAX package (bhr_tpu) is loaded in the process once the window has
+closed.
 """
 
 import time
@@ -37,7 +39,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     import torch
 
-    from bench_torch.harness import load_cell, run_cell
+    from bench_torch.harness import jax_loaded, load_cell, run_cell
 
     cell = load_cell(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
@@ -47,6 +49,11 @@ def main(argv=None) -> int:
         return 3
     torch.set_num_threads(1)
     out = run_cell(cell, args.seed, args.seconds, bool(args.trace), t_start=T_START)
+    found = jax_loaded()
+    if found:
+        print(f"{args.workload}: the process loaded {', '.join(found)}; no result",
+              file=sys.stderr)
+        return 4
     print(json.dumps(out), flush=True)
     for name, c in out["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)

@@ -150,7 +150,7 @@ __global__ void __launch_bounds__(256)
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (row >= height || col >= width) return;
 
-  const Ray ray = trace_ray<FAST, INTEG, KS>(p, trace_flags<FLAGS>(flags), row, col, max_steps);
+  const Ray ray = trace_ray<FAST, INTEG, KS, FLAGS>(p, flags, row, col, max_steps);
 
   // ---- shade, quantize, pack (pallas_trace.py:1294-1333)
   const bool captured = ray.status == kCaptured;

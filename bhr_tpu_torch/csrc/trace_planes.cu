@@ -3,24 +3,26 @@
 //
 // Replaces bhr_tpu/ops/pallas_trace.py:kernel_stateless (K4, via
 // _pallas_trace and pallas_trace_image) and its step-counting flavour
-// `kernel` (K5, track_steps=True, body_fast) for the euler, rk4 and
-// leapfrog integrators, fixed or adaptive dt, the Schwarzschild, exact
-// Kerr (Kerr-Schild, K6), Lense-Thirring Kerr (K7) or flat metric, with or
-// without the accretion disk, in both math tiers (the Kerr-Schild loop a
-// template parameter: 12 instantiations, 2 more of Euler with the flags
-// fixed at 0, which a frame with no flag set launches, as render_mono.cu
-// describes, and 1 of the exact tier's rk4 with the flags fixed at
-// adaptive | disk, which BASELINE config 4's exact frame launches: 15).
-// One
-// thread traces one pixel (trace_ray.cuh) and writes its TraceResult:
-// final position and unit direction as fp32 (H, W, 3), status and step
-// count as int32 (H, W). On a TPU tile the step count cost a scratch plane
-// and its own kernel flavour; here status and steps are one register each,
-// so K4 and K5 are this one kernel, which always writes `steps` with the
-// oracle's meaning (i + 1 at termination). Status uses the oracle's codes,
-// STATUS_DISK included; a disk ray's position is its hit point, with the
-// black hole's y. For Kerr-Schild rays `vel` is the unit coordinate
-// direction dq/dl, not the momentum the loop carries.
+// `kernel` (K5, track_steps=True, body_fast) for the euler, rk4 and leapfrog
+// integrators, fixed or adaptive dt, the Schwarzschild, exact Kerr
+// (Kerr-Schild, K6), Lense-Thirring Kerr (K7) or flat metric, with or without
+// the accretion disk, in both math tiers (the Kerr-Schild loop a template
+// parameter: 12 instantiations, 2 more of Euler with the flags fixed at 0,
+// which a frame with no flag set launches, as render_mono.cu describes, 1 of
+// the exact tier's rk4 with the flags fixed at adaptive | disk, which
+// BASELINE config 4's exact frame launches, and 1 of the exact tier's
+// Kerr-Schild Euler with the flags fixed at Kerr-Schild | disk, which
+// BASELINE config 5's exact frame launches, its step testing only whether the
+// segment crosses the disk's plane (trace_ray.cuh DISK_APART): 16). One
+// thread traces one pixel (trace_ray.cuh) and writes its TraceResult: final
+// position and unit direction as fp32 (H, W, 3), status and step count as
+// int32 (H, W). On a TPU tile the step count cost a scratch plane and its own
+// kernel flavour; here status and steps are one register each, so K4 and K5
+// are this one kernel, which always writes `steps` with the oracle's meaning
+// (i + 1 at termination). Status uses the oracle's codes, STATUS_DISK
+// included; a disk ray's position is its hit point, with the black hole's y.
+// For Kerr-Schild rays `vel` is the unit coordinate direction dq/dl, not the
+// momentum the loop carries.
 //
 // Two ray-gen options of K4 that only multires reaches (bhr_tpu/ops/
 // multires.py), both runtime arguments of the one kernel, so that every
@@ -82,7 +84,7 @@ __global__ void __launch_bounds__(256)
     return;
   }
 
-  const Ray ray = trace_ray<FAST, INTEG, KS>(p, trace_flags<FLAGS>(flags), row, col, max_steps);
+  const Ray ray = trace_ray<FAST, INTEG, KS, FLAGS>(p, flags, row, col, max_steps);
 
   pos[3 * i + 0] = A::add(ray.rel.x, p.v[P_BH + 0]);
   pos[3 * i + 1] = A::add(ray.rel.y, p.v[P_BH + 1]);
@@ -95,8 +97,10 @@ __global__ void __launch_bounds__(256)
 }
 
 // The flags of BASELINE config 4's exact frame (rk4, adaptive dt, the
-// disk), whose launch has an instantiation of its own.
+// disk) and of config 5's (Euler, the Kerr-Schild loop, the disk), whose
+// exact launches have instantiations of their own.
 constexpr int kExactRk4Disk = kFlagAdaptive | kFlagDisk;
+constexpr int kExactKsDisk = kFlagKS | kFlagDisk;
 
 template <bool FAST, bool KS>
 void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params& params,
@@ -106,6 +110,9 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
     case kEuler:
       if (flags == 0) {  // the main path: its own instantiation, no flag tested a step
         trace_planes_kernel<FAST, kEuler, false, 0><<<grid, block, 0, s>>>(
+            params, flags, height, width, max_steps, mask, pos, vel, status, steps);
+      } else if (!FAST && KS && flags == kExactKsDisk) {  // config 5's exact frame
+        trace_planes_kernel<false, kEuler, true, kExactKsDisk><<<grid, block, 0, s>>>(
             params, flags, height, width, max_steps, mask, pos, vel, status, steps);
       } else {
         trace_planes_kernel<FAST, kEuler, KS><<<grid, block, 0, s>>>(
@@ -140,9 +147,10 @@ void launch(int integrator, dim3 grid, dim3 block, cudaStream_t s, const Params&
 // success); does not synchronise. `integrator` is an Integrator and `flags`
 // a TraceFlags mask of trace_ray.cuh (at most one of flat, kerr_lt and
 // Kerr-Schild). An Euler launch with no flag set runs the instantiation
-// whose flags are fixed at 0 at compile time, and an exact rk4 launch with
-// exactly kFlagAdaptive | kFlagDisk the one fixed at those (strided and
-// masked launches alike).
+// whose flags are fixed at 0 at compile time, an exact rk4 launch with
+// exactly kFlagAdaptive | kFlagDisk the one fixed at those, and an exact
+// Euler launch with exactly kFlagKS | kFlagDisk the one fixed at those
+// (strided and masked launches alike).
 extern "C" int bhr_trace_planes(bhr::Params params, int fast, int integrator, int flags,
                                 int height, int width, int max_steps, int device,
                                 const void* mask, void* pos, void* vel, void* status,

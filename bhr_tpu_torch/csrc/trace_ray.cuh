@@ -29,8 +29,9 @@
 // The integrator is a template parameter; the flat model, adaptive dt and
 // the disk are uniform runtime flags, which a kernel may fix at compile
 // time (its FLAGS template argument; the main path's Euler frame runs with
-// none set, BASELINE config 5's fast frame with the Kerr-Schild loop and
-// the disk): the flag tests then fold away, and the loop a step runs is the
+// none set, BASELINE config 4's exact frame with adaptive dt and the disk,
+// config 5's fast and exact frames with the Kerr-Schild loop and the
+// disk): the flag tests then fold away, and the loop a step runs is the
 // same code with fewer instructions.
 //
 // Two Kerr models (ROADMAP item 9; replacing the K6 and K7 parts of the TPU
@@ -469,6 +470,32 @@ __device__ __forceinline__ bool disk_crossing(Vec3 old, Vec3 nw, float r_isco, f
     hit = h;
     return hr >= r_isco && hr <= r_outer;
   }
+}
+
+// The rest of disk_crossing<false> on a segment that crosses y = 0, with t's
+// quotient and the hit's root as one group behind one guard (common.cuh):
+// the common paths of __fdiv_rn and __fsqrt_rn, and the rare group the guard
+// turns away by the intrinsics, so every value has their bits.
+__device__ __forceinline__ bool disk_hit_exact(Vec3 old, Vec3 nw, float r_isco, float r_outer,
+                                               Vec3& hit) {
+  using A = Arith<false>;
+  const float oy = old.y;
+  const float den = A::sub(nw.y, oy);
+  const auto at = [&](float t) -> Vec3 {
+    return {A::add(old.x, A::mul(t, A::sub(nw.x, old.x))),
+            A::add(old.y, A::mul(t, A::sub(nw.y, old.y))),
+            A::add(old.z, A::mul(t, A::sub(nw.z, old.z)))};
+  };
+  Vec3 h = at(div_by_rcp(-oy, den, rcp_rn_shared(den)));
+  const float x = dot<false>(h, h);
+  float hr = sqrt_rn_seq(x);
+  if (quotient_group_outside(magnitude_window(oy) | magnitude_window(den) | magnitude_window(x),
+                             den)) {
+    h = at(__fdiv_rn(-oy, den));
+    hr = __fsqrt_rn(dot<false>(h, h));
+  }
+  hit = h;
+  return hr >= r_isco && hr <= r_outer;
 }
 
 // ---- the ray ------------------------------------------------------------------
@@ -917,9 +944,16 @@ __device__ __forceinline__ Vec3 ks_direction(Vec3 q, Vec3 p, const KsConst& k) {
 // coordinate direction, evaluated at the disk hit point for a disk ray
 // (exact: the oracle's interpolated point; fast: y = 0, pallas_trace.py
 // :1134-1146); the returned rel of a disk ray has y = 0.
-template <bool FAST, int INTEG>
+//
+// DISK_APART (the exact tier): a step tests only whether the segment
+// crosses y = 0, and a step that does takes the rest of the crossing in
+// disk_hit_exact, its quotient and root one group. The same values; the
+// step's path has no crossing result to carry and test, so it issues fewer
+// instructions. trace_ray takes it for a kernel whose flags are fixed.
+template <bool FAST, int INTEG, bool DISK_APART = false>
 __device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row, int col,
                                             int max_steps) {
+  static_assert(!(FAST && DISK_APART), "the fast tier's crossing has one layout");
   using A = Arith<FAST>;
   Ray ray;
   Vec3 d;
@@ -966,13 +1000,26 @@ __device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row,
     }
     Vec3 nq, np;
     ks_step<FAST, INTEG>(ray.rel, mom, ks_geom<FAST>(ray.rel, g, k), dt, k, nq, np);
-    Vec3 hit;
-    if (disk && disk_crossing<FAST>(ray.rel, nq, r_isco, r_outer, hit)) {
-      dir_at = hit;
-      ray.rel = {hit.x, 0.0f, hit.z};
-      mom = np;
-      ray.status = kOnDisk;
-      break;
+    if constexpr (DISK_APART) {
+      if (disk && A::mul(ray.rel.y, nq.y) < 0.0f) {  // the segment crosses y = 0
+        Vec3 hit;
+        if (disk_hit_exact(ray.rel, nq, r_isco, r_outer, hit)) {
+          dir_at = hit;
+          ray.rel = {hit.x, 0.0f, hit.z};
+          mom = np;
+          ray.status = kOnDisk;
+          break;
+        }
+      }
+    } else {
+      Vec3 hit;
+      if (disk && disk_crossing<FAST>(ray.rel, nq, r_isco, r_outer, hit)) {
+        dir_at = hit;
+        ray.rel = {hit.x, 0.0f, hit.z};
+        mom = np;
+        ray.status = kOnDisk;
+        break;
+      }
     }
     ray.rel = nq;
     mom = np;
@@ -981,14 +1028,18 @@ __device__ __forceinline__ Ray trace_ray_ks(const Params& p, int flags, int row,
   return ray;
 }
 
-// One ray of either loop: the Kerr-Schild one (KS) or the acceleration one.
-template <bool FAST, int INTEG, bool KS>
+// One ray of either loop: the Kerr-Schild one (KS) or the acceleration one,
+// traced with trace_flags<FLAGS>(flags), the kernel's FLAGS template
+// argument. An exact Kerr-Schild kernel whose flags are fixed takes the
+// crossing test apart (trace_ray_ks's DISK_APART).
+template <bool FAST, int INTEG, bool KS, int FLAGS = kFlagsAtLaunch>
 __device__ __forceinline__ Ray trace_ray(const Params& p, int flags, int row, int col,
                                          int max_steps) {
   if constexpr (KS) {
-    return trace_ray_ks<FAST, INTEG>(p, flags, row, col, max_steps);
+    constexpr bool apart = !FAST && FLAGS != kFlagsAtLaunch;
+    return trace_ray_ks<FAST, INTEG, apart>(p, trace_flags<FLAGS>(flags), row, col, max_steps);
   } else {
-    return trace_ray_accel<FAST, INTEG>(p, flags, row, col, max_steps);
+    return trace_ray_accel<FAST, INTEG>(p, trace_flags<FLAGS>(flags), row, col, max_steps);
   }
 }
 

@@ -78,6 +78,8 @@ _FLAG_LT = 8  # kerr_lt: the Lense-Thirring drag
 _FLAG_KS = 16  # kerr: the Kerr-Schild Hamiltonian loop
 # BASELINE config 4's exact frame: rk4 with adaptive dt and the disk
 _EXACT_RK4_DISK = _FLAG_ADAPTIVE | _FLAG_DISK
+# BASELINE config 5's exact frame: Euler, the Kerr-Schild loop and the disk
+_EXACT_KS_DISK = _FLAG_KS | _FLAG_DISK
 
 
 def monolithic_eligible(config: TraceConfig, scene: SceneParams, *, fast_math: bool, skybox,
@@ -162,11 +164,13 @@ def trace_flags(config: TraceConfig) -> int:
 def planes_flags_fixed(integrator: str, flags: int, fast_math: bool) -> bool:
     """Does a trace_planes launch with these arguments run an instantiation
     whose flags are fixed at compile time (csrc/trace_planes.cu `launch`)?
-    An Euler launch with no flag set does, in either tier, and so does an
-    exact rk4 launch with exactly adaptive dt and the disk (whole, strided
-    or masked, a plugin's build too)."""
-    return (integrator == "euler" and flags == 0) or (
-        not fast_math and integrator == "rk4" and flags == _EXACT_RK4_DISK)
+    An Euler launch with no flag set does, in either tier, and so do an
+    exact rk4 launch with exactly adaptive dt and the disk and an exact
+    Euler launch with exactly the Kerr-Schild loop and the disk (whole,
+    strided or masked, a plugin's build too)."""
+    return (integrator == "euler" and flags == 0) or not fast_math and (
+        (integrator == "rk4" and flags == _EXACT_RK4_DISK)
+        or (integrator == "euler" and flags == _EXACT_KS_DISK))
 
 
 def _check_mono_config(config: TraceConfig, scene: SceneParams, fast_math: bool) -> None:

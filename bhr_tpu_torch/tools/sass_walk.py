@@ -335,9 +335,11 @@ def tag_text(tag) -> str:
 def launched_function(funcs: dict, kernel: str, fast: bool, integ: str, flags: int):
     """(name, tag) of the instantiation a launch of these arguments runs: the
     one with its flags fixed at `flags` where the build has it (the C
-    entries launch one for an Euler frame with no flag set, and
-    render_mono.cu one for a fast Euler Kerr-Schild frame with the disk
-    alone), else the one that reads them at run time."""
+    entries launch one for an Euler frame with no flag set, render_mono.cu
+    one for a fast Euler Kerr-Schild frame with the disk alone, and
+    trace_planes.cu one for an exact rk4 frame with adaptive dt and the disk
+    alone and one for an exact Euler Kerr-Schild frame with the disk alone),
+    else the one that reads them at run time."""
     ks = bool(flags & FLAG_KS)
     found = {}
     for name in funcs:

@@ -7,9 +7,11 @@ their compiled code.
 Each ROOT is a checkout of the repo. First, once per distinct ROOT, the
 compiled code (needs nvcc; the SASS needs cuobjdump beside it or on PATH):
 * nvcc -cubin of ROOT's csrc/render_mono.cu and csrc/trace_planes.cu with
-  utils/build.py's flags: -Xptxas -v registers, stack and spills of every
-  instantiation, and a hash of each instantiation's SASS (equal hashes
-  across roots: the same code);
+  utils/build.py's flags, and of trace_planes.cu once more with the header
+  utils/plugin.py records from the paczynski_wiita.py plugin: -Xptxas -v
+  registers, stack and spills of every instantiation, and each
+  instantiation's sass_walk.function_hash (`sass_hash`, the plugin build's
+  under "custom:"; equal hashes across roots: the same code);
 * the step each case's launch really runs (`routes`): sass_walk.py's
   walk_step follows the kernel that the launch selects, as built, from its
   entry with the launch's flags known, resolving every branch they decide,
@@ -18,8 +20,11 @@ compiled code (needs nvcc; the SASS needs cuobjdump beside it or on PATH):
   included;
 * the same for the geodesic loop built apart as a small kernel (`steps`):
   trace_ray.cuh's loop (the acceleration loop, or the Kerr-Schild one with
-  FLAG_KS) once more per (tier, integrator, flags) with the flags fixed at
-  compile time (FLAGS_OF_CASE); and the opcodes of one __fdiv_rn, one
+  FLAG_KS) once more per (tier, integrator, flags) with the flags a
+  compile-time constant (FLAGS_OF_CASE) passed as a value, so in the
+  layout of a kernel that reads them at run time (an exact Kerr-Schild
+  kernel whose FLAGS are fixed takes the disk test apart, which `routes`
+  sees and this does not); and the opcodes of one __fdiv_rn, one
   __fdiv_rn(1, x) and one __fsqrt_rn (ALONE).
 Then one process per ROOT, in the order given, builds ROOT's kernels as
 the package does and times each case of CASES (the main path's
@@ -213,23 +218,34 @@ def _instantiations() -> str:
         f"(const Params, const int, float* __restrict__);" for f, i, fl in _walk_kernels()])
 
 
+def plugin_header(root: str) -> str:
+    """The CUDA header utils/plugin.py records from ROOT's copy of PLUGIN."""
+    from bhr_tpu_torch.utils import plugin
+
+    return plugin.cuda_source(plugin.load_plugin(os.path.join(root, PLUGIN))[0])
+
+
 def static(root: str, nvcc: str, cuobjdump: str | None, flags: list,
-           sass_dir: str | None = None) -> dict:
-    """Registers, spills and SASS hashes of ROOT's two geodesic sources, the
-    walked step of each kernel of _walk_kernels(), and the step each case's
-    launch runs in the kernels as built."""
+           sass_dir: str | None = None, header: str = "") -> dict:
+    """Registers, spills and SASS hashes of ROOT's two geodesic sources and
+    of trace_planes.cu built with the plugin's `header`, the walked step of
+    each kernel of _walk_kernels(), and the step each case's launch runs in
+    the kernels as built."""
     csrc = Path(root).resolve() / "bhr_tpu_torch" / "csrc"
     tmp = Path(tempfile.mkdtemp(prefix="time_trace_"))
     walk_cu = tmp / "walk.cu"
     walk_cu.write_text(WALK_SOURCE % _instantiations())
+    (tmp / "plugin.cuh").write_text(header)
     jobs = {"render_mono": [csrc / "render_mono.cu"], "trace_planes": [csrc / "trace_planes.cu"],
+            "trace_planes_custom": ["-I", str(csrc), "-include", str(tmp / "plugin.cuh"),
+                                    csrc / "trace_planes.cu"],
             "walk": ["-I", str(csrc), walk_cu]}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         done = {k: pool.submit(sw.run, [nvcc, *flags, "-o", str(tmp / f"{k}.cubin"), *map(str, v)])
                 for k, v in jobs.items()}
         logs = {k: f.result().stdout + f.result().stderr for k, f in done.items()}
     out = {"ptxas": {k: sw.ptxas_summary(logs[k])
-                     for k in ("render_mono", "trace_planes")}}
+                     for k in ("render_mono", "trace_planes", "trace_planes_custom")}}
     if cuobjdump is None:
         out["sass"] = "cuobjdump not found"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -240,16 +256,17 @@ def static(root: str, nvcc: str, cuobjdump: str | None, flags: list,
         tag = re.sub(r"[^A-Za-z0-9]+", "_", str(Path(root).resolve())).strip("_")
         for k, text in listings.items():
             Path(sass_dir, f"{tag}.{k}.sass").write_text(text)
-    funcs = {k: sw.parse_sass(listings[k]) for k in ("render_mono", "trace_planes")}
+    funcs = {k: sw.parse_sass(listings[k])
+             for k in ("render_mono", "trace_planes", "trace_planes_custom")}
     for k in funcs:
         for name, ins in funcs[k].items():
             tag = sw.kernel_tag(name)
             if not tag:
                 continue
-            text = "\n".join(f"{x.pred or ''} {x.op} {x.target}" for x in ins)
-            hashes[sw.tag_text(tag)] = hashlib.sha256(text.encode()).hexdigest()[:16]
-            totals[sw.tag_text(tag)] = {"instructions": len(ins),
-                                     "mufu": sum(x.op.startswith("MUFU") for x in ins)}
+            key = ("custom:" if k == "trace_planes_custom" else "") + sw.tag_text(tag)
+            hashes[key] = sw.function_hash(ins)
+            totals[key] = {"instructions": len(ins),
+                           "mufu": sum(x.op.startswith("MUFU") for x in ins)}
     walk = sw.parse_sass(listings["walk"])
     steps = {}
     for fast, integ, fl in _walk_kernels():
@@ -507,7 +524,7 @@ def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # this checkout
     nvcc, cuobjdump, flags = _tools()
     with concurrent.futures.ThreadPoolExecutor(len(set(roots))) as pool:
-        statics = {r: pool.submit(static, r, nvcc, cuobjdump, flags, sass_dir)
+        statics = {r: pool.submit(static, r, nvcc, cuobjdump, flags, sass_dir, plugin_header(r))
                    for r in dict.fromkeys(roots)}
         statics = {r: f.result() for r, f in statics.items()}
     for root in roots:

@@ -55,7 +55,9 @@ a kernel's wrapper right after a successful launch, and nowhere else:
   launch.trace_planes.ks          (.ks.fast); and those that run an
   launch.trace_planes.ks.fast     instantiation with its flags fixed at
   launch.trace_planes.fixed       compile time (.fixed: Euler with no flag,
-                                  exact rk4 with adaptive dt and the disk)
+                                  exact rk4 with adaptive dt and the disk,
+                                  exact Euler with the Kerr-Schild loop and
+                                  the disk)
   launch.neural_mlp               neural_render_packed; of those, bands
   launch.neural_mlp.band
   launch.neural_mlp.dirs          neural_trace_dirs

@@ -37,8 +37,11 @@ renderer's paths:
     the whole plain frame, then 2 orbit frames with no host sync, each held
     against the plain version on a band of 256 rows through the shadow and
     the disk (the whole plain frame takes about a minute); each fast frame
-    one launch.render_mono.ks.fast; the fast launch's loop step as built
-    (the instantiation with the flags fixed at 20) and its issue floor
+    one launch.render_mono.ks.fast, each exact frame one
+    launch.trace_planes.fixed, the exact frame's planes, the frame and its
+    orbit frames with the output hashes pinned in EXACT5_SHA; each launch's
+    loop step as built (the instantiations with the flags fixed at 20,
+    beside the exact one that reads them at run time) and its issue floor
     beside the kernel's time;
   * kerr_lt at 1920x1080x500, spin 0.9, camera [15,5,0]: fast monolithic,
     exact staged, and its step heatmap;
@@ -184,6 +187,7 @@ Needs one CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import hashlib
 import json
 import os
 import re
@@ -198,6 +202,12 @@ W, H, STEPS = 1920, 1080, 500
 W5, H5, STEPS5 = 3840, 2160, 2000  # BASELINE config 5 (scripts/golden_diff.py:50-51)
 BAND5 = (H5 // 2 - 128, H5 // 2 + 128)  # rows held against the plain version per orbit frame
 CONFIG5_FRAMES = 2
+# BASELINE config 5's exact outputs, as they were before its launch took the
+# instantiation with its flags fixed (sha256 of the bytes, 16 hex digits, as
+# tools/time_trace.py's output_sha256): the planes of its frame, the frame,
+# and its CONFIG5_FRAMES orbit frames
+EXACT5_SHA = {"planes": "d971d8b272a95dc5", "frame": "cf2c9c47fcbea4b7", "orbit0": "cf2c9c47fcbea4b7",
+              "orbit1": "89edee72cb9265d8"}
 SPIN = 0.9
 SMALL = (160, 96, 200)
 N_FRAMES = 8
@@ -495,6 +505,14 @@ def bound(kernel: str, model: str, fast: bool, integrator: str, ray_steps: int, 
     t_ops = ops / PEAK_FP32 * 1e3
     t_bytes = pixels * BYTES_PER_PIXEL[kernel] / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sha16(*tensors) -> str:
+    """sha256 of the tensors' bytes in order, 16 hex digits."""
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
 
 
 def cuda_ms(fn, n_frames: int, repeats: int = 1) -> float:
@@ -905,26 +923,38 @@ def main() -> None:
         s.update(shares(plain_res))
         return s, k_res, plain_res
 
-    def issue(name, what, fast, flags, ws, ms, launch):
-        """The `name` line: the loop step a render_mono Euler launch with
+    def issue(name, what, fast, flags, ws, ms, launch, kernel="render_mono"):
+        """The `name` line: the loop step an Euler launch of `kernel` with
         these flags runs as built (tools/sass_walk.py route_step on the built
-        library's SASS), and the issue floor of `ws` warp-steps at the SM
-        clock read while launch() (about `ms` each) runs, against `ms`."""
+        library's SASS), beside the step of the instantiation that reads the
+        flags at run time where the launch runs one that fixes them, and the
+        issue floor of `ws` warp-steps at the SM clock read while launch()
+        (about `ms` each) runs, against `ms`."""
         if cuobjdump is None:
             phase(name, "not measured: no cuobjdump on PATH or beside nvcc to read the "
                   "built library's SASS")
             return
-        listing = sass_walk.sass_of(build.build("render_mono").path, cuobjdump)
-        route = sass_walk.route_step(sass_walk.parse_sass(listing), "render_mono", fast, "euler",
-                                     flags)
+        sources = build.TRACE_PLANES_SOURCES if kernel == "trace_planes" else \
+            build.RENDER_MONO_SOURCES
+        funcs = sass_walk.parse_sass(sass_walk.sass_of(build.build(kernel, sources).path,
+                                                       cuobjdump))
+        route = sass_walk.route_step(funcs, kernel, fast, "euler", flags)
+        runtime = ""
+        if "flags=" in route["function"]:
+            read = sass_walk.route_step({f: ins for f, ins in funcs.items()
+                                         if sass_walk.kernel_tag(f) and
+                                         sass_walk.kernel_tag(f)[4] is None},
+                                        kernel, fast, "euler", flags)
+            runtime = (f" (beside {read['function']}, the flags read at run time: "
+                       f"{read['step_instructions']} SASS / {read['step_mufu']} MUFU)")
         clock = sass_walk.sm_clock_under_load(launch, ms)
         floor = sass_walk.issue_floor_ms(route["step_instructions"], ws, sms,
                                          float(clock.split(",")[0]))
         phase(name, f"{route['function']} on {what}: {route['step_instructions']} SASS "
-              f"/ {route['step_mufu']} MUFU a loop step as built (walked along flags {flags}), "
-              f"{ws} warp-steps/frame, SM clock {clock.split(',')[0].strip()} MHz under load: "
-              f"issue floor {floor:.3f} ms against the kernel's {ms:.3f} ms, {floor / ms:.1%} "
-              f"of the issue rate, on {smi}")
+              f"/ {route['step_mufu']} MUFU a loop step as built (walked along flags {flags})"
+              f"{runtime}, {ws} warp-steps/frame, SM clock {clock.split(',')[0].strip()} MHz "
+              f"under load: issue floor {floor:.3f} ms against the kernel's {ms:.3f} ms, "
+              f"{floor / ms:.1%} of the issue rate, on {smi}")
 
     def animate(renderer, n_frames):
         """n_frames orbit frames with no host sync (sync debug mode
@@ -1252,6 +1282,8 @@ def main() -> None:
                                  f"{C[N_TRACE_KS_FAST]} fast) of {launches}")
         var.launched(kernel, fast, "euler", 1, "kerr")
         staged_shading("BASELINE 5", fast, 1)
+        if C[N_FIXED] != (0 if fast else 1):  # trace_planes<exact,euler,ks,flags=20>
+            raise AssertionError(f"BASELINE 5 {tier} counted {C[N_FIXED]} fixed-flag launches")
         if frame.shape != (H5, W5, 4):
             raise AssertionError(f"BASELINE 5 frame is {tuple(frame.shape)}")
         packed = frame.view(torch.int32).view(H5, W5)
@@ -1272,6 +1304,8 @@ def main() -> None:
                                     plain_res=plain)
             exact_bits["trace_planes<exact,euler,ks> config 5 frame"] = s["bit_same"]
             hold_bits("trace_planes<exact,euler,ks> config 5 planes", k5, plain)
+            hashes = {"planes": sha16(k5.final_pos, k5.final_vel, k5.status, k5.steps),
+                      "frame": sha16(packed)}
             del k5
         ray_steps = s["ray_steps"]
         if fast:
@@ -1287,9 +1321,12 @@ def main() -> None:
                   ray_steps=ray_steps, pixels=W5 * H5, disk=True,
                   config="BASELINE config 5: kerr spin 0.9, euler, fixed dt, disk, camera "
                          "[15,5,0], 3840x2160x2000")
-        if fast:  # warp-steps from the plain frame's steps, as the main path's line
-            issue("issue5", "BASELINE config 5", True, tk.trace_flags(renderer.config),
-                  sass_walk.warp_steps(torch, plain[1].steps), ms, launch)
+        # the loop step as built and its issue floor, warp-steps from the plain
+        # frame's steps, as the main path's line
+        issue("issue5" if fast else "issue5_exact", "BASELINE config 5", fast,
+              tk.trace_flags(renderer.config),
+              sass_walk.warp_steps(torch, (plain[1] if fast else plain).steps), ms, launch,
+              kernel)
         reset()
         frames, anim_ms, anim = animate(renderer, CONFIG5_FRAMES)
         n = C[N_MONO] if fast else C[N_TRACE]
@@ -1303,6 +1340,13 @@ def main() -> None:
                                  f"{C[N_TRACE_KS_FAST]} fast) of {n}")
         var.launched(kernel, fast, "euler", n, "kerr")
         staged_shading("BASELINE 5 animation", fast, n)
+        if C[N_FIXED] != (0 if fast else n):
+            raise AssertionError(f"BASELINE 5 {tier} animation counted {C[N_FIXED]} fixed-flag "
+                                 f"launches of {n}")
+        if not fast:
+            hashes.update({f"orbit{k}": sha16(f) for k, f in enumerate(frames)})
+            if hashes != EXACT5_SHA:
+                raise AssertionError(f"BASELINE 5 exact output hashes {hashes}, not {EXACT5_SHA}")
         band_stats = []
         for k, t in enumerate(anim.frame_times(CONFIG5_FRAMES)):
             cam = bt.orbit_camera(t)
@@ -1319,7 +1363,9 @@ def main() -> None:
               f"({ray_steps / (W5 * H5 * STEPS5):.4f} of the nominal W*H*max_steps); "
               f"OrbitAnimator {CONFIG5_FRAMES} frames {anim_ms:.3f} ms/frame with no host sync "
               f"(CUDA events, sync debug mode 'error'), rows {BAND5[0]}-{BAND5[1] - 1} of each "
-              f"held against the plain version: {json.dumps(band_stats)} on {smi}")
+              f"held against the plain version: {json.dumps(band_stats)}"
+              f"{'' if fast else f'; 1 {N_FIXED} a frame, output hashes {json.dumps(hashes)}'}"
+              f" on {smi}")
         del frames, renderer
 
     # 8. (b) kerr_lt at 1920x1080x500, spin 0.9, camera [15,5,0]: fast

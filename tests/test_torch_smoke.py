@@ -5,6 +5,7 @@ so dark sky that differs passes and a captured ray that is lit fails."""
 import dataclasses
 import importlib.util
 import os
+import re
 
 import pytest
 import torch
@@ -254,3 +255,20 @@ def test_neural_bound_of_the_direction_planes():
     want = max(ops / chip_smoke.PEAK_FP32, chip_smoke.DIRS_BYTES_PER_PIXEL / chip_smoke.PEAK_BYTES)
     got = chip_smoke.neural_bound(tiny, "schwarzschild", False, 1000, dirs=True)
     assert got[0] == pytest.approx(want * 1000 * 1e3)
+
+
+def test_sha16_hashes_the_bytes_in_order():
+    """chip_smoke's output hash is sha256 of the tensors' bytes in order, as
+    tools/time_trace.py's output_sha256, and EXACT5_SHA pins config 5's
+    exact planes, frame and each of its orbit frames."""
+    import hashlib
+
+    a = torch.arange(6, dtype=torch.int32).view(2, 3)
+    b = torch.tensor([1.5, -0.0])
+    want = hashlib.sha256(a.numpy().tobytes() + b.numpy().tobytes()).hexdigest()[:16]
+    assert chip_smoke.sha16(a, b) == want
+    assert chip_smoke.sha16(a.t().contiguous().t(), b) == want  # a copy of a, not its view
+    assert chip_smoke.sha16(b, a) != want
+    assert set(chip_smoke.EXACT5_SHA) == {"planes", "frame"} | {
+        f"orbit{k}" for k in range(chip_smoke.CONFIG5_FRAMES)}
+    assert all(re.fullmatch(r"[0-9a-f]{16}", v) for v in chip_smoke.EXACT5_SHA.values())

@@ -12,7 +12,8 @@ sweep and waves, on the CPU.
   floor, the mangled names of the instantiations, and which of them the
   route walk takes for every configuration chip_smoke.py drives.
 * trace_planes.cu's fixed-flag launches read from its source, the route
-  walked for config 4's exact cases (trace_planes<exact,rk4,flags=6>), and
+  walked for config 4's exact cases (trace_planes<exact,rk4,flags=6>) and
+  config 5's (trace_planes<exact,euler,ks,flags=20>), and
   launch.trace_planes.fixed against the instantiation each launch's own
   arguments select, on a stubbed library.
 """
@@ -228,11 +229,15 @@ def test_warp_steps_take_each_warps_longest_ray():
 
 PLUGIN_CONFIG = dict(model="custom", custom_accel=lambda *a: a[:3])
 # every configuration chip_smoke.py traces, with the flags fixed in the
-# instantiation its launch runs in the fast and in the exact tier (None: the
-# one that reads them at run time). The C entries launch the one fixed at 0
-# for an Euler frame with no flag set (the main path, the debug heatmap,
-# textures and multires at Euler, the plugin at Euler), and the one fixed at
-# 20 for a fast Euler Kerr-Schild frame with the disk alone (config 5).
+# render_mono instantiation its launch runs in the fast and in the exact tier
+# (None: the one that reads them at run time). The C entries launch the one
+# fixed at 0 for an Euler frame with no flag set (the main path, the debug
+# heatmap, textures and multires at Euler, the plugin at Euler), and
+# render_mono.cu the one fixed at 20 for a fast Euler Kerr-Schild frame with
+# the disk alone (config 5). trace_planes.cu launches, in the exact tier
+# alone, the one fixed at 6 for an rk4 frame with adaptive dt and the disk
+# alone (config 4) and the one fixed at 20 for an Euler Kerr-Schild frame
+# with the disk alone (config 5): DRIVEN_PLANES.
 MAIN, RUNTIME, CONFIG5 = (0, 0), (None, None), (20, None)
 DRIVEN = (
     [(dict(integrator=i, model=m, adaptive=a),
@@ -256,6 +261,14 @@ BUILT = {MANGLED.format(f"b{fast}ELi{i}ELb{ks}E{fl}"): []
                     ("Lin1E", "Li20E") if i == 0 and fast else ("Lin1E",))}
 
 
+# the trace_planes instantiation the same configurations launch in the fast
+# and in the exact tier
+CONFIG4_KW, CONFIG5_KW = dict(integrator="rk4", adaptive=True, disk=True), dict(model="kerr",
+                                                                              disk=True)
+DRIVEN_PLANES = [(kw, (None, 6) if kw == CONFIG4_KW else (None, 20) if kw == CONFIG5_KW
+                  else fixed if fixed == MAIN else RUNTIME) for kw, fixed in DRIVEN]
+
+
 def _launched(config, fast=True):
     return sw.launched_function(BUILT, "render_mono", fast, config.integrator,
                                 trace_kernel.trace_flags(config))
@@ -270,6 +283,21 @@ def test_launched_function_for_every_driven_configuration(kw, fixed):
         assert tag[4] == want
         if want is not None:
             assert trace_kernel.trace_flags(cfg) == want and cfg.integrator == "euler"
+
+
+@pytest.mark.parametrize("kw,fixed", DRIVEN_PLANES,
+                         ids=[str(i) for i in range(len(DRIVEN_PLANES))])
+def test_planes_launched_function_for_every_driven_configuration(kw, fixed):
+    cfg = bt.TraceConfig(**kw)
+    flags = trace_kernel.trace_flags(cfg)
+    for fast, want in zip((True, False), fixed):
+        _name, tag = sw.launched_function(BUILT_PLANES, "trace_planes", fast, cfg.integrator,
+                                          flags)
+        assert tag[:4] == ("trace_planes", fast, cfg.integrator, cfg.model == "kerr")
+        assert tag[4] == want
+        assert (want is not None) == trace_kernel.planes_flags_fixed(cfg.integrator, flags, fast)
+        if want is not None:
+            assert flags == want
 
 
 def test_the_renderer_main_path_is_the_fixed_one():
@@ -302,12 +330,15 @@ def test_time_trace_runs_as_a_script_without_the_package():
 PLANES_MANGLED = ("_ZN3bhr48_GLOBAL__N__0_15_trace_planes_cu_0818trace_planes_kernelIL{}"
                   "EEEvNS_6ParamsEiiiiPKfPfS4_PiS5_")
 # every instantiation trace_planes.cu builds: the 12 that read their flags at
-# run time, the 2 Euler ones with the flags fixed at 0 and the exact rk4 one
-# with the flags fixed at adaptive | disk (6), BASELINE config 4's
+# run time, the 2 Euler ones with the flags fixed at 0, the exact rk4 one
+# with the flags fixed at adaptive | disk (6), BASELINE config 4's, and the
+# exact Euler Kerr-Schild one with the flags fixed at Kerr-Schild | disk
+# (20), BASELINE config 5's
 BUILT_PLANES = {PLANES_MANGLED.format(f"b{fast}ELi{i}ELb{ks}E{fl}"): []
                 for fast in (0, 1) for i in range(3) for ks in (0, 1)
                 for fl in (("Lin1E", "Li0E") if i == 0 and not ks else
-                           ("Lin1E", "Li6E") if i == 1 and not ks and not fast else ("Lin1E",))}
+                           ("Lin1E", "Li6E") if i == 1 and not ks and not fast else
+                           ("Lin1E", "Li20E") if i == 0 and ks and not fast else ("Lin1E",))}
 TEMPLATE_ARGS = {"FAST": (True, False), "false": (False,), "true": (True,)}
 
 
@@ -315,7 +346,7 @@ def _fixed_launches_in_source() -> set:
     """(fast, integrator, flags) of every launch of trace_planes.cu whose
     instantiation fixes its flags, read from its source."""
     text = (Path(tt.__file__).resolve().parents[1] / "csrc" / "trace_planes.cu").read_text()
-    consts = {"kExactRk4Disk": 2 | 4}
+    consts = {"kExactRk4Disk": 2 | 4, "kExactKsDisk": 16 | 4}
     found = set()
     for args in re.findall(r"trace_planes_kernel<([^<>]+)><<<", text):
         parts = [a.strip() for a in args.split(",")]
@@ -328,8 +359,8 @@ def _fixed_launches_in_source() -> set:
 
 def test_the_source_fixes_the_flags_of_these_launches():
     assert _fixed_launches_in_source() == {(True, "euler", 0), (False, "euler", 0),
-                                           (False, "rk4", 6)}
-    assert {sw.kernel_tag(n)[4] for n in BUILT_PLANES} == {None, 0, 6}
+                                           (False, "rk4", 6), (False, "euler", 20)}
+    assert {sw.kernel_tag(n)[4] for n in BUILT_PLANES} == {None, 0, 6, 20}
     assert {(t[1], t[2], t[4]) for t in map(sw.kernel_tag, BUILT_PLANES)
             if t[4] is not None} == _fixed_launches_in_source()
 
@@ -346,9 +377,25 @@ def test_the_config4_route_walks_the_fixed_instantiation(case):
         == "trace_planes<exact,rk4>"
 
 
+def test_the_config5_route_walks_the_fixed_instantiation():
+    fast, integ, flags = tt.FLAGS_OF_CASE["config5_exact"]
+    _name, tag = sw.launched_function(BUILT_PLANES, "trace_planes", fast, integ, flags)
+    assert sw.tag_text(tag) == "trace_planes<exact,euler,ks,flags=20>"
+    # the parent's build, without it, runs the one that reads the flags
+    runtime = {n: [] for n in BUILT_PLANES if "Li20E" not in n}
+    assert sw.tag_text(sw.launched_function(runtime, "trace_planes", fast, integ, flags)[1]) \
+        == "trace_planes<exact,euler,ks>"
+    # and the fast tier's Kerr-Schild Euler trace with the disk reads them still
+    fast, integ, flags = tt.FLAGS_OF_CASE["ks_planes_euler_fast"]
+    _name, tag = sw.launched_function(BUILT_PLANES, "trace_planes", fast, integ, flags)
+    assert sw.tag_text(tag) == "trace_planes<fast,euler,ks>"
+
+
 CONFIG4 = dict(integrator="rk4", adaptive=True, disk=True)
+CONFIG5 = dict(model="kerr", disk=True)
 # (configuration keywords, fast_math, multires pass): the fixed instantiations'
-# launches, then their neighbours, which read their flags
+# launches, then their neighbours, which read their flags; then config 5's
+# exact launches, whole and in either pass, and their neighbours
 PLANES_LAUNCHES = [
     (dict(), False, None), (dict(), True, None), (dict(), False, "strided"),
     (CONFIG4, False, None), (CONFIG4, False, "strided"), (CONFIG4, False, "masked"),
@@ -358,6 +405,10 @@ PLANES_LAUNCHES = [
     (dict(CONFIG4, model="kerr"), False, None), (dict(integrator="rk4", adaptive=True), False,
                                                  None),
     (dict(integrator="rk4", disk=True), False, None),
+    (CONFIG5, False, None), (CONFIG5, False, "strided"), (CONFIG5, False, "masked"),
+    (CONFIG5, True, None), (dict(model="kerr"), False, None),
+    (dict(CONFIG5, adaptive=True), False, None), (dict(CONFIG5, integrator="leapfrog"), False,
+                                                  None),
 ]
 
 
@@ -398,5 +449,7 @@ def test_the_fixed_count_follows_the_launch_rule(monkeypatch, kw, fast, multires
     assert fixed == trace_kernel.planes_flags_fixed(integ, flags, fast_arg)
     want = (integ == "euler" and not kw) or (kw.get("model") in (None, "custom") and not fast
                                              and kw.get("disk") and kw.get("adaptive")
-                                             and integ == "rk4")
+                                             and integ == "rk4") or (
+        kw.get("model") == "kerr" and not fast and kw.get("disk") and not kw.get("adaptive")
+        and integ == "euler")
     assert fixed == bool(want)

@@ -140,7 +140,8 @@ KERR = T.TraceConfig(model="kerr", disk=True)
 DISK4 = dict(integrator="rk4", adaptive=True, disk=True)  # BASELINE config 4
 # trace_planes launches by (configuration, fast_math, multires pass): config
 # 4's exact rk4 runs the instantiation with its flags fixed at adaptive |
-# disk, whole or in either pass; each neighbour of it reads its flags
+# disk, and config 5's exact Euler the one fixed at Kerr-Schild | disk,
+# whole or in either pass; each neighbour of them reads its flags
 PLANES = {
     "config4_exact": (DISK4, False, None),
     "config4_exact.strided": (DISK4, False, "strided"),
@@ -153,6 +154,10 @@ PLANES = {
     "config4_exact.ks": (dict(DISK4, model="kerr"), False, None),
     "rk4_adaptive_exact": (dict(integrator="rk4", adaptive=True), False, None),
     "euler_fast": ({}, True, None),
+    "config5_exact.ks": (dict(model="kerr", disk=True), False, None),
+    "config5_exact.ks.strided": (dict(model="kerr", disk=True), False, "strided"),
+    "config5_exact.ks.masked": (dict(model="kerr", disk=True), False, "masked"),
+    "euler_exact.ks": (dict(model="kerr"), False, None),
 }
 
 
@@ -255,8 +260,8 @@ def _launch(what):
      "kernel.render_mono"),
     ("trace_planes", {"launch.trace_planes", "launch.trace_planes.fixed"},
      "kernel.trace_planes"),
-    ("trace_planes.ks", {"launch.trace_planes", "launch.trace_planes.ks"},
-     "kernel.trace_planes"),
+    ("trace_planes.ks", {"launch.trace_planes", "launch.trace_planes.ks",
+                         "launch.trace_planes.fixed"}, "kernel.trace_planes"),
     ("trace_planes.ks.fast", {"launch.trace_planes", "launch.trace_planes.ks",
                               "launch.trace_planes.ks.fast"}, "kernel.trace_planes"),
     ("strided", {"launch.trace_planes", "launch.trace_planes.strided",
@@ -280,6 +285,17 @@ def _launch(what):
     ("config4_exact.ks", {"launch.trace_planes", "launch.trace_planes.ks"}, "kernel.trace_planes"),
     ("rk4_adaptive_exact", {"launch.trace_planes"}, "kernel.trace_planes"),
     ("euler_fast", {"launch.trace_planes", "launch.trace_planes.fixed"}, "kernel.trace_planes"),
+    # config 5's exact frame (Euler, Kerr-Schild, the disk), whole and in either
+    # pass, and the exact Kerr-Schild Euler trace without the disk
+    ("config5_exact.ks", {"launch.trace_planes", "launch.trace_planes.ks",
+                          "launch.trace_planes.fixed"}, "kernel.trace_planes"),
+    ("config5_exact.ks.strided", {"launch.trace_planes", "launch.trace_planes.ks",
+                                  "launch.trace_planes.strided", "launch.trace_planes.fixed"},
+     "kernel.trace_planes"),
+    ("config5_exact.ks.masked", {"launch.trace_planes", "launch.trace_planes.ks",
+                                 "launch.trace_planes.masked", "launch.trace_planes.fixed"},
+     "kernel.trace_planes"),
+    ("euler_exact.ks", {"launch.trace_planes", "launch.trace_planes.ks"}, "kernel.trace_planes"),
     ("neural_mlp", {"launch.neural_mlp"}, "kernel.neural_mlp"),
     ("band", {"launch.neural_mlp", "launch.neural_mlp.band"}, "kernel.neural_mlp"),
     ("dirs", {"launch.neural_mlp.dirs"}, "kernel.neural_mlp"),
